@@ -1,0 +1,294 @@
+"""Split-serving engines: the paper's system, executing real PyTorch models.
+
+``DiffusionSplitEngine`` — iteration-granularity split (the paper's main
+system).  The cloud runs denoising iterations [0, n_final) for each
+request, batched within n_final groups (the n_step quantization is what
+makes groups batchable AND bounds the number of cached executables),
+then ships (latent fp32 + context fp16) through the transport layer.
+
+``DiffusionDeviceSim`` — the mobile side: decodes the payload, finishes
+[n_final, n_total) and runs the VAE decoder.
+
+Both measure their own executable-cache size, GPU-seconds and bytes
+shipped.  Counterpart of the diffusion half of ``repro/serving/engine.py``;
+the layer-granularity engines are not part of the port yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.core.cost_model import CostParams
+from repro_torch.core.planner import PlanRequest, Planner
+from repro_torch.core.telemetry import DeviceProfile
+from repro_torch.core.transport import (
+    LinkProfile,
+    WAN_LINK,
+    pack_boundary,
+    pack_boundary_wire,
+    rowwise_quantize_int8,
+    transmission_time,
+    unpack_boundary,
+)
+from repro_torch.models import diffusion as dif
+
+
+#: Unified stats schema — both engines report exactly these keys.
+#: ``gpu_seconds`` is steady-state execution only; warm-up is accounted
+#: separately in ``compile_seconds`` (an executable-cache miss warms the
+#: program BEFORE the timed region, so a request's cloud_seconds never
+#: includes first-call costs: allocator growth, cuDNN algorithm choice).
+ENGINE_STATS_KEYS = ("gpu_seconds", "compile_seconds", "bytes_shipped",
+                     "requests", "executables", "cache_hits",
+                     "cache_misses")
+
+
+def cuda_rowwise_int8(x: np.ndarray, device: DeviceLike = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int8 through the hand-written CUDA kernel
+    (``kernels/csrc/int8_quant.cu``): upload, launch, download.  This is
+    the ``rowwise`` hook ``pack_boundary_wire`` accepts, so engine
+    payloads are quantized by the accelerator kernel rather than numpy
+    (same values as ``transport.rowwise_quantize_int8``)."""
+    from repro_torch.kernels import ops
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"cuda_rowwise_int8 needs a CUDA device, got {dev}")
+    xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+    q, s = ops.int8_quantize(xt)
+    return q.cpu().numpy(), s.cpu().numpy()
+
+
+def _new_stats() -> Dict[str, Any]:
+    return {"gpu_seconds": 0.0, "compile_seconds": 0.0,
+            "bytes_shipped": 0, "requests": 0, "executables": 0,
+            "cache_hits": 0, "cache_misses": 0}
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: str
+    device: DeviceProfile
+    cond_tokens: np.ndarray          # (1, text_len)
+    uncond_tokens: np.ndarray
+
+
+@dataclasses.dataclass
+class SplitResult:
+    request_id: str
+    n_cloud: int
+    payload: bytes
+    cloud_seconds: float
+    transfer_seconds: float
+
+
+class DiffusionSplitEngine:
+    def __init__(self, params, cfg, cost: CostParams,
+                 link: LinkProfile = WAN_LINK, transfer_mode: str = "paper",
+                 planner: Optional[Planner] = None,
+                 wire: Optional[str] = None,
+                 device: DeviceLike = None):
+        #: where the model runs; ``None`` = the GPU (a missing GPU raises).
+        #: ``params`` must already lie there
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.cost = cost
+        self.link = link
+        self.transfer_mode = transfer_mode
+        #: wire-format name (core.transport.WIRE_FORMATS): when set it
+        #: overrides ``transfer_mode`` and payloads ship through
+        #: ``pack_boundary_wire`` with the CUDA int8 kernel as the
+        #: row-wise quantizer; None keeps the legacy pack_boundary modes
+        self.wire = wire
+        #: the ``rowwise=`` hook: the kernel on a GPU engine, its plain
+        #: numpy version on a CPU engine
+        self._rowwise = (
+            functools.partial(cuda_rowwise_int8, device=self.device)
+            if self.device.type == "cuda" else rowwise_quantize_int8)
+        # the shared decision-maker: assign() delegates here, so the
+        # engine runs the exact per-request policy the simulators and
+        # the fleet planner use (pass a shared Planner to keep one
+        # adaptive-SLA state across engines).  solve_c_batch=cost.c_batch
+        # because this engine EXECUTES groups batched (process_group):
+        # the split must be sized for the batched rate
+        self.planner = planner if planner is not None else Planner(
+            cost, policy="variable", solve_c_batch=cost.c_batch)
+        self._exec_cache: Dict[Tuple[int, int], Callable] = {}
+        self.stats = _new_stats()
+
+    # -- executable cache: one warmed program per (n_final, batch) ---------
+    def _denoise_fn(self, n_cloud: int, batch: int, latent, ctx2):
+        """Return the denoise callable for this key.  There is nothing to
+        compile: a miss stores a plain callable and runs ONE untimed
+        ``denoise_step`` at this batch as warm-up, charged to
+        stats["compile_seconds"] — so process_group's timed region
+        measures steady-state execution only."""
+        key = (n_cloud, batch)
+        cached = self._exec_cache.get(key)
+        if cached is not None:
+            self.stats["cache_hits"] += 1
+            return cached
+        self.stats["cache_misses"] += 1
+        cfg = self.cfg
+
+        def fn(params, latent, ctx2):
+            return dif.denoise_range(params, cfg, latent, ctx2, 0, n_cloud)
+        t0 = time.perf_counter()
+        dif.denoise_step(self.params, cfg, latent, ctx2, 0)
+        _sync(self.device)
+        self.stats["compile_seconds"] += time.perf_counter() - t0
+        self._exec_cache[key] = fn
+        self.stats["executables"] = len(self._exec_cache)
+        return fn
+
+    def assign(self, device: DeviceProfile) -> int:
+        """Thin delegate into the unified planner: split solve + step
+        quantization (sized at ``cost.c_batch`` — see __init__), through
+        the planner's memoized hot path."""
+        return self.planner.plan_profile(device).n_final
+
+    def plan(self, device: DeviceProfile):
+        """Full ``PlanDecision`` for one device (JSON-serializable, with
+        the explain() trace) — what assign() is a projection of."""
+        return self.planner.plan(PlanRequest(device=device))
+
+    def process_group(self, requests: List[Request], n_cloud: int,
+                      seed: int = 0,
+                      latent: Optional[np.ndarray] = None
+                      ) -> List[SplitResult]:
+        """Run one batched group at the same n_cloud.
+
+        The starting latent is drawn from a ``torch.Generator`` seeded
+        with ``seed`` on the engine's device, unless ``latent``
+        (B, C, H, W) is handed in."""
+        if not requests:
+            return []
+        cfg = self.cfg
+        dev = self.device
+        B = len(requests)
+        shape = (B, cfg.latent_channels, cfg.latent_size, cfg.latent_size)
+        with torch.inference_mode():
+            cond = torch.from_numpy(np.concatenate(
+                [r.cond_tokens for r in requests])).to(dev)
+            uncond = torch.from_numpy(np.concatenate(
+                [r.uncond_tokens for r in requests])).to(dev)
+            ctx2 = dif.encode_prompt(self.params, cfg, cond, uncond)
+            if latent is None:
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                lat = torch.randn(shape, generator=gen, device=dev)
+            else:
+                if tuple(latent.shape) != shape:
+                    raise ValueError(f"latent shape {tuple(latent.shape)} "
+                                     f"!= {shape}")
+                lat = torch.from_numpy(
+                    np.array(latent, np.float32)).to(dev)   # own copy
+            gpu_s = 0.0
+            if n_cloud > 0:
+                run = self._denoise_fn(n_cloud, B, lat, ctx2)  # warm first
+                _sync(dev)
+                t0 = time.perf_counter()
+                lat = run(self.params, lat, ctx2)
+                _sync(dev)
+                gpu_s = time.perf_counter() - t0
+            lat_np = lat.float().cpu().numpy()
+            ctx_np = ctx2.float().cpu().numpy()
+        results = []
+        for i, r in enumerate(requests):
+            need_ctx = n_cloud < cfg.n_total_iterations
+            ctx_i = ctx_np[:, i] if need_ctx else None
+            if self.wire is not None:
+                payload = pack_boundary_wire(lat_np[i], ctx_i, self.wire,
+                                             rowwise=self._rowwise)
+            else:
+                payload = pack_boundary(lat_np[i], ctx_i,
+                                        mode=self.transfer_mode)
+            t_net = transmission_time(len(payload), self.link)
+            results.append(SplitResult(
+                request_id=r.request_id, n_cloud=n_cloud, payload=payload,
+                cloud_seconds=gpu_s / B, transfer_seconds=t_net))
+            self.stats["bytes_shipped"] += len(payload)
+        self.stats["gpu_seconds"] += gpu_s
+        self.stats["requests"] += B
+        return results
+
+    def serve(self, requests: List[Request], seed: int = 0
+              ) -> Dict[str, SplitResult]:
+        """Schedule + group + execute a batch of requests."""
+        groups: Dict[int, List[Request]] = {}
+        for r in requests:
+            groups.setdefault(self.assign(r.device), []).append(r)
+        out: Dict[str, SplitResult] = {}
+        for n_cloud, members in sorted(groups.items()):
+            for res in self.process_group(members, n_cloud, seed):
+                out[res.request_id] = res
+        return out
+
+
+class DiffusionDeviceSim:
+    """The mobile side: receives the payload, finishes [n_cloud, n_total)
+    and decodes the VAE — on the same host, standing in for the device."""
+
+    def __init__(self, params, cfg, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self._finish_cache: Dict[Tuple[int, int], Callable] = {}
+        self.stats = _new_stats()
+
+    def complete(self, result: SplitResult) -> torch.Tensor:
+        cfg = self.cfg
+        dev = self.device
+        lat, ctx = unpack_boundary(result.payload)
+        with torch.inference_mode():
+            latent = torch.from_numpy(lat).to(dev)
+            if lat.ndim == 3:
+                latent = latent[None]
+            n0 = result.n_cloud
+            if ctx is not None:
+                ctx2 = torch.from_numpy(
+                    np.ascontiguousarray(ctx, np.float32)).to(dev)
+                if ctx.ndim == 3:
+                    ctx2 = ctx2[:, None]
+            else:
+                ctx2 = torch.zeros((2, latent.shape[0], cfg.text_len,
+                                    cfg.text_width), dtype=torch.float32,
+                                   device=dev)
+            key = (n0, latent.shape[0])
+            run = self._finish_cache.get(key)
+            if run is None:
+                self.stats["cache_misses"] += 1
+
+                def run(params, latent, ctx2):
+                    out = dif.denoise_range(params, cfg, latent, ctx2, n0,
+                                            cfg.n_total_iterations)
+                    return dif.apply_vae_decoder(params["vae"], cfg, out)
+                # warm-up in place of a compile: one VAE decode at this
+                # batch, untimed for gpu_seconds
+                t0 = time.perf_counter()
+                dif.apply_vae_decoder(self.params["vae"], cfg, latent)
+                _sync(dev)
+                self.stats["compile_seconds"] += time.perf_counter() - t0
+                self._finish_cache[key] = run
+                self.stats["executables"] = len(self._finish_cache)
+            else:
+                self.stats["cache_hits"] += 1
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = run(self.params, latent, ctx2)
+            _sync(dev)
+            self.stats["gpu_seconds"] += time.perf_counter() - t0
+            self.stats["requests"] += latent.shape[0]
+        return out

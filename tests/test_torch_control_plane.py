@@ -1,0 +1,123 @@
+"""Port parity: the port's own copies of the control plane decide and
+encode exactly as the reference's modules do, and the port imports
+nothing of the reference or of JAX."""
+import ast
+import dataclasses
+import json
+import pathlib
+
+import numpy as np
+import pytest
+
+from repro.core import cost_model as ref_cost
+from repro.core import planner as ref_planner
+from repro.core import telemetry as ref_telemetry
+from repro.core import transport as ref_transport
+from repro_torch.core import cost_model, planner, telemetry, transport
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+COPIED = ("cost_model", "telemetry", "capacity", "admission", "scheduler",
+          "planner", "transport")
+
+
+def _cost(mod, t_lim):
+    return mod.CostParams(r_cloud=40.0, n_total=50, n_step=5, t_lim=t_lim,
+                          k_decode=1.0)
+
+
+@pytest.mark.parametrize("name", COPIED)
+def test_copies_differ_only_in_the_import_prefix(name):
+    ref = (ROOT / "src/repro/core" / f"{name}.py").read_text()
+    own = (ROOT / "src/repro_torch/core" / f"{name}.py").read_text()
+    assert own == ref.replace("repro.", "repro_torch.")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("t_lim", [1.5, 3.0, 8.0])
+def test_planner_decides_identically(seed, t_lim):
+    ref_fleet = ref_telemetry.generate_fleet(64, 2.25, 0.8, seed=seed)
+    fleet = telemetry.generate_fleet(64, 2.25, 0.8, seed=seed)
+    assert [dataclasses.asdict(d) for d in fleet] == [
+        dataclasses.asdict(d) for d in ref_fleet]
+    ref_cp, cp = _cost(ref_cost, t_lim), _cost(cost_model, t_lim)
+    ref_pl = ref_planner.Planner(ref_cp, policy="variable",
+                                 solve_c_batch=ref_cp.c_batch)
+    pl = planner.Planner(cp, policy="variable", solve_c_batch=cp.c_batch)
+    assert pl.config_json() == ref_pl.config_json()
+    for ref_d, d in zip(ref_fleet, fleet):
+        assert (pl.plan_profile(d).n_final
+                == ref_pl.plan_profile(ref_d).n_final)
+        got = pl.plan(planner.PlanRequest(device=d)).to_json()
+        want = ref_pl.plan(ref_planner.PlanRequest(device=ref_d)).to_json()
+        assert json.dumps(got, sort_keys=True) == json.dumps(
+            want, sort_keys=True)
+
+
+def _boundary(seed, with_context=True):
+    rng = np.random.default_rng(seed)
+    latent = rng.standard_normal((4, 8, 8)).astype(np.float32) * 2
+    context = (rng.standard_normal((2, 16, 64)).astype(np.float32)
+               if with_context else None)
+    return latent, context
+
+
+@pytest.mark.parametrize("fmt", sorted(ref_transport.WIRE_FORMATS))
+@pytest.mark.parametrize("with_context", [True, False])
+def test_wire_payloads_are_byte_equal(fmt, with_context):
+    assert sorted(transport.WIRE_FORMATS) == sorted(
+        ref_transport.WIRE_FORMATS)
+    latent, context = _boundary(5, with_context)
+    got = transport.pack_boundary_wire(latent, context, fmt)
+    want = ref_transport.pack_boundary_wire(latent, context, fmt)
+    assert got == want
+    lat, ctx = transport.unpack_boundary(got)
+    ref_lat, ref_ctx = ref_transport.unpack_boundary(want)
+    np.testing.assert_array_equal(lat, ref_lat)
+    assert (ctx is None) == (ref_ctx is None) == (not with_context)
+    if with_context:
+        np.testing.assert_array_equal(ctx, ref_ctx)
+
+
+@pytest.mark.parametrize("mode", ["paper", "int8"])
+def test_legacy_payloads_are_byte_equal(mode):
+    latent, context = _boundary(6)
+    assert (transport.pack_boundary(latent, context, mode=mode)
+            == ref_transport.pack_boundary(latent, context, mode=mode))
+
+
+def test_sizes_and_times_are_equal():
+    shapes = {"latent": (4, 64, 64), "context": (2, 77, 768)}
+    for fmt in ("fp32", "fp16", "int8", "topk"):
+        assert (transport.wire_nbytes(shapes, fmt)
+                == ref_transport.wire_nbytes(shapes, fmt))
+    with pytest.raises(ValueError):
+        transport.wire_nbytes(shapes, "int8_zlib")
+    for link, ref_link in ((transport.WAN_LINK, ref_transport.WAN_LINK),
+                           (transport.LOCAL_LINK, ref_transport.LOCAL_LINK),
+                           (transport.MOBILE_LINK,
+                            ref_transport.MOBILE_LINK)):
+        assert dataclasses.asdict(link) == dataclasses.asdict(ref_link)
+        for n in (0, 1, 1448, 16_569, 134_973, 10_000_000):
+            assert (transport.transmission_time(n, link)
+                    == ref_transport.transmission_time(n, ref_link))
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0], node.lineno
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = sorted((ROOT / "src/repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    banned = {"jax", "jaxlib", "repro", "flax", "optax"}
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {root}"
+           for p in files for root, line in _imported_roots(p)
+           if root in banned]
+    assert not bad, bad
