@@ -3,11 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, then drives the
-port's main path once at the full width of the Stable-Diffusion-v1
-config: a split-serving engine answers 8 requests with int8 boundary
-payloads, and the device side completes one request of each group.
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+and holds each against its plain PyTorch version on the card.  Then it
+drives the port's two serving paths, each at full published width:
+
+  * diffusion (Stable-Diffusion-v1): a split-serving engine answers 8
+    requests with int8 boundary payloads, and the device side completes
+    one request of each group;
+  * layer split (RecurrentGemma-9B, 38 layers, bf16): the cloud engine
+    runs groups [0, g) of 4 requests of 4096 tokens at g = 6 and of one
+    request at g = 0 and g = 12, ships the fp16 hidden state, and the
+    device side finishes each; the flash-attention and RG-LRU kernels
+    carry every attention and recurrent layer.  One more g = 6 round then
+    runs under ``torch.profiler`` (phase ``lm_profile``): device time by
+    kernel class and the device's idle share.
 
 Each phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}``, then the card's name and power limit as
@@ -31,6 +40,7 @@ import torch
 # are stated against these, whatever the card's power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 MAIN_PATH_SHAPES = ((4, 4096), (2, 59136))     # latent, context per request
 RAGGED_SHAPES = ((509, 256), (1, 8), (130, 64))
@@ -39,6 +49,54 @@ SEED = 0
 # Images lie in [-1, 1]; the split run and the one-machine run do the same
 # fp32 arithmetic on the same card, so they should agree far inside this.
 SPLIT_ATOL = 1e-3
+
+# The layer-split path: full-width RecurrentGemma-9B, uncut.
+LM_ARCH = "recurrentgemma-9b"
+LM_BATCH, LM_SEQ = 4, 4096
+# jax.eval_shape of the reference's init_params for this config (the
+# analytic ModelConfig.param_count() says 5,915,025,408)
+LM_PARAMETERS = 7_714_385_920
+LM_PARAMETER_BYTES = 15_430_041_600
+# the reference's fp16-boundary tolerance (tests/test_serving.py)
+LM_SPLIT_ATOL, LM_SPLIT_RTOL = 0.15, 0.1
+# kernels against plain versions over the whole 38-layer forward, as the
+# relative L2 error of the last-token logits.  The check that can see a
+# kernel's fault runs in fp32 (every parameter cast to fp32, request 0),
+# where both kernels agree with their plain versions to a few 1e-6 and
+# nothing is rounded to bf16 between layers.  Measured 5.5e-6 on an H100
+# (PERF.md); the limit is about nine times that
+LM_FP32_PLAIN_REL_L2 = 5e-5
+# The bf16 forward as served (4 requests) is held to its plain versions
+# too, but that distance is rounding noise: any difference in the last
+# bits flips some bf16 roundings, which 38 layers of random bf16 weights
+# carry to ~2 % of the logits (PERF.md: the scan alone, 3.8e-6 from its
+# plain version, moves them 1.98e-2).  So it gets a loose limit, and the
+# bf16 forward through the kernels may lie at most LM_FP32_RATIO times
+# as far from the fp32 forward as the one through the plain versions.
+LM_PLAIN_REL_L2 = 3e-2
+LM_FP32_RATIO = 1.5
+# the reference's kernel grids (tests/test_kernels.py) and tolerances
+FLASH_GRID = (
+    (2, 256, 256, 4, 2, 64, True, 0),
+    (1, 128, 384, 8, 8, 128, True, 0),
+    (2, 256, 256, 4, 1, 80, True, 64),
+    (1, 128, 128, 2, 2, 128, False, 0),
+    (1, 512, 512, 3, 3, 64, True, 128),
+)
+# ragged tails the kernel masks by bounds (no tile divides these lengths),
+# d = 16, and a kv_len below Skv: (case, kv_len)
+FLASH_RAGGED = (
+    ((2, 100, 100, 4, 1, 16, True, 32), None),
+    ((1, 77, 203, 6, 2, 32, False, 0), 150),
+)
+# (atol, rtol).  fp32 as tests/test_kernels.py holds the Pallas kernel.
+# In bf16 kernel and plain version both accumulate in fp32 and round the
+# output once, so they differ by at most one bf16 step (2^-7 relative) of
+# the output: rtol 2e-2 covers that, and atol 2e-3 is set against the
+# path's outputs (std ~0.04 where a query sees 2048 keys), not against 1
+FLASH_TOL = {torch.float32: (5e-6, 5e-6), torch.bfloat16: (2e-3, 2e-2)}
+RGLRU_GRID = ((2, 128, 256), (1, 512, 128), (3, 96, 200))
+RGLRU_ATOL = 2e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -69,8 +127,9 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
     info = _build.build_library()
     _build.load_library()
+    keep = ("registers", "spill", "Compiling entry")
     ptxas = [ln.strip() for ln in info.log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+             if any(k in ln for k in keep)]
     emit("build", seconds=info.seconds, compiled=info.compiled,
          sources=info.sources, ptxas=ptxas)
     if not info.compiled:
@@ -362,6 +421,434 @@ def phase_device(params, cfg, cost, link, results, groups) -> None:
                                "atol": SPLIT_ATOL})
 
 
+def _within(got: torch.Tensor, want: torch.Tensor, atol: float,
+            rtol: float) -> bool:
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def flash_bound(B, Hq, Hkv, Sq, Skv, d, causal, window, itemsize):
+    """Least time for one call: the larger of q, k, v read and o written
+    once over the memory rate, and 4 d operations (two products) for
+    each unmasked (query, key) pair over the bf16 tensor-core rate."""
+    q_pos = np.arange(Sq)
+    hi = np.minimum(q_pos + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(Sq)
+    pairs = float(np.clip(hi - lo, 0, None).sum())
+    flops = 4.0 * B * Hq * d * pairs
+    nbytes = (2 * B * Hq * Sq * d + 2 * B * Hkv * Skv * d) * itemsize
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def rglru_bound(B, S, W):
+    """a and b read, h written, fp32; two operations an element."""
+    nbytes = 3 * B * S * W * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * B * S * W / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def lm_path_shapes():
+    """The shapes the layer-split path gives the two kernels."""
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    flash = (LM_BATCH, LM_SEQ, LM_SEQ, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim(), True, cfg.window)
+    return cfg, flash, (LM_BATCH, LM_SEQ, cfg.rglru.lru_width)
+
+
+def phase_lm_kernels() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as lru
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    _, flash_path, lru_path = lm_path_shapes()
+    # the path's head_dim, window and length in fp32, one request (the
+    # d = 256 instantiation is held to the fp32 tolerance here)
+    flash_path32 = (1,) + flash_path[1:]
+
+    def qkv(B, Sq, Skv, Hq, Hkv, D, dtype):
+        def n(*shape):
+            return torch.randn(shape, generator=gen,
+                               device="cuda").to(dtype)
+        return n(B * Hq, Sq, D), n(B * Hkv, Skv, D), n(B * Hkv, Skv, D)
+
+    flash_checks = []
+    path_inputs = None
+    cases = [(c, None, dt) for c in FLASH_GRID for dt in FLASH_TOL]
+    cases += [(c, kv_len, dt) for c, kv_len in FLASH_RAGGED
+              for dt in FLASH_TOL]
+    cases.append((flash_path32, None, torch.float32))
+    cases.append((flash_path, None, torch.bfloat16))
+    for case, kv_len, dtype in cases:
+        B, Sq, Skv, Hq, Hkv, D, causal, window = case
+        q, k, v = qkv(B, Sq, Skv, Hq, Hkv, D, dtype)
+        o = fa.flash_attention(q, k, v, causal=causal, window=window,
+                               kv_len=kv_len)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      kv_len=kv_len)
+        atol, rtol = FLASH_TOL[dtype]
+        diff = o.float() - want.float()
+        err = float(diff.abs().max())
+        flash_checks.append({
+            "shape": list(case), "kv_len": kv_len, "dtype": str(dtype),
+            "max_abs_err": err, "atol": atol, "rtol": rtol,
+            "rel_l2": float(diff.norm() / want.float().norm()),
+            "out_std": float(want.float().std())})
+        if o.dtype != dtype or not _within(o, want, atol, rtol):
+            raise RuntimeError(f"flash_attention{case} {dtype} disagrees "
+                               f"with its plain version: max|d|={err}")
+        del o, want, diff
+        if case == flash_path:
+            path_inputs = (q, k, v)
+
+    lru_checks = []
+    for (B, S, W), with_h0 in [(c, True) for c in RGLRU_GRID] + [
+            (lru_path, False)]:
+        a = 0.8 + 0.199 * torch.rand((B, S, W), generator=gen, device="cuda")
+        b = torch.randn((B, S, W), generator=gen, device="cuda")
+        h0 = (torch.randn((B, W), generator=gen, device="cuda")
+              if with_h0 else None)
+        h = lru.rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        err = float((h - lru.rglru_scan_ref(a, b, h0)).abs().max())
+        lru_checks.append({"shape": [B, S, W], "h0": with_h0,
+                           "max_abs_err": err, "atol": RGLRU_ATOL})
+        if not err <= RGLRU_ATOL:
+            raise RuntimeError(f"rglru_scan{(B, S, W)} disagrees with its "
+                               f"plain version: max|d|={err}")
+    lru_inputs = (a, b)
+
+    # times at the path's shapes; kernel and plain version in turns
+    B, Sq, Skv, Hq, Hkv, D, causal, window = flash_path
+    q, k, v = path_inputs
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device="cuda").tril()
+    mask &= ~torch.ones_like(mask).tril(-window)
+
+    def run_kernel():
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+    def run_plain():
+        return fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    def run_library():
+        # a yardstick only: the port never calls it
+        return F.scaled_dot_product_attention(
+            q.view(B, Hq, Sq, D), k.view(B, Hkv, Skv, D),
+            v.view(B, Hkv, Skv, D), attn_mask=mask, enable_gqa=True)
+    lib_err = float((run_library().reshape(q.shape).float()
+                     - run_plain().float()).abs().max())
+    plain_a = time_ms(run_plain, inner=2, samples=5)
+    kern_a = time_ms(run_kernel, inner=2, samples=5)
+    kern_b = time_ms(run_kernel, inner=2, samples=5)
+    plain_b = time_ms(run_plain, inner=2, samples=5)
+    library = time_ms(run_library, inner=2, samples=5)
+    bound_ms, bound_by, nbytes, flops = flash_bound(
+        B, Hq, Hkv, Sq, Skv, D, causal, window, q.element_size())
+    flash_entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86",
+        "launches": None,                     # filled in by lm_serve
+        "max_abs_err": flash_checks[-1]["max_abs_err"],
+        "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
+        "library_call": "F.scaled_dot_product_attention(enable_gqa=True, "
+                        "boolean causal-window mask)",
+        "library_max_abs_err_vs_plain": lib_err,
+        "timed": f"one RecurrentGemma-9B attention layer {list(flash_path)} "
+                 "bf16; median of 5 x 2 calls, best of 2",
+        "bytes": nbytes, "flops": flops,
+    }
+
+    a, b = lru_inputs
+    plain_a = time_ms(lambda: lru.rglru_scan_ref(a, b), inner=2, samples=5)
+    kern_a = time_ms(lambda: lru.rglru_scan(a, b), inner=2, samples=5)
+    kern_b = time_ms(lambda: lru.rglru_scan(a, b), inner=2, samples=5)
+    plain_b = time_ms(lambda: lru.rglru_scan_ref(a, b), inner=2, samples=5)
+    bound_ms, bound_by, nbytes = rglru_bound(*lru_path)
+    lru_entry = {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:43",
+        "launches": None,                     # filled in by lm_serve
+        "max_abs_err": lru_checks[-1]["max_abs_err"],
+        "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        # no single PyTorch call computes a linear recurrence
+        "library_ms": None,
+        "timed": f"one RecurrentGemma-9B recurrent layer {list(lru_path)} "
+                 "fp32, h0 None as the model passes it; median of 5 x 2 "
+                 "calls, best of 2",
+        "bytes": nbytes,
+    }
+    emit("lm_kernels", flash_checks=flash_checks, rglru_checks=lru_checks,
+         flash_attention=flash_entry, rglru_scan=lru_entry)
+    return {"flash_attention": flash_entry, "rglru_scan": lru_entry}
+
+
+def _layers_run(cfg, start: int, stop: int) -> dict:
+    """Kernel launches one run of ``run_layer_range(start, stop)`` makes:
+    one a layer of each kind, and the tail whenever ``stop == G``."""
+    kinds = list(cfg.block_pattern) * (stop - start)
+    if stop == cfg.num_groups():
+        kinds += list(cfg.tail_pattern())
+    return {"flash_attention": kinds.count("attn"),
+            "rglru_scan": kinds.count("rec")}
+
+
+class plain_versions:
+    """Within the block, the named wrappers ("flash_attention",
+    "rglru_scan") run their plain versions on CUDA tensors, so the
+    model's forward can be held against itself without those kernels on
+    this card."""
+
+    def __init__(self, *names):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import rglru_scan as lru
+        modules = {"flash_attention": fa, "rglru_scan": lru}
+        self._swaps = [(modules[n], n, getattr(modules[n], n + "_ref"))
+                       for n in names]
+
+    def __enter__(self):
+        self._saved = [getattr(m, n) for m, n, _ in self._swaps]
+        for m, n, plain in self._swaps:
+            setattr(m, n, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), kernel in zip(self._swaps, self._saved):
+            setattr(m, n, kernel)
+        return False
+
+
+def phase_lm_serve(entries: dict):
+    from repro_torch.core.segmentation import hidden_payload_bytes
+    from repro_torch.core.transport import WAN_LINK
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as lru
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import LayerSplitDevice, LayerSplitEngine
+
+    cfg, _, _ = lm_path_shapes()
+    G = cfg.num_groups()
+    t0 = time.perf_counter()
+    params = tr.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+
+    def walk(tree):
+        for v in tree.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+    walk(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    if (n_params, n_bytes) != (LM_PARAMETERS, LM_PARAMETER_BYTES):
+        raise RuntimeError(f"{LM_ARCH}: {n_params} parameters in "
+                           f"{n_bytes} B, the reference's tree holds "
+                           f"{LM_PARAMETERS} in {LM_PARAMETER_BYTES} B")
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)).astype(np.int32)
+    cloud = LayerSplitEngine(params, cfg, link=WAN_LINK, device="cuda")
+    device = LayerSplitDevice(params, cfg, device="cuda")
+    # the paper's split at the middle group for the whole batch, and the
+    # two ends of the range (all on the device, all in the cloud) for one
+    # request, the split points tests/test_serving.py uses
+    plan = ((G // 2, tokens), (0, tokens[:1]), (G, tokens[:1]))
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.launch_count = 0
+    lru.launch_count = 0
+    expected = {"flash_attention": 0, "rglru_scan": 0}
+    splits, logits = [], {}
+    t_serve = time.perf_counter()
+    for g, toks in plan:
+        cloud_before, device_before = dict(cloud.stats), dict(device.stats)
+        payload, t_net = cloud.process({"tokens": toks}, g)
+        out = device.complete(payload, g)
+        torch.cuda.synchronize()
+        logits[g] = out
+        split = {"group": g, "batch": toks.shape[0],
+                 "payload_bytes": payload.nbytes, "t_net_seconds": t_net}
+        for name, side, (start, stop), before in (
+                ("cloud", cloud, (0, g), cloud_before),
+                ("device", device, (g, G), device_before)):
+            runs = 2 if side.stats["cache_misses"] > before[
+                "cache_misses"] else 1           # a miss warms up first
+            per_run = _layers_run(cfg, start, stop)
+            for kname, n in per_run.items():
+                expected[kname] += runs * n
+            split[name] = {
+                "gpu_seconds": side.stats["gpu_seconds"]
+                - before["gpu_seconds"],
+                "compile_seconds": side.stats["compile_seconds"]
+                - before["compile_seconds"],
+                "runs": runs, "launches_per_run": per_run}
+        want_bytes = hidden_payload_bytes(cfg, toks.shape[0], LM_SEQ, 2)
+        if payload.nbytes != want_bytes or payload.dtype != np.float16:
+            raise RuntimeError(f"g={g}: payload of {payload.nbytes} B "
+                               f"{payload.dtype}, expected {want_bytes} B "
+                               "fp16")
+        splits.append(split)
+    serve_s = time.perf_counter() - t_serve
+    launches = {"flash_attention": fa.launch_count,
+                "rglru_scan": lru.launch_count}
+    peak = torch.cuda.max_memory_allocated()
+    if launches != expected or 0 in launches.values():
+        raise RuntimeError(f"layer-split path launched {launches}, "
+                           f"expected {expected}")
+    for name, n in launches.items():
+        entries[name]["launches"] = n
+
+    # one machine, same tokens, same kernels: forward_hidden + head
+    kernels = ops.kernel_registry()
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    hidden, _, _ = tr.forward_hidden(params, batch, cfg, kernels=kernels)
+    want = tr.unembed(params, hidden[:, -1:], cfg)
+    # at g == G the reference's engines run the tail layers on both sides
+    # (run_layer_range runs the tail whenever stop_group == G); the port
+    # keeps that, so that split is held to the same forward with the tail
+    # run twice
+    pos = torch.arange(LM_SEQ, device="cuda")
+    x = tr.run_layer_range(params, tr.embed_inputs(
+        params, {"tokens": batch["tokens"][:1]}, cfg), cfg, None,
+        start_group=0, stop_group=G, positions=pos, kernels=kernels)
+    x = tr.run_layer_range(params, x, cfg, None, start_group=G,
+                           stop_group=G, positions=pos, kernels=kernels)
+    want_tail_twice = tr.unembed(
+        params, tr.apply_norm(params["final_norm"], x)[:, -1:], cfg)
+    targets = {G // 2: (want, "forward_hidden + unembed"),
+               0: (want[:1], "forward_hidden + unembed"),
+               G: (want_tail_twice, "one machine, tail twice as in the "
+                   "split")}
+    for split in splits:
+        g = split["group"]
+        target, what = targets[g]
+        err = float((logits[g].float() - target.float()).abs().max())
+        split.update(logit_max_abs_err=err, compared_with=what)
+        if not _within(logits[g], target, LM_SPLIT_ATOL, LM_SPLIT_RTOL):
+            raise RuntimeError(f"g={g}: split logits differ from {what} "
+                               f"by {err}")
+        if not bool(torch.isfinite(logits[g]).all()):
+            raise RuntimeError(f"g={g}: non-finite logits")
+
+    # the same forward through the plain versions, on this card: both at
+    # once (the check), then each alone (how far one kernel's rounding
+    # carries through the 38 layers)
+    V = cfg.vocab_size
+
+    def rel_l2(got, ref):
+        diff = got[..., :V].float() - ref[..., :V].float()
+        return float(diff.norm() / ref[..., :V].float().norm())
+
+    vs_plain, plain_both = {}, None
+    both = ("flash_attention", "rglru_scan")
+    for names in (both, ("flash_attention",), ("rglru_scan",)):
+        counts = (fa.launch_count, lru.launch_count)
+        with plain_versions(*names):
+            hidden_p, _, _ = tr.forward_hidden(params, batch, cfg,
+                                               kernels=kernels)
+            plain = tr.unembed(params, hidden_p[:, -1:], cfg).float()
+        torch.cuda.synchronize()
+        launched = {"flash_attention": fa.launch_count - counts[0],
+                    "rglru_scan": lru.launch_count - counts[1]}
+        if launched != {k: 0 if k in names else n
+                        for k, n in _layers_run(cfg, 0, G).items()}:
+            raise RuntimeError(f"plain_versions{names}: launched {launched}")
+        vs_plain["plain " + " + ".join(names)] = {
+            "logits_rel_l2": rel_l2(want, plain),
+            "logits_max_abs_err": float((want.float() - plain).abs().max())}
+        if names == both:
+            plain_both = plain
+    del hidden_p
+    kernels_vs_plain = vs_plain["plain flash_attention + rglru_scan"][
+        "logits_rel_l2"]
+    if not kernels_vs_plain <= LM_PLAIN_REL_L2:
+        raise RuntimeError(f"kernels vs plain versions: relative L2 error "
+                           f"of the logits {kernels_vs_plain} > "
+                           f"{LM_PLAIN_REL_L2}")
+
+    # every parameter cast to fp32, request 0: the forward through the
+    # kernels against the one through the plain versions (the check that
+    # can see a kernel's fault), and the latter as exact arithmetic for
+    # the bf16 forwards
+    params32 = _tree_map(lambda t: t.float(), params)
+    batch0 = {"tokens": batch["tokens"][:1]}
+
+    def forward32():
+        hidden32, _, _ = tr.forward_hidden(params32, batch0, cfg,
+                                           kernels=kernels)
+        return tr.unembed(params32, hidden32[:, -1:], cfg)
+    counts = (fa.launch_count, lru.launch_count)
+    kernels32 = forward32()
+    torch.cuda.synchronize()
+    launched = {"flash_attention": fa.launch_count - counts[0],
+                "rglru_scan": lru.launch_count - counts[1]}
+    if launched != _layers_run(cfg, 0, G):
+        raise RuntimeError(f"fp32 forward launched {launched}")
+    with plain_versions(*both):
+        exact = forward32()
+    torch.cuda.synchronize()
+    del params32
+    torch.cuda.empty_cache()
+    fp32_vs_plain = {
+        "logits_rel_l2": rel_l2(kernels32, exact),
+        "logits_max_abs_err": float((kernels32[..., :V].float()
+                                     - exact[..., :V].float()).abs().max()),
+        "logits_rms": float(exact[..., :V].float().square().mean().sqrt())}
+    if not fp32_vs_plain["logits_rel_l2"] <= LM_FP32_PLAIN_REL_L2:
+        raise RuntimeError(f"fp32 forward, kernels vs plain versions: "
+                           f"relative L2 error of the logits "
+                           f"{fp32_vs_plain['logits_rel_l2']} > "
+                           f"{LM_FP32_PLAIN_REL_L2}")
+    vs_fp32 = {"kernels": rel_l2(want[:1], exact),
+               "plain versions": rel_l2(plain_both[:1], exact)}
+    if not vs_fp32["kernels"] <= LM_FP32_RATIO * vs_fp32["plain versions"]:
+        raise RuntimeError(f"bf16 forward against fp32: relative L2 error "
+                           f"{vs_fp32['kernels']} through the kernels, "
+                           f"{vs_fp32['plain versions']} through the plain "
+                           f"versions (limit {LM_FP32_RATIO}x)")
+    emit("lm_serve", config=cfg.name, parameters=n_params,
+         parameter_bytes=n_bytes, init_seconds=init_s, batch=LM_BATCH,
+         seq=LM_SEQ, groups=G, tail=list(cfg.tail_pattern()),
+         serve_seconds=serve_s, splits=splits, launches=launches,
+         launches_expected=expected, engine_stats=cloud.stats,
+         device_stats=device.stats, peak_memory_bytes=peak,
+         fp32_kernels_vs_plain=fp32_vs_plain,
+         limit_fp32_rel_l2=LM_FP32_PLAIN_REL_L2,
+         kernels_vs_plain=vs_plain, limit_rel_l2=LM_PLAIN_REL_L2,
+         bf16_vs_fp32_rel_l2=vs_fp32, limit_fp32_ratio=LM_FP32_RATIO)
+    return cloud, device, tokens
+
+
+def phase_lm_profile(cloud, device, tokens) -> None:
+    """One more round of the served batch at g = G // 2, through the
+    warm engines of ``lm_serve``, under ``torch.profiler``."""
+    from repro_torch.serving.profile_split import profile_round
+    cfg = cloud.cfg
+    out = profile_round(cloud, device, tokens, cfg.num_groups() // 2)
+    if out["device_seconds"] is None:
+        raise RuntimeError("the profiler recorded no device activity")
+    cloud_run = _layers_run(cfg, 0, out["group"])
+    device_run = _layers_run(cfg, out["group"], cfg.num_groups())
+    per_run = {k: n + device_run[k] for k, n in cloud_run.items()}
+    if out["wrapper_launches"] != per_run:
+        raise RuntimeError(f"profiled round launched "
+                           f"{out['wrapper_launches']}, expected {per_run}")
+    emit("lm_profile", **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -377,7 +864,12 @@ def main() -> int:
         kernel_entry = phase_kernels()
         served = phase_serve(kernel_entry)
         phase_device(*served)
-    print(json.dumps({"kernels": [kernel_entry]}), flush=True)
+        del served
+        torch.cuda.empty_cache()
+        lm_entries = phase_lm_kernels()
+        phase_lm_profile(*phase_lm_serve(lm_entries))
+    print(json.dumps({"kernels": [kernel_entry, lm_entries["flash_attention"],
+                                  lm_entries["rglru_scan"]]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

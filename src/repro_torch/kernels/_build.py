@@ -122,6 +122,15 @@ def load_library() -> ctypes.CDLL:
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     lib.repro_int8_quantize_rows.argtypes = [vp, vp, vp, ll, ll, vp]
     lib.repro_int8_quantize_rows.restype = ctypes.c_int
+    # q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal, window, scale,
+    # dtype, stream
+    lib.repro_flash_attention.argtypes = [
+        vp, vp, vp, vp, ll, ll, ll, ll, ll, ll, ctypes.c_int, ll,
+        ctypes.c_float, ctypes.c_int, vp]
+    lib.repro_flash_attention.restype = ctypes.c_int
+    # a, b, h0 (or None), h, B, S, W, stream
+    lib.repro_rglru_scan.argtypes = [vp, vp, vp, vp, ll, ll, ll, vp]
+    lib.repro_rglru_scan.restype = ctypes.c_int
     return lib
 
 

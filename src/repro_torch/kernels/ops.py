@@ -3,14 +3,48 @@ them (counterpart of ``repro/kernels/ops.py``).
 
   * device dispatch — the hand-written CUDA kernel for a CUDA tensor,
     the plain PyTorch version for a CPU tensor;
-  * no hardware padding: the kernels handle ragged shapes by bounds.
+  * no hardware padding: the kernels handle ragged shapes by bounds;
+  * layout adaptation — models use (B, S, H, D); the attention kernel
+    uses (B*H, S, D) with head minor.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int8_quant as _q8
+from repro_torch.kernels import rglru_scan as _lru
+
+
+# --------------------------------------------------------------------------
+# Flash attention (prefill): model layout (B, S, H, D)
+# --------------------------------------------------------------------------
+def flash_attention(q, k, v, *, causal=True, window=0):
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    qf = q.transpose(1, 2).reshape(B * Hq, Sq, D).contiguous()
+    kf = k.transpose(1, 2).reshape(B * Hkv, Skv, D).contiguous()
+    vf = v.transpose(1, 2).reshape(B * Hkv, Skv, D).contiguous()
+    o = _fa.flash_attention(qf, kf, vf, causal=causal, window=window,
+                            softmax_scale=D ** -0.5)
+    return o.reshape(B, Hq, Sq, D).transpose(1, 2)
+
+
+# --------------------------------------------------------------------------
+# RG-LRU scan: (B, S, W) fp32 — drop-in for models.rglru.lru_scan_ref
+# --------------------------------------------------------------------------
+def rglru_scan(a, b, h0=None):
+    return _lru.rglru_scan(a.contiguous(), b.contiguous(),
+                           None if h0 is None else h0.contiguous())
+
 
 # --------------------------------------------------------------------------
 # int8 boundary quantization
 # --------------------------------------------------------------------------
 int8_quantize = _q8.int8_quantize
 int8_dequantize = _q8.int8_dequantize
+
+
+def kernel_registry():
+    """``kernel_fn`` entries for models.transformer, as the engines pass
+    them: the dispatching wrappers, which the blocks also take when no
+    entry is given (the SSD entry arrives with its kernel)."""
+    return {"rglru": rglru_scan}

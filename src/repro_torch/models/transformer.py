@@ -1,0 +1,310 @@
+"""Decoder-only LM: the shared block machinery and the full-sequence
+forward of the LM zoo.
+
+Counterpart of ``repro/models/transformer.py`` for the layer-split
+serving path.  The parameter tree is the reference's: block parameters
+are stacked over "pattern groups" (``cfg.block_pattern`` tiled), so every
+leaf under ``params["blocks"]`` has a leading dimension ``G =
+cfg.num_groups()``; the remainder layers (``cfg.tail_pattern()``) sit
+unstacked under ``params["tail"]``.  A tree initialised in JAX converts
+leaf for leaf (``repro_torch.convert.from_jax_params``).  The reference's
+``lax.scan`` over groups is a Python loop over the stacked dimension
+here; PyTorch runs eagerly, so there is nothing to compile or to remat.
+
+``run_layer_range`` is the paper's segmentation hook: the cloud runs
+groups ``[0, g)``, ships the hidden state, the device runs ``[g, G)``.
+
+Ported so far: attention (self-attention) and RG-LRU blocks, dense
+MLPs.  SSD blocks come with the next slice; MoE, encoder-decoder,
+modality frontends and decode (KV caches) after it (ROADMAP A5, A7).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models.common import (
+    apply_norm,
+    apply_rope,
+    dense_init,
+    embed_init,
+    init_norm,
+    pdtype,
+)
+from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.models.moe import LOCAL_CTX, ShardCtx
+
+Params = Dict[str, Any]
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _tree_stack(trees: List[Any]) -> Any:
+    """Stack the leaves of same-shaped trees along a new leading dim."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _tree_index(tree: Any, i: int) -> Any:
+    """Slice ``i`` of every leaf's leading dimension (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ==========================================================================
+# Block init
+# ==========================================================================
+def init_attn_block(generator, cfg, cross: bool = False,
+                    device=None) -> Params:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim()
+    dt = pdtype(cfg)
+    if cross:
+        raise _not_ported("cross-attention (encoder-decoder)", "A5")
+    p: Params = {
+        "norm1": init_norm(cfg, d, device),
+        "wq": dense_init(generator, (d, cfg.num_heads, hd), dt, fan_in=d,
+                         device=device),
+        "wk": dense_init(generator, (d, cfg.num_kv_heads, hd), dt, fan_in=d,
+                         device=device),
+        "wv": dense_init(generator, (d, cfg.num_kv_heads, hd), dt, fan_in=d,
+                         device=device),
+        "wo": dense_init(generator, (cfg.num_heads, hd, d), dt,
+                         fan_in=cfg.num_heads * hd, device=device),
+        "norm2": init_norm(cfg, d, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((cfg.num_heads, hd), device=device)
+        p["bk"] = torch.zeros((cfg.num_kv_heads, hd), device=device)
+        p["bv"] = torch.zeros((cfg.num_kv_heads, hd), device=device)
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.init_moe(generator, cfg, device)
+    else:
+        p["mlp"] = init_mlp(generator, cfg, device=device)
+    return p
+
+
+def init_block(kind: str, generator, cfg, cross: bool = False,
+               device=None) -> Params:
+    if kind == "attn":
+        return init_attn_block(generator, cfg, cross=cross, device=device)
+    if kind == "rec":
+        return {
+            "norm1": init_norm(cfg, cfg.d_model, device),
+            "rglru": rglru_lib.init_rglru_block(generator, cfg, device),
+            "norm2": init_norm(cfg, cfg.d_model, device),
+            "mlp": init_mlp(generator, cfg, device=device),
+        }
+    if kind == "ssd":
+        raise _not_ported("the SSD (Mamba-2) block", "A5, next slice")
+    raise ValueError(kind)
+
+
+def init_params(cfg, generator: torch.Generator,
+                device: DeviceLike = None) -> Params:
+    """Random parameters drawn from ``generator`` and placed on ``device``
+    (``None`` = the GPU), in the reference's tree: group-stacked blocks,
+    unstacked tail, padded-vocab embedding and head."""
+    dev = resolve_device(device)
+    G = cfg.num_groups()
+    if cfg.encoder_layers:
+        raise _not_ported("the encoder of encoder-decoder models", "A5")
+    blocks = {
+        f"b{i}": _tree_stack([init_block(kind, generator, cfg, device=dev)
+                              for _ in range(G)])
+        for i, kind in enumerate(cfg.block_pattern)
+    }
+    tail = {
+        f"t{i}": init_block(kind, generator, cfg, device=dev)
+        for i, kind in enumerate(cfg.tail_pattern())
+    }
+    params: Params = {
+        "embed": embed_init(generator, (cfg.padded_vocab(), cfg.d_model),
+                            pdtype(cfg), dev),
+        "blocks": blocks,
+        "final_norm": init_norm(cfg, cfg.d_model, dev),
+    }
+    if tail:
+        params["tail"] = tail
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(
+            generator, (cfg.d_model, cfg.padded_vocab()), pdtype(cfg),
+            device=dev)
+    if cfg.frontend is not None and cfg.frontend.embed_dim != cfg.d_model:
+        params["frontend_proj"] = dense_init(
+            generator, (cfg.frontend.embed_dim, cfg.d_model), pdtype(cfg),
+            device=dev)
+    return params
+
+
+# ==========================================================================
+# Block apply — full-sequence mode (prefill)
+# ==========================================================================
+def _qkv(p, h, cfg, positions, ctx=None):
+    q = torch.einsum("bsd,dhe->bshe", h, p["wq"])
+    k = torch.einsum("bsd,dhe->bshe", h, p["wk"])
+    v = torch.einsum("bsd,dhe->bshe", h, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
+                         enc_out=None, return_kv=False):
+    """Full-sequence attention block.  Returns (x, aux, kv | None)."""
+    if enc_out is not None:
+        raise _not_ported("cross-attention (encoder-decoder)", "A5")
+    h = apply_norm(p["norm1"], x)
+    q, k, v = _qkv(p, h, cfg, positions, ctx)
+    window = cfg.window if cfg.attention_kind == "swa" else 0
+    # positions here are always arange(S)
+    o = attn_lib.self_attention(q, k, v, causal=causal, window=window)
+    x = x + torch.einsum("bshe,hed->bsd", o, p["wo"])
+    h2 = apply_norm(p["norm2"], x)
+    aux = None
+    if "moe" in p:
+        y, aux = moe_lib.apply_moe(p["moe"], h2, cfg, ctx)
+    else:
+        y = apply_mlp(p["mlp"], h2, cfg)
+    x = x + y
+    kv = {"k": k, "v": v} if return_kv else None
+    return x, aux, kv
+
+
+def apply_block_seq(kind, p, x, cfg, ctx, *, positions, state=None,
+                    enc_out=None, return_cache=False, kernels=None):
+    """Returns (x, aux, cache_out).  cache_out depends on kind."""
+    kernels = kernels or {}
+    if kind == "attn":
+        return apply_attn_block_seq(
+            p, x, cfg, ctx, positions=positions, enc_out=enc_out,
+            return_kv=return_cache)
+    if kind == "rec":
+        h = apply_norm(p["norm1"], x)
+        y, new_state = rglru_lib.apply_rglru_block(
+            p["rglru"], h, cfg, state=state, kernel_fn=kernels.get("rglru"))
+        x = x + y
+        h2 = apply_norm(p["norm2"], x)
+        x = x + apply_mlp(p["mlp"], h2, cfg)
+        return x, None, (new_state if return_cache else None)
+    if kind == "ssd":
+        raise _not_ported("the SSD (Mamba-2) block", "A5, next slice")
+    raise ValueError(kind)
+
+
+# ==========================================================================
+# Embedding / unembedding
+# ==========================================================================
+def embed_tokens(params, tokens, cfg):
+    return params["embed"][tokens.long()]
+
+
+def embed_inputs(params, batch, cfg):
+    """batch: {"tokens": (B,S)}.  Modality frontends are not ported."""
+    if cfg.frontend is not None and "frontend" in batch:
+        raise _not_ported("modality frontends", "A5")
+    return embed_tokens(params, batch["tokens"], cfg)
+
+
+def unembed(params, h, cfg):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.einsum("bsd,dv->bsv", h, w)
+    Vp = cfg.padded_vocab()
+    if Vp != cfg.vocab_size:   # padded columns can never be sampled
+        keep = torch.arange(Vp, device=logits.device) < cfg.vocab_size
+        logits = torch.where(keep, logits,
+                             torch.full((), -1e30, dtype=logits.dtype,
+                                        device=logits.device))
+    return logits
+
+
+# ==========================================================================
+# Full-sequence forward (prefill)
+# ==========================================================================
+def _scan_groups(params, x, cfg, ctx, *, positions, enc_out=None,
+                 return_cache=False, remat=True, kernels=None):
+    """Run all pattern groups + tail.  Returns (x, aux_sum, caches).
+    ``remat`` is accepted for the reference's signature; nothing here
+    keeps activations for a backward pass."""
+    pattern = cfg.block_pattern
+    aux = torch.zeros((2,), device=x.device)   # load_balance, router_z
+    group_caches = []
+    for g in range(cfg.num_groups()):
+        gp = _tree_index(params["blocks"], g)
+        caches = {}
+        for i, kind in enumerate(pattern):
+            x, a, c = apply_block_seq(
+                kind, gp[f"b{i}"], x, cfg, ctx, positions=positions,
+                enc_out=enc_out, return_cache=return_cache, kernels=kernels)
+            if a is not None:
+                aux = aux + torch.stack([a["load_balance"], a["router_z"]])
+            caches[f"b{i}"] = c
+        group_caches.append(caches)
+
+    tail_caches = {}
+    for i, kind in enumerate(cfg.tail_pattern()):
+        x, a, c = apply_block_seq(
+            kind, params["tail"][f"t{i}"], x, cfg, ctx, positions=positions,
+            enc_out=enc_out, return_cache=return_cache, kernels=kernels)
+        if a is not None:
+            aux = aux + torch.stack([a["load_balance"], a["router_z"]])
+        tail_caches[f"t{i}"] = c
+    caches = None
+    if return_cache:
+        groups = _tree_stack(group_caches) if group_caches else {}
+        caches = {"groups": groups, "tail": tail_caches}
+    return x, aux, caches
+
+
+def forward_hidden(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *,
+                   return_cache=False, remat=True, kernels=None):
+    """Embed + all blocks + final norm.  Returns (hidden (B,S,d), aux (2,),
+    caches)."""
+    if cfg.encoder_layers:
+        raise _not_ported("the encoder of encoder-decoder models", "A5")
+    x = embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux, caches = _scan_groups(
+        params, x, cfg, ctx, positions=positions,
+        return_cache=return_cache, remat=remat, kernels=kernels)
+    x = apply_norm(params["final_norm"], x)
+    return x, aux, caches
+
+
+# ==========================================================================
+# Segmentation hook: run a range of groups (the paper's split)
+# ==========================================================================
+def run_layer_range(params, x, cfg, ctx, *, start_group: int, stop_group: int,
+                    positions, enc_out=None, kernels=None):
+    """Run pattern groups [start_group, stop_group) over hidden states x,
+    and the tail when ``stop_group == G``."""
+    G = cfg.num_groups()
+    if not 0 <= start_group <= stop_group <= G:
+        raise ValueError(f"group range [{start_group}, {stop_group}) "
+                         f"outside [0, {G}]")
+    for g in range(start_group, stop_group):
+        gp = _tree_index(params["blocks"], g)
+        for i, kind in enumerate(cfg.block_pattern):
+            x, _, _ = apply_block_seq(
+                kind, gp[f"b{i}"], x, cfg, ctx, positions=positions,
+                enc_out=enc_out, kernels=kernels)
+    if stop_group == G:
+        for i, kind in enumerate(cfg.tail_pattern()):
+            x, _, _ = apply_block_seq(
+                kind, params["tail"][f"t{i}"], x, cfg, ctx,
+                positions=positions, enc_out=enc_out, kernels=kernels)
+    return x

@@ -9,9 +9,16 @@ then ships (latent fp32 + context fp16) through the transport layer.
 ``DiffusionDeviceSim`` — the mobile side: decodes the payload, finishes
 [n_final, n_total) and runs the VAE decoder.
 
-Both measure their own executable-cache size, GPU-seconds and bytes
-shipped.  Counterpart of the diffusion half of ``repro/serving/engine.py``;
-the layer-granularity engines are not part of the port yet.
+``LayerSplitEngine`` / ``LayerSplitDevice`` — layer-granularity split
+for the LM zoo (the generalization of the paper's RegNet Table 1
+splitting): the cloud runs pattern groups [0, g) and ships the hidden
+state in fp16, the device finishes [g, G), the final norm and the head.
+Unlike the reference's, these pass ``kernels.ops.kernel_registry()`` to
+``run_layer_range``; its ``rglru`` entry is the wrapper that RG-LRU blocks
+also take by default, which runs the scan kernel on the card.
+
+All four measure their own executable-cache size, GPU-seconds and bytes
+shipped.  Counterpart of ``repro/serving/engine.py``.
 """
 from __future__ import annotations
 
@@ -36,10 +43,14 @@ from repro_torch.core.transport import (
     transmission_time,
     unpack_boundary,
 )
+from repro_torch.kernels.ops import kernel_registry
 from repro_torch.models import diffusion as dif
+from repro_torch.models import transformer as tr
+from repro_torch.models.common import pdtype
+from repro_torch.models.moe import LOCAL_CTX
 
 
-#: Unified stats schema — both engines report exactly these keys.
+#: Unified stats schema — every engine reports exactly these keys.
 #: ``gpu_seconds`` is steady-state execution only; warm-up is accounted
 #: separately in ``compile_seconds`` (an executable-cache miss warms the
 #: program BEFORE the timed region, so a request's cloud_seconds never
@@ -291,4 +302,128 @@ class DiffusionDeviceSim:
             _sync(dev)
             self.stats["gpu_seconds"] += time.perf_counter() - t0
             self.stats["requests"] += latent.shape[0]
+        return out
+
+
+# ==========================================================================
+# Layer-granularity split for LM architectures
+# ==========================================================================
+def _batch_key(batch: Dict[str, torch.Tensor]):
+    return tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                        for k, v in batch.items()))
+
+
+class LayerSplitEngine:
+    """Cloud side of a layer split: embed + groups [0, g), ship hidden."""
+
+    def __init__(self, params, cfg, link: LinkProfile = WAN_LINK,
+                 device: DeviceLike = None):
+        #: where the model runs; ``None`` = the GPU.  ``params`` must
+        #: already lie there
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.link = link
+        # one warmed program per (split group, batch signature), as the
+        # reference keys its shape-specialized executables
+        self._exec_cache: Dict[Tuple[int, Any], Callable] = {}
+        self.stats = _new_stats()
+
+    def _run_fn(self, stop_group: int, batch):
+        """The callable for this key.  A miss runs it once untimed as the
+        warm-up (first-call costs: allocator growth, cuBLAS handles and
+        algorithm choice, the kernels' build at the very first launch),
+        charged to stats["compile_seconds"]."""
+        key = (stop_group, _batch_key(batch))
+        cached = self._exec_cache.get(key)
+        if cached is not None:
+            self.stats["cache_hits"] += 1
+            return cached
+        self.stats["cache_misses"] += 1
+        cfg = self.cfg
+        kernels = kernel_registry()
+
+        def fn(params, batch):
+            x = tr.embed_inputs(params, batch, cfg)
+            positions = torch.arange(x.shape[1], device=x.device)
+            return tr.run_layer_range(
+                params, x, cfg, LOCAL_CTX, start_group=0,
+                stop_group=stop_group, positions=positions, kernels=kernels)
+        t0 = time.perf_counter()
+        fn(self.params, batch)
+        _sync(self.device)
+        self.stats["compile_seconds"] += time.perf_counter() - t0
+        self._exec_cache[key] = fn
+        self.stats["executables"] = len(self._exec_cache)
+        return fn
+
+    def process(self, batch: Dict[str, np.ndarray], stop_group: int):
+        """Run groups [0, stop_group) on ``batch`` ({"tokens": (B, S)}).
+        Returns (hidden state as fp16 numpy (B, S, d), link seconds)."""
+        with torch.inference_mode():
+            tb = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                  for k, v in batch.items()}
+            run = self._run_fn(stop_group, tb)
+            _sync(self.device)
+            t0 = time.perf_counter()
+            hidden = run(self.params, tb)
+            _sync(self.device)
+            self.stats["gpu_seconds"] += time.perf_counter() - t0
+            payload = hidden.to(torch.float16).cpu().numpy()
+        self.stats["bytes_shipped"] += payload.nbytes
+        self.stats["requests"] += tb["tokens"].shape[0]
+        t_net = transmission_time(payload.nbytes, self.link)
+        return payload, t_net
+
+
+class LayerSplitDevice:
+    """Device side: groups [g, G) + tail + final norm + head, on the same
+    host, standing in for the device."""
+
+    def __init__(self, params, cfg, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self._exec_cache: Dict[Tuple[int, Any], Callable] = {}
+        self.stats = _new_stats()
+
+    def complete(self, hidden_fp16: np.ndarray, start_group: int
+                 ) -> torch.Tensor:
+        """Finish the forward from the shipped hidden state; returns the
+        last token's logits (B, 1, padded_vocab)."""
+        cfg = self.cfg
+        with torch.inference_mode():
+            hidden = torch.from_numpy(np.asarray(hidden_fp16)).to(
+                self.device).to(pdtype(cfg))
+            key = (start_group, tuple(hidden.shape))
+            run = self._exec_cache.get(key)
+            if run is None:
+                self.stats["cache_misses"] += 1
+                kernels = kernel_registry()
+
+                def run(params, hidden):
+                    positions = torch.arange(hidden.shape[1],
+                                             device=hidden.device)
+                    x = tr.run_layer_range(
+                        params, hidden, cfg, LOCAL_CTX,
+                        start_group=start_group, stop_group=cfg.num_groups(),
+                        positions=positions, kernels=kernels)
+                    x = tr.apply_norm(params["final_norm"], x)
+                    return tr.unembed(params, x[:, -1:], cfg)
+                # warm-up in place of a compile: the first call, untimed
+                # for gpu_seconds
+                t0 = time.perf_counter()
+                run(self.params, hidden)
+                _sync(self.device)
+                self.stats["compile_seconds"] += time.perf_counter() - t0
+                self._exec_cache[key] = run
+                self.stats["executables"] = len(self._exec_cache)
+            else:
+                self.stats["cache_hits"] += 1
+            _sync(self.device)
+            t0 = time.perf_counter()
+            out = run(self.params, hidden)
+            _sync(self.device)
+            self.stats["gpu_seconds"] += time.perf_counter() - t0
+            self.stats["requests"] += hidden.shape[0]
         return out

@@ -9,15 +9,23 @@ import pathlib
 import numpy as np
 import pytest
 
+from repro import configs as ref_configs
 from repro.core import cost_model as ref_cost
 from repro.core import planner as ref_planner
+from repro.core import segmentation as ref_segmentation
 from repro.core import telemetry as ref_telemetry
 from repro.core import transport as ref_transport
-from repro_torch.core import cost_model, planner, telemetry, transport
+from repro.models import moe as ref_moe
+from repro_torch import configs
+from repro_torch.core import (cost_model, planner, segmentation, telemetry,
+                              transport)
+from repro_torch.models import moe
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 COPIED = ("cost_model", "telemetry", "capacity", "admission", "scheduler",
           "planner", "transport")
+CONFIG_FILES = sorted(
+    p.name for p in (ROOT / "src/repro/configs").glob("*.py"))
 
 
 def _cost(mod, t_lim):
@@ -30,6 +38,69 @@ def test_copies_differ_only_in_the_import_prefix(name):
     ref = (ROOT / "src/repro/core" / f"{name}.py").read_text()
     own = (ROOT / "src/repro_torch/core" / f"{name}.py").read_text()
     assert own == ref.replace("repro.", "repro_torch.")
+
+
+@pytest.mark.parametrize("name", CONFIG_FILES)
+def test_config_copies_differ_only_in_the_import_prefix(name):
+    ref = (ROOT / "src/repro/configs" / name).read_text()
+    own = (ROOT / "src/repro_torch/configs" / name).read_text()
+    assert own == ref.replace("repro.", "repro_torch.")
+
+
+def test_segmentation_copy_drops_only_the_unused_jax_imports():
+    """The reference imports jax and jax.numpy and uses neither; the
+    copy leaves those two lines out and changes nothing else."""
+    ref = (ROOT / "src/repro/core/segmentation.py").read_text()
+    own = (ROOT / "src/repro_torch/core/segmentation.py").read_text()
+    unused = "import jax\nimport jax.numpy as jnp\n"
+    assert unused in ref and "jax" not in ref.replace(unused, "")
+    assert own == ref.replace(unused, "").replace("repro.", "repro_torch.")
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+def test_registry_and_reduced_configs_are_equal(arch):
+    assert configs.ARCH_IDS == ref_configs.ARCH_IDS
+    for get in ("get_config", "reduced_config"):
+        assert (dataclasses.asdict(getattr(configs, get)(arch))
+                == dataclasses.asdict(getattr(ref_configs, get)(arch)))
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+@pytest.mark.parametrize("batch,seq", [(1, 512), (4, 4096)])
+def test_segmentation_results_are_equal(arch, batch, seq):
+    cfg, ref_cfg = configs.get_config(arch), ref_configs.get_config(arch)
+    for streaming in (False, True):
+        for act_bytes in (1, 2):
+            got = segmentation.layer_split_points(
+                cfg, batch, seq, activation_bytes=act_bytes,
+                streaming=streaming)
+            want = ref_segmentation.layer_split_points(
+                ref_cfg, batch, seq, activation_bytes=act_bytes,
+                streaming=streaming)
+            assert ([dataclasses.asdict(p) for p in got]
+                    == [dataclasses.asdict(p) for p in want])
+            assert ([dataclasses.asdict(c) for c in
+                     segmentation.to_segment_costs(got)]
+                    == [dataclasses.asdict(c) for c in
+                        ref_segmentation.to_segment_costs(want)])
+    assert (segmentation.boundary_state_bytes(cfg, batch, seq)
+            == ref_segmentation.boundary_state_bytes(ref_cfg, batch, seq))
+    for nb in (1, 2, 4):
+        assert (segmentation.hidden_payload_bytes(cfg, batch, seq, nb)
+                == ref_segmentation.hidden_payload_bytes(ref_cfg, batch, seq,
+                                                         nb))
+    for n_total, n_step in ((50, 5), (50, 1), (38, 3)):
+        assert (segmentation.executable_count(n_total, n_step)
+                == ref_segmentation.executable_count(n_total, n_step))
+
+
+def test_shard_context_is_the_reference_s():
+    fields = [(f.name, f.default) for f in dataclasses.fields(moe.ShardCtx)]
+    assert fields == [(f.name, f.default)
+                      for f in dataclasses.fields(ref_moe.ShardCtx)]
+    assert (dataclasses.asdict(moe.LOCAL_CTX)
+            == dataclasses.asdict(ref_moe.LOCAL_CTX))
+    assert moe.LOCAL_CTX.model_size == ref_moe.LOCAL_CTX.model_size == 1
 
 
 @pytest.mark.parametrize("seed", [0, 1, 7])
@@ -115,7 +186,13 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src/repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    for module in ("kernels/flash_attention", "kernels/rglru_scan",
+                   "models/attention", "models/rglru", "models/moe",
+                   "models/transformer", "core/segmentation",
+                   "configs/recurrentgemma_9b"):
+        assert f"src/repro_torch/{module}.py" in names
+    assert len(files) > 40
     banned = {"jax", "jaxlib", "repro", "flax", "optax"}
     bad = [f"{p.relative_to(ROOT)}:{line} imports {root}"
            for p in files for root, line in _imported_roots(p)

@@ -113,3 +113,38 @@ def test_module_holder_follows_the_tree(ref_tree):
         else:
             assert rebuilt[path].dtype == torch.float64
             assert torch.equal(rebuilt[path].float(), leaf)
+
+
+@pytest.fixture(scope="module")
+def lm_tree():
+    """The reduced RecurrentGemma-9B tree: group-stacked bf16 blocks, an
+    unstacked tail, fp32 Lambda / gate biases / norms, padded vocab."""
+    from repro.configs import reduced_config
+    from repro.models import transformer as ref_tr
+    cfg = reduced_config("recurrentgemma-9b")
+    params = ref_tr.init_params(cfg, jax.random.PRNGKey(0))
+    return cfg, jax.tree_util.tree_map(np.asarray, params)
+
+
+def test_lm_tree_round_trip_is_bit_exact(lm_tree):
+    import ml_dtypes
+    cfg, ref = lm_tree
+    tree = convert.from_jax_params(ref, "cpu")
+    back = convert.to_numpy_params(tree)
+    a, b, t = _paths(ref), _paths(back), _paths(tree)
+    assert a.keys() == b.keys() == t.keys()
+    G = cfg.num_groups()
+    kinds = set()
+    for path, leaf in a.items():
+        assert b[path].dtype == leaf.dtype and b[path].shape == leaf.shape
+        bits = np.uint16 if leaf.dtype == ml_dtypes.bfloat16 else leaf.dtype
+        np.testing.assert_array_equal(b[path].view(bits), leaf.view(bits),
+                                      err_msg=str(path))
+        if path[0] == "blocks":
+            assert t[path].shape[0] == G, path
+        kinds.add((path[0], str(t[path].dtype)))
+    assert ("blocks", "torch.bfloat16") in kinds
+    assert ("blocks", "torch.float32") in kinds          # lam, ba, bx, norms
+    assert {"embed", "lm_head", "tail", "final_norm"} <= {p[0] for p in a}
+    assert t[("blocks", "b0", "rglru", "lam")].dtype == torch.float32
+    assert t[("lm_head",)].dtype == torch.bfloat16

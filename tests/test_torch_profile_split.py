@@ -1,0 +1,80 @@
+"""The layer-split profiler (``repro_torch.serving.profile_split``): its
+trace summary on hand-made events, and one CPU run on a reduced config."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import reduced_config
+from repro_torch.core.transport import WAN_LINK
+from repro_torch.models import transformer as tr
+from repro_torch.serving import profile_split as ps
+from repro_torch.serving.engine import LayerSplitDevice, LayerSplitEngine
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("name,cls", [
+    ("void (anonymous namespace)::flash_attention_kernel<__nv_bfloat16, 16, "
+     "16>(...)", "flash_attention"),
+    ("(anonymous namespace)::rglru_scan_kernel(float const*, ...)",
+     "rglru_scan"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "gemm"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x256x64", "gemm"),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
+])
+def test_kernel_class(name, cls):
+    assert ps.kernel_class(name) == cls
+
+
+def test_summary_sums_classes_and_takes_the_union_for_idle():
+    ev = [
+        {"ph": "X", "cat": "kernel", "name": "flash_attention_kernel<f>",
+         "ts": 0.0, "dur": 400.0},
+        {"ph": "X", "cat": "kernel", "name": "nvjet_gemm", "ts": 300.0,
+         "dur": 200.0},                       # overlaps the first by 100 us
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 700.0,
+         "dur": 100.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0.0,
+         "dur": 900.0},                       # host side: not device time
+    ]
+    s = ps.summarize_trace(ev, wall_s=1e-3)
+    assert s["by_class"] == pytest.approx(
+        {"flash_attention": 4e-4, "gemm": 2e-4, "copy": 1e-4})
+    assert s["device_seconds"] == pytest.approx(7e-4)
+    assert s["busy_seconds"] == pytest.approx(6e-4)
+    assert s["idle_share"] == pytest.approx(0.4)
+    assert s["kernels_in_trace"] == {"flash_attention": 1, "gemm": 1,
+                                     "copy": 1}
+    assert s["top"][0]["name"].startswith("flash_attention_kernel")
+
+
+def test_no_device_events_means_not_measured():
+    s = ps.summarize_trace([{"ph": "X", "cat": "cpu_op", "name": "aten::mm",
+                             "ts": 0.0, "dur": 5.0}], wall_s=1.0)
+    assert s["device_seconds"] is None and s["idle_share"] is None
+
+
+def test_busy_beyond_the_wall_raises():
+    ev = [{"ph": "X", "cat": "kernel", "name": "k", "ts": 0.0,
+           "dur": 2000.0}]
+    with pytest.raises(RuntimeError, match="busy"):
+        ps.summarize_trace(ev, wall_s=1e-3)
+
+
+def test_runs_on_the_cpu_when_asked():
+    cfg = reduced_config("recurrentgemma-9b")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cloud = LayerSplitEngine(params, cfg, link=WAN_LINK, device="cpu")
+    device = LayerSplitDevice(params, cfg, device="cpu")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 16)).astype(np.int32)
+    g = cfg.num_groups() // 2
+    with torch.inference_mode():
+        with pytest.raises(RuntimeError, match="warmed"):
+            ps.profile_round(cloud, device, tokens, g)
+        out = ps.profile_round(cloud, device, tokens, g)
+    assert (out["batch"], out["seq"], out["group"]) == (1, 16, g)
+    assert out["side_seconds"]["device"] > 0
+    # CPU tensors never reach the kernels
+    assert out["wrapper_launches"] == {"flash_attention": 0, "rglru_scan": 0}
+    assert out["device_seconds"] is None
