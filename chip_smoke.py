@@ -16,9 +16,16 @@ drives the port's two serving paths, each at full published width:
     device side finishes each; the flash-attention and RG-LRU kernels
     carry every attention and recurrent layer.  One more g = 6 round then
     runs under ``torch.profiler`` (phase ``lm_profile``): device time by
-    kernel class and the device's idle share.
+    kernel class and the device's idle share;
+  * the same layer split on Mamba-2-780M (48 SSD layers, bf16), after
+    RecurrentGemma's weights are freed: the SSD kernel is held against its
+    plain version (phase ``ssd_kernels``), then 4 requests of 4096 tokens
+    are split at g = 24 and request 0 at g = 0 and g = 48, with the SSD
+    kernel in every layer, and one more g = 24 round is profiled (phase
+    ``mamba_serve``).
 
-Each phase prints one JSON line.  The line before the last two is
+Each phase prints one JSON line (``total``: the script's own time, the
+kernels' build included).  The line before the last two is
 ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` gives them, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the exit code
@@ -26,6 +33,7 @@ is then non-zero and no result line is printed.  There is no CPU mode.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -97,6 +105,26 @@ FLASH_RAGGED = (
 FLASH_TOL = {torch.float32: (5e-6, 5e-6), torch.bfloat16: (2e-3, 2e-2)}
 RGLRU_GRID = ((2, 128, 256), (1, 512, 128), (3, 96, 200))
 RGLRU_ATOL = 2e-5
+
+# The layer-split path's attention-free model: full-width Mamba-2-780M,
+# uncut (48 SSD layers, no tail), split at its middle group.
+SSD_ARCH = "mamba2-780m"
+SSD_SPLIT = 24
+# jax.eval_shape of the reference's init_params for this config (the
+# analytic ModelConfig.param_count() says 857,070,336)
+SSD_PARAMETERS = 860_045_568
+SSD_PARAMETER_BYTES = 1_720_550_400
+# the fp32 forward of request 0 (every parameter cast to fp32), through
+# the SSD kernel against the same forward through its plain version, as
+# the relative L2 error of the last-token logits
+SSD_FP32_PLAIN_REL_L2 = 1e-4
+# the reference's kernel grid (b, S, H, P, G, N, chunk_size), with
+# init_state, then one chunk holding the whole sequence (Q == S, the chunk
+# size above S); tolerances as tests/test_kernels.py holds the Pallas
+# kernel, inputs drawn as it draws them
+SSD_GRID = ((1, 256, 4, 64, 1, 128, 128), (2, 128, 8, 64, 2, 64, 64),
+            (1, 512, 2, 32, 1, 16, 128), (2, 256, 8, 64, 2, 64, 512))
+SSD_Y_ATOL, SSD_FINAL_ATOL = 2e-4, 2e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -602,21 +630,49 @@ def _layers_run(cfg, start: int, stop: int) -> dict:
     if stop == cfg.num_groups():
         kinds += list(cfg.tail_pattern())
     return {"flash_attention": kinds.count("attn"),
-            "rglru_scan": kinds.count("rec")}
+            "rglru_scan": kinds.count("rec"),
+            "ssd_scan": kinds.count("ssd")}
+
+
+def _launch_modules() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as lru
+    from repro_torch.kernels import ssd_scan as ssd
+    return {"flash_attention": fa, "rglru_scan": lru, "ssd_scan": ssd}
+
+
+def launch_counts() -> dict:
+    """The layer-split kernels' wrapper counts, by kernel."""
+    return {n: m.launch_count for n, m in _launch_modules().items()}
+
+
+def reset_launch_counts() -> None:
+    for m in _launch_modules().values():
+        m.launch_count = 0
+
+
+def launches_since(before: dict) -> dict:
+    return {n: c - before[n] for n, c in launch_counts().items()}
+
+
+def _ssd_plain(x, dt, A, Bm, Cm, *, chunk_size, init_state=None):
+    from repro_torch.kernels import ssd_scan as ssd
+    return ssd.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk_size, init_state)
 
 
 class plain_versions:
     """Within the block, the named wrappers ("flash_attention",
-    "rglru_scan") run their plain versions on CUDA tensors, so the
-    model's forward can be held against itself without those kernels on
-    this card."""
+    "rglru_scan", "ssd_scan") run their plain versions on CUDA tensors,
+    so the model's forward can be held against itself without those
+    kernels on this card."""
 
     def __init__(self, *names):
-        from repro_torch.kernels import flash_attention as fa
-        from repro_torch.kernels import rglru_scan as lru
-        modules = {"flash_attention": fa, "rglru_scan": lru}
-        self._swaps = [(modules[n], n, getattr(modules[n], n + "_ref"))
-                       for n in names]
+        modules = _launch_modules()
+        plain = {"flash_attention": modules["flash_attention"]
+                 .flash_attention_ref,
+                 "rglru_scan": modules["rglru_scan"].rglru_scan_ref,
+                 "ssd_scan": _ssd_plain}
+        self._swaps = [(modules[n], n, plain[n]) for n in names]
 
     def __enter__(self):
         self._saved = [getattr(m, n) for m, n, _ in self._swaps]
@@ -630,17 +686,12 @@ class plain_versions:
         return False
 
 
-def phase_lm_serve(entries: dict):
-    from repro_torch.core.segmentation import hidden_payload_bytes
-    from repro_torch.core.transport import WAN_LINK
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import rglru_scan as lru
+def init_full_width(arch: str, want_params: int, want_bytes: int):
+    """Full-width parameters of ``arch`` drawn on the card from SEED;
+    raises unless the tree holds the reference's count and bytes."""
+    from repro_torch.configs import get_config
     from repro_torch.models import transformer as tr
-    from repro_torch.serving.engine import LayerSplitDevice, LayerSplitEngine
-
-    cfg, _, _ = lm_path_shapes()
-    G = cfg.num_groups()
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = tr.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
@@ -654,23 +705,31 @@ def phase_lm_serve(entries: dict):
     walk(params)
     n_params = sum(t.numel() for t in leaves)
     n_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    if (n_params, n_bytes) != (LM_PARAMETERS, LM_PARAMETER_BYTES):
-        raise RuntimeError(f"{LM_ARCH}: {n_params} parameters in "
-                           f"{n_bytes} B, the reference's tree holds "
-                           f"{LM_PARAMETERS} in {LM_PARAMETER_BYTES} B")
-    tokens = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)).astype(np.int32)
+    if (n_params, n_bytes) != (want_params, want_bytes):
+        raise RuntimeError(f"{arch}: {n_params} parameters in {n_bytes} B, "
+                           f"the reference's tree holds {want_params} in "
+                           f"{want_bytes} B")
+    return cfg, params, {"config": cfg.name, "parameters": n_params,
+                         "parameter_bytes": n_bytes, "init_seconds": init_s}
+
+
+def serve_plan(cfg, params, plan):
+    """Each (g, tokens) of ``plan`` through a new pair of layer-split
+    engines on the card: payload bytes checked, the launch counts set to
+    0 just before the first split and read just after the last.  A side
+    runs its layers twice where its key missed the cache (the warm-up,
+    then the timed run).  Returns the engines, each split's logits and the
+    record of the serve."""
+    from repro_torch.core.segmentation import hidden_payload_bytes
+    from repro_torch.core.transport import WAN_LINK
+    from repro_torch.serving.engine import LayerSplitDevice, LayerSplitEngine
+    G = cfg.num_groups()
     cloud = LayerSplitEngine(params, cfg, link=WAN_LINK, device="cuda")
     device = LayerSplitDevice(params, cfg, device="cuda")
-    # the paper's split at the middle group for the whole batch, and the
-    # two ends of the range (all on the device, all in the cloud) for one
-    # request, the split points tests/test_serving.py uses
-    plan = ((G // 2, tokens), (0, tokens[:1]), (G, tokens[:1]))
-
     torch.cuda.reset_peak_memory_stats()
-    fa.launch_count = 0
-    lru.launch_count = 0
-    expected = {"flash_attention": 0, "rglru_scan": 0}
+    reset_launch_counts()
+    expected = {"flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0}
+    forwards = 0                     # whole forwards, warm-ups included
     splits, logits = [], {}
     t_serve = time.perf_counter()
     for g, toks in plan:
@@ -681,11 +740,13 @@ def phase_lm_serve(entries: dict):
         logits[g] = out
         split = {"group": g, "batch": toks.shape[0],
                  "payload_bytes": payload.nbytes, "t_net_seconds": t_net}
+        sides_runs = []
         for name, side, (start, stop), before in (
                 ("cloud", cloud, (0, g), cloud_before),
                 ("device", device, (g, G), device_before)):
             runs = 2 if side.stats["cache_misses"] > before[
                 "cache_misses"] else 1           # a miss warms up first
+            sides_runs.append(runs)
             per_run = _layers_run(cfg, start, stop)
             for kname, n in per_run.items():
                 expected[kname] += runs * n
@@ -695,21 +756,63 @@ def phase_lm_serve(entries: dict):
                 "compile_seconds": side.stats["compile_seconds"]
                 - before["compile_seconds"],
                 "runs": runs, "launches_per_run": per_run}
-        want_bytes = hidden_payload_bytes(cfg, toks.shape[0], LM_SEQ, 2)
+        if sides_runs[0] != sides_runs[1]:
+            raise RuntimeError(f"g={g}: the sides ran {sides_runs} times")
+        forwards += sides_runs[0]
+        want_bytes = hidden_payload_bytes(cfg, toks.shape[0],
+                                          toks.shape[1], 2)
         if payload.nbytes != want_bytes or payload.dtype != np.float16:
             raise RuntimeError(f"g={g}: payload of {payload.nbytes} B "
                                f"{payload.dtype}, expected {want_bytes} B "
                                "fp16")
         splits.append(split)
-    serve_s = time.perf_counter() - t_serve
-    launches = {"flash_attention": fa.launch_count,
-                "rglru_scan": lru.launch_count}
-    peak = torch.cuda.max_memory_allocated()
-    if launches != expected or 0 in launches.values():
-        raise RuntimeError(f"layer-split path launched {launches}, "
-                           f"expected {expected}")
-    for name, n in launches.items():
-        entries[name]["launches"] = n
+    record = {"serve_seconds": time.perf_counter() - t_serve,
+              "splits": splits, "launches": launch_counts(),
+              "launches_expected": expected, "whole_forwards": forwards,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    if record["launches"] != expected:
+        raise RuntimeError(f"layer-split path launched {record['launches']},"
+                           f" expected {expected}")
+    return cloud, device, logits, record
+
+
+def profile_split(cloud, device, tokens, group: int) -> dict:
+    """One more round at ``group`` through the warm engines under
+    ``torch.profiler``; raises if nothing ran on the card or the wrappers
+    launched other than one run of each side's layers."""
+    from repro_torch.serving.profile_split import profile_round
+    cfg = cloud.cfg
+    out = profile_round(cloud, device, tokens, group)
+    if out["device_seconds"] is None:
+        raise RuntimeError("the profiler recorded no device activity")
+    device_run = _layers_run(cfg, group, cfg.num_groups())
+    per_run = {k: n + device_run[k]
+               for k, n in _layers_run(cfg, 0, group).items()}
+    if out["wrapper_launches"] != per_run:
+        raise RuntimeError(f"profiled round launched "
+                           f"{out['wrapper_launches']}, expected {per_run}")
+    return out
+
+
+def phase_lm_serve(entries: dict):
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+
+    cfg, params, info = init_full_width(LM_ARCH, LM_PARAMETERS,
+                                        LM_PARAMETER_BYTES)
+    G = cfg.num_groups()
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)).astype(np.int32)
+    # the paper's split at the middle group for the whole batch, and the
+    # two ends of the range (all on the device, all in the cloud) for one
+    # request, the split points tests/test_serving.py uses
+    plan = ((G // 2, tokens), (0, tokens[:1]), (G, tokens[:1]))
+    cloud, device, logits, record = serve_plan(cfg, params, plan)
+    splits, launches = record["splits"], record["launches"]
+    if 0 in (launches[n] for n in entries):
+        raise RuntimeError(f"layer-split path launched {launches}")
+    for name in entries:
+        entries[name]["launches"] = launches[name]
 
     # one machine, same tokens, same kernels: forward_hidden + head
     kernels = ops.kernel_registry()
@@ -755,14 +858,13 @@ def phase_lm_serve(entries: dict):
     vs_plain, plain_both = {}, None
     both = ("flash_attention", "rglru_scan")
     for names in (both, ("flash_attention",), ("rglru_scan",)):
-        counts = (fa.launch_count, lru.launch_count)
+        counts = launch_counts()
         with plain_versions(*names):
             hidden_p, _, _ = tr.forward_hidden(params, batch, cfg,
                                                kernels=kernels)
             plain = tr.unembed(params, hidden_p[:, -1:], cfg).float()
         torch.cuda.synchronize()
-        launched = {"flash_attention": fa.launch_count - counts[0],
-                    "rglru_scan": lru.launch_count - counts[1]}
+        launched = launches_since(counts)
         if launched != {k: 0 if k in names else n
                         for k, n in _layers_run(cfg, 0, G).items()}:
             raise RuntimeError(f"plain_versions{names}: launched {launched}")
@@ -790,11 +892,10 @@ def phase_lm_serve(entries: dict):
         hidden32, _, _ = tr.forward_hidden(params32, batch0, cfg,
                                            kernels=kernels)
         return tr.unembed(params32, hidden32[:, -1:], cfg)
-    counts = (fa.launch_count, lru.launch_count)
+    counts = launch_counts()
     kernels32 = forward32()
     torch.cuda.synchronize()
-    launched = {"flash_attention": fa.launch_count - counts[0],
-                "rglru_scan": lru.launch_count - counts[1]}
+    launched = launches_since(counts)
     if launched != _layers_run(cfg, 0, G):
         raise RuntimeError(f"fp32 forward launched {launched}")
     with plain_versions(*both):
@@ -819,13 +920,9 @@ def phase_lm_serve(entries: dict):
                            f"{vs_fp32['kernels']} through the kernels, "
                            f"{vs_fp32['plain versions']} through the plain "
                            f"versions (limit {LM_FP32_RATIO}x)")
-    emit("lm_serve", config=cfg.name, parameters=n_params,
-         parameter_bytes=n_bytes, init_seconds=init_s, batch=LM_BATCH,
-         seq=LM_SEQ, groups=G, tail=list(cfg.tail_pattern()),
-         serve_seconds=serve_s, splits=splits, launches=launches,
-         launches_expected=expected, engine_stats=cloud.stats,
-         device_stats=device.stats, peak_memory_bytes=peak,
-         fp32_kernels_vs_plain=fp32_vs_plain,
+    emit("lm_serve", **info, batch=LM_BATCH, seq=LM_SEQ, groups=G,
+         tail=list(cfg.tail_pattern()), **record, engine_stats=cloud.stats,
+         device_stats=device.stats, fp32_kernels_vs_plain=fp32_vs_plain,
          limit_fp32_rel_l2=LM_FP32_PLAIN_REL_L2,
          kernels_vs_plain=vs_plain, limit_rel_l2=LM_PLAIN_REL_L2,
          bf16_vs_fp32_rel_l2=vs_fp32, limit_fp32_ratio=LM_FP32_RATIO)
@@ -835,18 +932,208 @@ def phase_lm_serve(entries: dict):
 def phase_lm_profile(cloud, device, tokens) -> None:
     """One more round of the served batch at g = G // 2, through the
     warm engines of ``lm_serve``, under ``torch.profiler``."""
-    from repro_torch.serving.profile_split import profile_round
-    cfg = cloud.cfg
-    out = profile_round(cloud, device, tokens, cfg.num_groups() // 2)
-    if out["device_seconds"] is None:
-        raise RuntimeError("the profiler recorded no device activity")
-    cloud_run = _layers_run(cfg, 0, out["group"])
-    device_run = _layers_run(cfg, out["group"], cfg.num_groups())
-    per_run = {k: n + device_run[k] for k, n in cloud_run.items()}
-    if out["wrapper_launches"] != per_run:
-        raise RuntimeError(f"profiled round launched "
-                           f"{out['wrapper_launches']}, expected {per_run}")
-    emit("lm_profile", **out)
+    emit("lm_profile", **profile_split(cloud, device, tokens,
+                                       cloud.cfg.num_groups() // 2))
+
+
+def ssd_path_shape():
+    """(b, S, H, P, G, N, Q) the layer-split path gives the SSD kernel."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SSD_ARCH)
+    s = cfg.ssm
+    return (LM_BATCH, LM_SEQ, s.n_heads(cfg.d_model), s.head_dim,
+            s.n_groups, s.d_state, s.chunk_size)
+
+
+def ssd_bound(b, S, H, P, G, N, Q, with_init=False):
+    """Least time for one call.  Operations: each chunk's Q(Q+1)/2
+    causal (query, key) pairs take N multiply-adds for the score and P
+    for its product with x, and the state's read and update 2 Q N P more,
+    over the fp32 rate (the masked upper triangle is work no kernel needs;
+    ``flops_full_square`` counts the Q x Q square the TPU kernel
+    computes).  Bytes: x, dt, A, B, C (and init_state) read once, y and
+    the final state written once, fp32."""
+    chunks = b * H * (S // Q)
+    pairs = Q * (Q + 1) // 2
+    flops = chunks * (2 * pairs * (N + P) + 4 * Q * N * P)
+    square = chunks * (2 * Q * Q * (N + P) + 4 * Q * N * P)
+    nbytes = 4 * (2 * b * S * H * P + b * S * H + H + 2 * b * S * G * N
+                  + b * H * P * N * (2 if with_init else 1))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops,
+            square)
+
+
+def phase_ssd_kernels() -> dict:
+    from repro_torch.kernels import ssd_scan as ssd
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device="cuda")
+    path = ssd_path_shape()
+    checks = []
+    for case, with_init in [(c, True) for c in SSD_GRID] + [(path, False)]:
+        b, S, H, P, G, N, Q = case
+        x, dt = normal(b, S, H, P), uniform(0.001, 0.1, b, S, H)
+        A = -uniform(0.5, 2.0, H)
+        Bm, Cm = normal(b, S, G, N), normal(b, S, G, N)
+        st = normal(b, H, P, N) if with_init else None
+        y, final = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk_size=Q,
+                                init_state=st)
+        torch.cuda.synchronize()
+        y_ref, final_ref = ssd.ssd_chunked_ref(x, dt, A, Bm, Cm, Q, st)
+        y_err = float((y - y_ref).abs().max())
+        final_err = float((final - final_ref).abs().max())
+        checks.append({"shape": list(case), "init_state": with_init,
+                       "y_max_abs_err": y_err, "y_atol": SSD_Y_ATOL,
+                       "final_max_abs_err": final_err,
+                       "final_atol": SSD_FINAL_ATOL,
+                       "y_max_abs": float(y_ref.abs().max())})
+        if (y.shape != y_ref.shape or final.shape != final_ref.shape
+                or not bool(torch.isfinite(y).all())
+                or not bool(torch.isfinite(final).all())):
+            raise RuntimeError(f"ssd_scan{case}: wrong shapes or non-finite "
+                               "values")
+        if not (y_err <= SSD_Y_ATOL and final_err <= SSD_FINAL_ATOL):
+            raise RuntimeError(f"ssd_scan{case} disagrees with its plain "
+                               f"version: max|dy|={y_err}, "
+                               f"max|dfinal|={final_err}")
+        del y, final, y_ref, final_ref
+
+    # times at the path's shape (no init_state, as the model passes it);
+    # kernel and plain version in turns
+    b, S, H, P, G, N, Q = path
+    args = (x, dt, A, Bm, Cm)
+    plain_a = time_ms(lambda: ssd.ssd_chunked_ref(*args, Q), inner=2,
+                      samples=5)
+    kern_a = time_ms(lambda: ssd.ssd_scan(*args, chunk_size=Q), inner=2,
+                     samples=5)
+    kern_b = time_ms(lambda: ssd.ssd_scan(*args, chunk_size=Q), inner=2,
+                     samples=5)
+    plain_b = time_ms(lambda: ssd.ssd_chunked_ref(*args, Q), inner=2,
+                      samples=5)
+    bound_ms, bound_by, nbytes, flops, square = ssd_bound(*path)
+    entry = {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:73",
+        "launches": None,                     # filled in by mamba_serve
+        "max_abs_err": max(checks[-1]["y_max_abs_err"],
+                           checks[-1]["final_max_abs_err"]),
+        "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        # no single PyTorch call computes a chunked state-space scan
+        "library_ms": None,
+        "timed": f"one Mamba-2-780M SSD layer {list(path)} fp32, "
+                 "init_state None as the model passes it; median of 5 x 2 "
+                 "calls, best of 2",
+        "bytes": nbytes, "flops": flops, "flops_full_square": square,
+        "bound_ms_full_square": square / FP32_FLOP_PER_S * 1e3,
+    }
+    emit("ssd_kernels", checks=checks, ssd_scan=entry,
+         memory_allocated_bytes=torch.cuda.memory_allocated())
+    return entry
+
+
+def _rel_l2(got, ref, vocab):
+    diff = got[..., :vocab].float() - ref[..., :vocab].float()
+    return float(diff.norm() / ref[..., :vocab].float().norm())
+
+
+def phase_mamba_serve(entry: dict) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+
+    cfg, params, info = init_full_width(SSD_ARCH, SSD_PARAMETERS,
+                                        SSD_PARAMETER_BYTES)
+    G = cfg.num_groups()
+    if cfg.tail_pattern() or cfg.block_pattern != ("ssd",):
+        raise RuntimeError(f"{SSD_ARCH}: expected {G} ssd layers, no tail")
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)).astype(np.int32)
+    plan = ((SSD_SPLIT, tokens), (0, tokens[:1]), (G, tokens[:1]))
+    cloud, device, logits, record = serve_plan(cfg, params, plan)
+    splits, launches = record["splits"], record["launches"]
+    if launches["ssd_scan"] != G * record["whole_forwards"] or not launches[
+            "ssd_scan"]:
+        raise RuntimeError(f"layer-split path launched {launches}, not {G} "
+                           f"SSD launches in each of "
+                           f"{record['whole_forwards']} whole forwards")
+    entry["launches"] = launches["ssd_scan"]
+
+    # one machine, same tokens, same kernel: forward_hidden + head (no
+    # tail, so the g == G split runs nothing twice)
+    kernels = ops.kernel_registry()
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    counts = launch_counts()
+    hidden, _, _ = tr.forward_hidden(params, batch, cfg, kernels=kernels)
+    want = tr.unembed(params, hidden[:, -1:], cfg)
+    del hidden
+    torch.cuda.synchronize()
+    if launches_since(counts) != _layers_run(cfg, 0, G):
+        raise RuntimeError(f"one-machine forward launched "
+                           f"{launches_since(counts)}")
+    for split in splits:
+        g = split["group"]
+        target = want if g == SSD_SPLIT else want[:1]
+        err = float((logits[g].float() - target.float()).abs().max())
+        split.update(logit_max_abs_err=err,
+                     compared_with="forward_hidden + unembed")
+        if not bool(torch.isfinite(logits[g]).all()):
+            raise RuntimeError(f"g={g}: non-finite logits")
+        if not _within(logits[g], target, LM_SPLIT_ATOL, LM_SPLIT_RTOL):
+            raise RuntimeError(f"g={g}: split logits differ from the "
+                               f"one-machine forward by {err}")
+
+    # every parameter cast to fp32, request 0: the forward through the
+    # kernel against the one through its plain version
+    params32 = _tree_map(lambda t: t.float(), params)
+    batch0 = {"tokens": batch["tokens"][:1]}
+
+    def forward32():
+        hidden32, _, _ = tr.forward_hidden(params32, batch0, cfg,
+                                           kernels=kernels)
+        return tr.unembed(params32, hidden32[:, -1:], cfg)
+    counts = launch_counts()
+    kernels32 = forward32()
+    torch.cuda.synchronize()
+    if launches_since(counts) != _layers_run(cfg, 0, G):
+        raise RuntimeError(f"fp32 forward launched {launches_since(counts)}")
+    counts = launch_counts()
+    with plain_versions("ssd_scan"):
+        exact = forward32()
+    torch.cuda.synchronize()
+    if launches_since(counts)["ssd_scan"] != 0:
+        raise RuntimeError("the plain fp32 forward launched the kernel")
+    del params32
+    torch.cuda.empty_cache()
+    V = cfg.vocab_size
+    fp32_vs_plain = {
+        "logits_rel_l2": _rel_l2(kernels32, exact, V),
+        "logits_max_abs_err": float((kernels32[..., :V].float()
+                                     - exact[..., :V].float()).abs().max()),
+        "logits_rms": float(exact[..., :V].float().square().mean().sqrt())}
+    if not fp32_vs_plain["logits_rel_l2"] <= SSD_FP32_PLAIN_REL_L2:
+        raise RuntimeError(f"fp32 forward, kernel vs plain version: "
+                           f"relative L2 error of the logits "
+                           f"{fp32_vs_plain['logits_rel_l2']} > "
+                           f"{SSD_FP32_PLAIN_REL_L2}")
+    bf16_vs_fp32 = _rel_l2(want[:1], exact, V)
+
+    # one more round at g = SSD_SPLIT through the warm engines, traced
+    prof = profile_split(cloud, device, tokens, SSD_SPLIT)
+    prof["ssd_share"] = (prof["by_class"].get("ssd_scan", 0.0)
+                         / prof["device_seconds"])
+    emit("mamba_serve", **info, batch=LM_BATCH, seq=LM_SEQ, groups=G,
+         **record, engine_stats=cloud.stats, device_stats=device.stats,
+         fp32_kernel_vs_plain=fp32_vs_plain,
+         limit_fp32_rel_l2=SSD_FP32_PLAIN_REL_L2,
+         bf16_vs_fp32_rel_l2=bf16_vs_fp32, profile=prof)
 
 
 def main() -> int:
@@ -854,6 +1141,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA GPU only", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "src"))
     import repro_torch  # noqa: F401  (sets the TF32 flags)
@@ -868,8 +1156,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         lm_entries = phase_lm_kernels()
         phase_lm_profile(*phase_lm_serve(lm_entries))
+        gc.collect()                 # RecurrentGemma's 15 GB of weights
+        torch.cuda.empty_cache()
+        ssd_entry = phase_ssd_kernels()
+        phase_mamba_serve(ssd_entry)
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [kernel_entry, lm_entries["flash_attention"],
-                                  lm_entries["rglru_scan"]]}), flush=True)
+                                  lm_entries["rglru_scan"], ssd_entry]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

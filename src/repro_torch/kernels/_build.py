@@ -131,6 +131,10 @@ def load_library() -> ctypes.CDLL:
     # a, b, h0 (or None), h, B, S, W, stream
     lib.repro_rglru_scan.argtypes = [vp, vp, vp, vp, ll, ll, ll, vp]
     lib.repro_rglru_scan.restype = ctypes.c_int
+    # x, dt, A, Bm, Cm, init_state (or None), y, final, b, S, H, P, G, N,
+    # Q, stream
+    lib.repro_ssd_scan.argtypes = [vp] * 8 + [ll] * 7 + [vp]
+    lib.repro_ssd_scan.restype = ctypes.c_int
     return lib
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int8_quant as _q8
 from repro_torch.kernels import rglru_scan as _lru
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 # --------------------------------------------------------------------------
@@ -37,6 +38,17 @@ def rglru_scan(a, b, h0=None):
 
 
 # --------------------------------------------------------------------------
+# SSD scan — drop-in for models.ssd.ssd_chunked_ref
+# --------------------------------------------------------------------------
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk_size=128, init_state=None):
+    return _ssd.ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
+                         Bm.contiguous(), Cm.contiguous(),
+                         chunk_size=chunk_size,
+                         init_state=(None if init_state is None
+                                     else init_state.contiguous()))
+
+
+# --------------------------------------------------------------------------
 # int8 boundary quantization
 # --------------------------------------------------------------------------
 int8_quantize = _q8.int8_quantize
@@ -46,5 +58,5 @@ int8_dequantize = _q8.int8_dequantize
 def kernel_registry():
     """``kernel_fn`` entries for models.transformer, as the engines pass
     them: the dispatching wrappers, which the blocks also take when no
-    entry is given (the SSD entry arrives with its kernel)."""
-    return {"rglru": rglru_scan}
+    entry is given."""
+    return {"rglru": rglru_scan, "ssd": ssd_scan}

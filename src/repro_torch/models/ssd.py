@@ -1,0 +1,141 @@
+"""Mamba-2 block: SSD (state-space duality) with the chunked algorithm.
+
+Block: in_proj -> [z | x | B | C | dt] -> causal depthwise conv over
+[x, B, C] -> SSD -> + D * x skip -> gated RMSNorm(silu(z)) -> out_proj.
+
+SSD recurrence per head (state S in R^{P x N}):
+    S_t = exp(dt_t * A) * S_{t-1} + dt_t * (x_t outer B_t)
+    y_t = S_t @ C_t + D * x_t
+
+Counterpart of ``repro/models/ssd.py`` (forward only: the chunk-replay
+backward is training, ROADMAP A9).  The scan over the sequence is
+``kernel_fn`` when one is given, and ``kernels.ops.ssd_scan`` otherwise:
+the hand-written CUDA kernel on a CUDA tensor, the chunked plain version
+``ssd_chunked_ref`` on a CPU tensor.  The engines' ``kernel_registry()``
+entry is that same wrapper.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+# the reference's oracle keeps its name here; in the port it lives
+# beside the kernel's wrapper
+from repro_torch.kernels.ssd_scan import ssd_chunked_ref  # noqa: F401
+from repro_torch.models.common import dense_init, pdtype
+from repro_torch.models.rglru import _causal_depthwise_conv
+
+
+def dims(cfg):
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    H = s.n_heads(d)
+    return d, di, H, s.head_dim, s.n_groups, s.d_state
+
+
+def init_ssd_block(generator: torch.Generator, cfg, device=None):
+    """Separate projections per component (not mamba's fused in_proj), in
+    the reference's tree."""
+    s = cfg.ssm
+    d, di, H, P, G, N = dims(cfg)
+    dt = pdtype(cfg)
+
+    def dense(shape, fan_in=None):
+        return dense_init(generator, shape, dt, fan_in=fan_in, device=device)
+    p = {
+        "z_proj": dense((d, di)),
+        "x_proj": dense((d, di)),
+        "b_proj": dense((d, G * N)),
+        "c_proj": dense((d, G * N)),
+        "dt_proj": dense((d, H)),
+        "conv_x": dense((s.d_conv, di), s.d_conv),
+        "conv_b": dense((s.d_conv, G * N), s.d_conv),
+        "conv_c": dense((s.d_conv, G * N), s.d_conv),
+    }
+    u = torch.rand((H,), generator=generator, device=generator.device)
+    dt_init = torch.exp(math.log(s.dt_min)
+                        + u * (math.log(s.dt_max) - math.log(s.dt_min)))
+    dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))   # inverse softplus
+    p.update({
+        "A_log": torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                        device=device)),
+        "dt_bias": dt_bias.to(device),
+        "D": torch.ones((H,), device=device),
+        "norm_scale": torch.ones((di,), device=device),
+        "out_proj": dense((di, d)),
+    })
+    return p
+
+
+def ssd_decode_step(state, x, dt, A, Bm, Cm):
+    """One-token recurrence.  x (b,h,p); dt (b,h); Bm, Cm (b,g,n) ->
+    (y (b,h,p), state (b,h,p,n))."""
+    H = x.shape[1]
+    rep = H // Bm.shape[1]
+    Bh = torch.repeat_interleave(Bm, rep, dim=1)
+    Ch = torch.repeat_interleave(Cm, rep, dim=1)
+    decay = torch.exp(dt * A)[..., None, None]                 # (b,h,1,1)
+    state = decay * state + torch.einsum("bh,bhp,bhn->bhpn", dt, x, Bh)
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    return y, state
+
+
+def apply_ssd_block(p, x_in, cfg, state=None, kernel_fn=None):
+    """x_in (B,S,d) -> (y (B,S,d), new_state).
+
+    state: {"ssm": (B,H,P,N) fp32, "conv": (B,K-1,di+2GN)} — the conv
+    state concatenates the [x | B | C] pre-conv context.
+    """
+    s = cfg.ssm
+    d, di, H, Pd, G, N = dims(cfg)
+    B, S, _ = x_in.shape
+    zg = torch.einsum("bsd,de->bse", x_in, p["z_proj"])
+    xs = torch.einsum("bsd,de->bse", x_in, p["x_proj"])
+    Bs = torch.einsum("bsd,de->bse", x_in, p["b_proj"])
+    Cs = torch.einsum("bsd,de->bse", x_in, p["c_proj"])
+    dts = torch.einsum("bsd,de->bse", x_in, p["dt_proj"])
+    if state is not None:
+        px, pb, pc = torch.split(state["conv"], [di, G * N, G * N], dim=-1)
+    else:
+        px = pb = pc = None
+    conv_state_in = torch.cat([xs, Bs, Cs], dim=-1)
+    xs_c = F.silu(_causal_depthwise_conv(xs, p["conv_x"], px).float())
+    Bs_c = F.silu(_causal_depthwise_conv(Bs, p["conv_b"], pb).float())
+    Cs_c = F.silu(_causal_depthwise_conv(Cs, p["conv_c"], pc).float())
+    xh = xs_c.reshape(B, S, H, Pd)
+    Bm = Bs_c.reshape(B, S, G, N)
+    Cm = Cs_c.reshape(B, S, G, N)
+    dt = F.softplus(dts.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    s0 = state["ssm"] if state is not None else None
+    fn = kernel_fn if kernel_fn is not None else ops.ssd_scan
+    y, final = fn(xh, dt, A, Bm, Cm, chunk_size=s.chunk_size, init_state=s0)
+    y = y + p["D"][:, None] * xh
+    y = y.reshape(B, S, di)
+    # gated RMSNorm
+    gated = y * F.silu(zg.float())
+    ms = gated.square().mean(dim=-1, keepdim=True)
+    y = (gated * torch.rsqrt(ms + 1e-6) * p["norm_scale"]).to(x_in.dtype)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    K = p["conv_x"].shape[0]
+    prefix = (state["conv"] if state is not None else
+              conv_state_in.new_zeros((B, K - 1, di + 2 * G * N)))
+    new_state = {
+        "ssm": final,
+        "conv": torch.cat([prefix, conv_state_in], dim=1)[:, -(K - 1):],
+    }
+    return out, new_state
+
+
+def init_ssd_state(batch: int, cfg, device=None):
+    s = cfg.ssm
+    d, di, H, Pd, G, N = dims(cfg)
+    return {
+        "ssm": torch.zeros((batch, H, Pd, N), device=device),
+        "conv": torch.zeros((batch, s.d_conv - 1, di + 2 * G * N),
+                            dtype=pdtype(cfg), device=device),
+    }

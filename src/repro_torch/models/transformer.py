@@ -14,9 +14,9 @@ here; PyTorch runs eagerly, so there is nothing to compile or to remat.
 ``run_layer_range`` is the paper's segmentation hook: the cloud runs
 groups ``[0, g)``, ships the hidden state, the device runs ``[g, G)``.
 
-Ported so far: attention (self-attention) and RG-LRU blocks, dense
-MLPs.  SSD blocks come with the next slice; MoE, encoder-decoder,
-modality frontends and decode (KV caches) after it (ROADMAP A5, A7).
+Ported so far: attention (self-attention), RG-LRU and SSD (Mamba-2)
+blocks, dense MLPs.  Decode (KV caches) comes with the next slice; MoE,
+encoder-decoder and modality frontends after it (ROADMAP A5, A7).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.common import (
     apply_norm,
     apply_rope,
@@ -106,7 +107,10 @@ def init_block(kind: str, generator, cfg, cross: bool = False,
             "mlp": init_mlp(generator, cfg, device=device),
         }
     if kind == "ssd":
-        raise _not_ported("the SSD (Mamba-2) block", "A5, next slice")
+        return {
+            "norm1": init_norm(cfg, cfg.d_model, device),
+            "ssd": ssd_lib.init_ssd_block(generator, cfg, device),
+        }
     raise ValueError(kind)
 
 
@@ -202,7 +206,11 @@ def apply_block_seq(kind, p, x, cfg, ctx, *, positions, state=None,
         x = x + apply_mlp(p["mlp"], h2, cfg)
         return x, None, (new_state if return_cache else None)
     if kind == "ssd":
-        raise _not_ported("the SSD (Mamba-2) block", "A5, next slice")
+        h = apply_norm(p["norm1"], x)
+        y, new_state = ssd_lib.apply_ssd_block(
+            p["ssd"], h, cfg, state=state, kernel_fn=kernels.get("ssd"))
+        x = x + y
+        return x, None, (new_state if return_cache else None)
     raise ValueError(kind)
 
 

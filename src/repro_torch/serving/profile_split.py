@@ -5,13 +5,13 @@ half (``LayerSplitEngine.process``) and the device half
 ``profile_round`` serves one batch through a pair of engines that have
 already served it once (so nothing is warmed inside the trace) under
 ``torch.profiler`` and returns each side's ``gpu_seconds``, the device
-time of each class of kernel (the flash-attention and RG-LRU kernels,
-GEMMs, copies, the rest), the ten largest kernels, the kernel launches the
-wrappers counted, and the device's idle share over the round.  It raises
-if the trace holds another number of the hand kernels than the wrappers
-counted.  ``chip_smoke.py`` runs it on the engines of its ``lm_serve``
-phase; on the CPU there are no device kernels and the device fields are
-null.
+time of each class of kernel (the flash-attention, RG-LRU and SSD
+kernels, GEMMs, copies, the rest), the ten largest kernels, the kernel
+launches the wrappers counted, and the device's idle share over the
+round.  It raises if the trace holds another number of the hand kernels
+than the wrappers counted.  ``chip_smoke.py`` runs it on the engines of
+its ``lm_serve`` and ``mamba_serve`` phases; on the CPU there are no
+device kernels and the device fields are null.
 """
 from __future__ import annotations
 
@@ -26,11 +26,13 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru_scan as lru
+from repro_torch.kernels import ssd_scan as ssd
 
 #: substrings of the kernel names of each class (lower case)
 KERNEL_CLASSES = (
     ("flash_attention", ("flash_attention_kernel",)),
     ("rglru_scan", ("rglru_scan_kernel",)),
+    ("ssd_scan", ("ssd_scan_kernel",)),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
 
@@ -99,14 +101,15 @@ def profile_round(cloud, device, tokens: np.ndarray, group: int) -> Dict:
     before = {"cloud": cloud.stats["gpu_seconds"],
               "device": device.stats["gpu_seconds"]}
     misses = cloud.stats["cache_misses"] + device.stats["cache_misses"]
-    launches = (fa.launch_count, lru.launch_count)
+    launches = (fa.launch_count, lru.launch_count, ssd.launch_count)
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         payload, _ = cloud.process({"tokens": tokens}, group)
         logits = device.complete(payload, group)
         wall = time.perf_counter() - t0
     launched = {"flash_attention": fa.launch_count - launches[0],
-                "rglru_scan": lru.launch_count - launches[1]}
+                "rglru_scan": lru.launch_count - launches[1],
+                "ssd_scan": ssd.launch_count - launches[2]}
     if cloud.stats["cache_misses"] + device.stats["cache_misses"] != misses:
         raise RuntimeError("the profiled round warmed an engine up: serve "
                            "the batch once before profiling it")

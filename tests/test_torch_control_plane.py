@@ -188,6 +188,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     files.append(ROOT / "chip_smoke.py")
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ("kernels/flash_attention", "kernels/rglru_scan",
+                   "kernels/ssd_scan", "models/ssd",
                    "models/attention", "models/rglru", "models/moe",
                    "models/transformer", "core/segmentation",
                    "configs/recurrentgemma_9b"):

@@ -18,6 +18,8 @@ torch.set_num_threads(1)
      "16>(...)", "flash_attention"),
     ("(anonymous namespace)::rglru_scan_kernel(float const*, ...)",
      "rglru_scan"),
+    ("(anonymous namespace)::ssd_scan_kernel(float const*, ...)",
+     "ssd_scan"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "gemm"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x256x64", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
@@ -76,5 +78,6 @@ def test_runs_on_the_cpu_when_asked():
     assert (out["batch"], out["seq"], out["group"]) == (1, 16, g)
     assert out["side_seconds"]["device"] > 0
     # CPU tensors never reach the kernels
-    assert out["wrapper_launches"] == {"flash_attention": 0, "rglru_scan": 0}
+    assert out["wrapper_launches"] == {"flash_attention": 0, "rglru_scan": 0,
+                                       "ssd_scan": 0}
     assert out["device_seconds"] is None
