@@ -17,12 +17,23 @@ drives the port's two serving paths, each at full published width:
     carry every attention and recurrent layer.  One more g = 6 round then
     runs under ``torch.profiler`` (phase ``lm_profile``): device time by
     kernel class and the device's idle share;
+    Request 0 is then prefilled and decoded 16 steps (phase
+    ``lm_decode``): decode attention over a window inside a longer cache,
+    the RG-LRU kernel at one step;
   * the same layer split on Mamba-2-780M (48 SSD layers, bf16), after
     RecurrentGemma's weights are freed: the SSD kernel is held against its
     plain version (phase ``ssd_kernels``), then 4 requests of 4096 tokens
     are split at g = 24 and request 0 at g = 0 and g = 48, with the SSD
     kernel in every layer, and one more g = 24 round is profiled (phase
-    ``mamba_serve``).
+    ``mamba_serve``); request 0 is decoded 16 steps (``mamba_decode``);
+  * decode (Qwen2-7B, 28 attention layers, bf16), after Mamba-2's weights
+    are freed: the decode-attention kernel is held against its plain
+    version (phase ``decode_kernels``), then 8 sequences of 4096 tokens
+    are prefilled through the flash kernel and decoded 64 teacher-forced
+    steps through a 4160-row cache, every layer's attention through the
+    decode kernel; fp32 and int8-cache decodes are held to a one-machine
+    forward and to the plain version (``decode_serve``), and 8 more steps
+    are profiled (``decode_profile``).
 
 Each phase prints one JSON line (``total``: the script's own time, the
 kernels' build included).  The line before the last two is
@@ -33,8 +44,10 @@ is then non-zero and no result line is printed.  There is no CPU mode.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -125,6 +138,41 @@ SSD_FP32_PLAIN_REL_L2 = 1e-4
 SSD_GRID = ((1, 256, 4, 64, 1, 128, 128), (2, 128, 8, 64, 2, 64, 64),
             (1, 512, 2, 32, 1, 16, 128), (2, 256, 8, 64, 2, 64, 512))
 SSD_Y_ATOL, SSD_FINAL_ATOL = 2e-4, 2e-5
+
+# Decode of the two layer-split models above: request 0's prompt, then
+# teacher-forced steps on tokens drawn from SEED + 1, through a linear
+# cache of LM_SEQ + LM_DECODE_STEPS rows.  Held to a one-machine fp32
+# forward over the same tokens as the relative L2 error of the logits.
+LM_DECODE_STEPS = 16
+DECODE_FP32_REL_L2 = 1e-4
+
+# The decode path: full-width Qwen2-7B, uncut (28 attention layers, 28
+# query heads on 4 kv heads, head_dim 128).
+DECODE_ARCH = "qwen2-7b"
+DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS = 8, 4096, 64
+DECODE_LEN = DECODE_PROMPT + DECODE_STEPS
+# jax.eval_shape of the reference's init_params for this config, and of
+# its init_decode_cache(cfg, 8, 4160): 28 layers of bf16 k and v
+DECODE_PARAMETERS = 7_626_626_560
+DECODE_PARAMETER_BYTES = 15_253_919_744
+DECODE_CACHE_BYTES = 1_908_408_320
+# request 0 in fp32 through this many steps (the check that can see a
+# routing or kernel fault), an int8 cache from empty through as many, and
+# this many more steps profiled
+DECODE_FP32_STEPS = DECODE_INT8_STEPS = 16
+DECODE_PROFILE_STEPS = 8
+# the reference's grid (tests/test_kernels.py; ragged lengths), Qwen2-7B's
+# group of 7 at head_dim 128 and RecurrentGemma-9B's 16 at 256:
+# (B, Skv, Hq, Hkv, D)
+DECODE_GRID = ((4, 512, 8, 2, 64), (2, 384, 4, 4, 128), (3, 512, 16, 1, 80),
+               (2, 1000, 28, 4, 128), (1, 2100, 16, 1, 256))
+# the path's shape: q (8, 1, 28, 128), the cache (8, 4160, 4, 128), every
+# sequence at 4096 valid keys (the first decode step's 4097, rounded)
+DECODE_PATH = (DECODE_BATCH, DECODE_LEN, 28, 4, 128)
+DECODE_PATH_LENGTH = DECODE_PROMPT
+# (atol, rtol): fp32 as tests/test_kernels.py holds the Pallas kernel;
+# bf16 as the flash kernel (one bf16 step of the output)
+DECODE_TOL = {torch.float32: (5e-6, 0.0), torch.bfloat16: (2e-3, 2e-2)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -460,6 +508,16 @@ def _tree_map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def _leaves(tree: dict) -> list:
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _nbytes(tree: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
 def flash_bound(B, Hq, Hkv, Sq, Skv, d, causal, window, itemsize):
     """Least time for one call: the larger of q, k, v read and o written
     once over the memory rate, and 4 d operations (two products) for
@@ -629,20 +687,28 @@ def _layers_run(cfg, start: int, stop: int) -> dict:
     kinds = list(cfg.block_pattern) * (stop - start)
     if stop == cfg.num_groups():
         kinds += list(cfg.tail_pattern())
-    return {"flash_attention": kinds.count("attn"),
+    return {"flash_attention": kinds.count("attn"), "decode_attention": 0,
             "rglru_scan": kinds.count("rec"),
             "ssd_scan": kinds.count("ssd")}
 
 
+def _decode_step_launches(cfg, steps: int) -> dict:
+    """Kernel launches ``steps`` decode steps make: one a layer, decode
+    attention for each attention layer."""
+    run = _layers_run(cfg, 0, cfg.num_groups())
+    return {"flash_attention": 0,
+            "decode_attention": steps * run["flash_attention"],
+            "rglru_scan": steps * run["rglru_scan"],
+            "ssd_scan": steps * run["ssd_scan"]}
+
+
 def _launch_modules() -> dict:
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rglru_scan as lru
-    from repro_torch.kernels import ssd_scan as ssd
-    return {"flash_attention": fa, "rglru_scan": lru, "ssd_scan": ssd}
+    from repro_torch.serving.profile_split import WRAPPERS
+    return WRAPPERS
 
 
 def launch_counts() -> dict:
-    """The layer-split kernels' wrapper counts, by kernel."""
+    """The hand kernels' wrapper counts, by kernel."""
     return {n: m.launch_count for n, m in _launch_modules().items()}
 
 
@@ -662,14 +728,16 @@ def _ssd_plain(x, dt, A, Bm, Cm, *, chunk_size, init_state=None):
 
 class plain_versions:
     """Within the block, the named wrappers ("flash_attention",
-    "rglru_scan", "ssd_scan") run their plain versions on CUDA tensors,
-    so the model's forward can be held against itself without those
-    kernels on this card."""
+    "decode_attention", "rglru_scan", "ssd_scan") run their plain versions
+    on CUDA tensors, so the model's forward can be held against itself
+    without those kernels on this card."""
 
     def __init__(self, *names):
         modules = _launch_modules()
         plain = {"flash_attention": modules["flash_attention"]
                  .flash_attention_ref,
+                 "decode_attention": modules["decode_attention"]
+                 .decode_attention_ref,
                  "rglru_scan": modules["rglru_scan"].rglru_scan_ref,
                  "ssd_scan": _ssd_plain}
         self._swaps = [(modules[n], n, plain[n]) for n in names]
@@ -697,14 +765,9 @@ def init_full_width(arch: str, want_params: int, want_bytes: int):
         cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = []
-
-    def walk(tree):
-        for v in tree.values():
-            walk(v) if isinstance(v, dict) else leaves.append(v)
-    walk(params)
+    leaves = _leaves(params)
     n_params = sum(t.numel() for t in leaves)
-    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_bytes = _nbytes(params)
     if (n_params, n_bytes) != (want_params, want_bytes):
         raise RuntimeError(f"{arch}: {n_params} parameters in {n_bytes} B, "
                            f"the reference's tree holds {want_params} in "
@@ -728,7 +791,7 @@ def serve_plan(cfg, params, plan):
     device = LayerSplitDevice(params, cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    expected = {"flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0}
+    expected = dict.fromkeys(launch_counts(), 0)
     forwards = 0                     # whole forwards, warm-ups included
     splits, logits = [], {}
     t_serve = time.perf_counter()
@@ -1134,6 +1197,408 @@ def phase_mamba_serve(entry: dict) -> None:
          fp32_kernel_vs_plain=fp32_vs_plain,
          limit_fp32_rel_l2=SSD_FP32_PLAIN_REL_L2,
          bf16_vs_fp32_rel_l2=bf16_vs_fp32, profile=prof)
+    return cfg, params, tokens
+
+
+def decode_bound(lengths, Hq, Hkv, d, itemsize):
+    """Least time for one call: the larger of the valid keys and values
+    read once (with q, lengths and o) over the memory rate, and 4 d
+    operations (two products) for each (query head, valid key) over the
+    bf16 tensor-core rate."""
+    keys = int(sum(lengths))
+    B = len(lengths)
+    nbytes = (2 * keys * Hkv * d + 2 * B * Hq * d) * itemsize + 4 * B
+    flops = 4.0 * keys * Hq * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_decode_kernels() -> dict:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import rglru_scan as lru
+    from repro_torch.kernels import ssd_scan as ssd
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    checks = []
+
+    def check(what, o, want, dtype, exact=None):
+        atol, rtol = DECODE_TOL[dtype]
+        err = float((o.float() - want.float()).abs().max())
+        checks.append({"case": what, "dtype": str(dtype), "max_abs_err": err,
+                       "atol": atol, "rtol": rtol})
+        if (o.dtype != dtype or o.shape != want.shape
+                or not bool(torch.isfinite(o).all())
+                or not _within(o, want, atol, rtol)):
+            raise RuntimeError(f"decode_attention {what} {dtype} disagrees "
+                               f"with its plain version: max|d|={err}")
+        if exact is not None and not torch.equal(o, exact):
+            raise RuntimeError(f"decode_attention {what} {dtype}: a view "
+                               "and its contiguous copy differ")
+        return err
+
+    path_err, path_inputs = None, None
+    for case in DECODE_GRID + (DECODE_PATH,):
+        B, Skv, Hq, Hkv, D = case
+        for dtype in DECODE_TOL:
+            q = normal(B, Hq, D).to(dtype)
+            k, v = normal(B, Skv, Hkv, D).to(dtype), normal(
+                B, Skv, Hkv, D).to(dtype)
+            ragged = torch.randint(1, Skv + 1, (B,), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            variants = [("ragged", ragged)]
+            if case == DECODE_PATH:
+                variants = [("path", torch.full_like(ragged,
+                                                     DECODE_PATH_LENGTH))]
+            variants += [("length 1", torch.ones_like(ragged)),
+                         ("length Skv", torch.full_like(ragged, Skv))]
+            for name, lens in variants:
+                o = dec.decode_attention(q, k, v, lens)
+                torch.cuda.synchronize()
+                err = check(f"{list(case)} {name}", o,
+                            dec.decode_attention_ref(q, k, v, lens), dtype)
+                if name == "path":
+                    path_err = err
+                    if dtype == torch.bfloat16:
+                        path_inputs = (q, k, v, lens)
+            # a window inside the cache, read in place
+            lo, hi = Skv // 3, Skv // 3 + Skv // 2
+            lens = torch.full_like(ragged, hi - lo)
+            o = dec.decode_attention(q, k[:, lo:hi], v[:, lo:hi], lens)
+            copy = dec.decode_attention(q, k[:, lo:hi].contiguous(),
+                                        v[:, lo:hi].contiguous(), lens)
+            torch.cuda.synchronize()
+            check(f"{list(case)} view [{lo}:{hi}]", o,
+                  dec.decode_attention_ref(q, k[:, lo:hi], v[:, lo:hi], lens),
+                  dtype, exact=copy)
+
+    # the two scans at one step, as decode runs them (never launched at
+    # S = 1 by the layer split): RecurrentGemma-9B's width, Mamba-2-780M's
+    # heads with a chunk of one step
+    one_step = []
+    a = 0.8 + 0.199 * torch.rand((1, 1, 4096), generator=gen, device="cuda")
+    b, h0 = normal(1, 1, 4096), normal(1, 4096)
+    h = lru.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    err = float((h - lru.rglru_scan_ref(a, b, h0)).abs().max())
+    one_step.append({"kernel": "rglru_scan", "shape": [1, 1, 4096],
+                     "max_abs_err": err, "atol": RGLRU_ATOL})
+    if not err <= RGLRU_ATOL:
+        raise RuntimeError(f"rglru_scan at one step: max|d|={err}")
+    x, dt = normal(1, 1, 48, 64), 0.001 + 0.099 * torch.rand(
+        (1, 1, 48), generator=gen, device="cuda")
+    A = -(0.5 + 1.5 * torch.rand((48,), generator=gen, device="cuda"))
+    Bm, Cm, st = normal(1, 1, 1, 128), normal(1, 1, 1, 128), normal(
+        1, 48, 64, 128)
+    y, fin = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk_size=256, init_state=st)
+    torch.cuda.synchronize()
+    y_ref, fin_ref = ssd.ssd_chunked_ref(x, dt, A, Bm, Cm, 256, st)
+    y_err = float((y - y_ref).abs().max())
+    fin_err = float((fin - fin_ref).abs().max())
+    one_step.append({"kernel": "ssd_scan", "shape": [1, 1, 48, 64, 1, 128],
+                     "y_max_abs_err": y_err, "final_max_abs_err": fin_err})
+    if not (y_err <= SSD_Y_ATOL and fin_err <= SSD_FINAL_ATOL):
+        raise RuntimeError(f"ssd_scan at one step: max|dy|={y_err}, "
+                           f"max|dfinal|={fin_err}")
+
+    # times at the path's shape; kernel and plain version in turns
+    q, k, v, lens = path_inputs
+    B, Skv, Hq, Hkv, D = DECODE_PATH
+    mask = (torch.arange(Skv, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def run_library():
+        # a yardstick only: the port never calls it
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+    lib_err = float((run_library().float() - dec.decode_attention_ref(
+        q, k, v, lens).float()).abs().max())
+    plain_a = time_ms(lambda: dec.decode_attention_ref(q, k, v, lens),
+                      inner=20, samples=10)
+    kern_a = time_ms(lambda: dec.decode_attention(q, k, v, lens), inner=20,
+                     samples=10)
+    kern_b = time_ms(lambda: dec.decode_attention(q, k, v, lens), inner=20,
+                     samples=10)
+    plain_b = time_ms(lambda: dec.decode_attention_ref(q, k, v, lens),
+                      inner=20, samples=10)
+    library = time_ms(run_library, inner=20, samples=10)
+
+    # the C entry point alone, output and scratch allocated beforehand:
+    # what is left of "ms" once the wrapper's host work is taken out
+    lib = _build.load_library()
+    chunk, n_splits = dec.split_plan(B * Hkv, Skv, D)
+    o = torch.empty_like(q)
+    part_acc = torch.empty((B * Hkv, n_splits, Hq // Hkv, D),
+                           device="cuda")
+    part_ml = torch.empty((B * Hkv, n_splits, Hq // Hkv, 2), device="cuda")
+    raw_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, Hq,
+                Hkv, Skv, D, *k.stride()[:3], *v.stride()[:3], chunk,
+                n_splits, D ** -0.5, 1, torch.cuda.current_stream()
+                .cuda_stream)
+    _build.check_launch(lib, lib.repro_decode_attention(*raw_args),
+                        "decode_attention")
+    torch.cuda.synchronize()
+    if not torch.equal(o, dec.decode_attention(q, k, v, lens)):
+        raise RuntimeError("the raw launch and the wrapper differ")
+    raw_ms = time_ms(lambda: lib.repro_decode_attention(*raw_args),
+                     inner=20, samples=10)
+    bound_ms, bound_by, nbytes, flops = decode_bound(
+        lens.tolist(), Hq, Hkv, D, q.element_size())
+    entry = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:65",
+        "launches": None,                     # filled in by decode_serve
+        "max_abs_err": path_err,
+        "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
+        "raw_launch_ms": raw_ms,
+        "library_call": "F.scaled_dot_product_attention(enable_gqa=True, "
+                        "boolean length mask, transposed views)",
+        "library_max_abs_err_vs_plain": lib_err,
+        "timed": f"one Qwen2-7B decode layer, q ({B}, 1, {Hq}, {D}), cache "
+                 f"({B}, {Skv}, {Hkv}, {D}) bf16, {DECODE_PATH_LENGTH} valid "
+                 "keys a sequence; median of 10 x 20 calls, best of 2",
+        "bytes": nbytes, "flops": flops,
+        "split": list(dec.split_plan(B * Hkv, Skv, D)),
+    }
+    emit("decode_kernels", checks=checks, one_step_scans=one_step,
+         decode_attention=entry)
+    return entry
+
+
+def decode_steps(params, cfg, tokens, cache, start: int, steps: int):
+    """``steps`` teacher-forced decode steps from position ``start``
+    (token ``tokens[:, t]`` at position t) through ``cache``, in place.
+    Returns the last logits and each step's CUDA-event milliseconds."""
+    from repro_torch.models import transformer as tr
+    marks, logits = [], None
+    for t in range(start, start + steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = tr.decode_step(params, tokens[:, t:t + 1], cache, t,
+                                       cfg)
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return logits, [a.elapsed_time(b) for a, b in marks]
+
+
+def prefill_decode(params, cfg, tokens, prompt: int, steps: int):
+    """Prefill ``tokens[:, :prompt]`` into a cache of ``prompt + steps``
+    rows, then ``steps`` teacher-forced decode steps; the launch counts
+    set to 0 just before and read after each part.  Returns (last logits,
+    cache, record)."""
+    from repro_torch.models import transformer as tr
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = tr.prefill(params, {"tokens": tokens[:, :prompt]}, cfg,
+                          pad_to=prompt + steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prefill_launches = launch_counts()
+    logits, step_ms = decode_steps(params, cfg, tokens, cache, prompt, steps)
+    decode_s = time.perf_counter() - t1
+    record = {
+        "batch": int(tokens.shape[0]), "prompt": prompt, "steps": steps,
+        "prefill_seconds": t1 - t0, "decode_seconds": decode_s,
+        "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+        "tokens_per_second": tokens.shape[0] * steps / decode_s,
+        "launches": {"prefill": prefill_launches,
+                     "decode": launches_since(prefill_launches)}}
+    want = {"prefill": _layers_run(cfg, 0, cfg.num_groups()),
+            "decode": _decode_step_launches(cfg, steps)}
+    if record["launches"] != want:
+        raise RuntimeError(f"prefill + decode launched {record['launches']}"
+                           f", expected {want}")
+    return logits, cache, record
+
+
+def one_machine(params, cfg, tokens):
+    """Last-token logits of the forward over all of ``tokens``.  An SSD
+    model whose chunk does not divide the length (Mamba-2's 256 and 4112
+    tokens) runs with the largest chunk that does (16): the chunked scan
+    computes the same function at any chunk length."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    S = tokens.shape[1]
+    if cfg.ssm is not None and S % cfg.ssm.chunk_size:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk_size=math.gcd(S, cfg.ssm.chunk_size)))
+    hidden, _, _ = tr.forward_hidden(params, {"tokens": tokens}, cfg,
+                                     kernels=ops.kernel_registry())
+    return tr.unembed(params, hidden[:, -1:], cfg)
+
+
+def phase_model_decode(phase: str, cfg, params, prompts) -> None:
+    """Request 0 of a layer-split model: its prompt prefilled into a cache
+    of ``LM_SEQ + LM_DECODE_STEPS`` rows, then as many teacher-forced
+    steps, in bf16 and in fp32.  The fp32 decode is held to the fp32
+    one-machine forward over the same tokens; the bf16 distances are
+    reported."""
+    extra = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (1, LM_DECODE_STEPS)).astype(np.int32)
+    tokens = torch.from_numpy(np.concatenate([prompts[:1], extra],
+                                             axis=1)).cuda()
+    logits, cache, record = prefill_decode(params, cfg, tokens, LM_SEQ,
+                                           LM_DECODE_STEPS)
+    record["cache_rows"] = LM_SEQ + LM_DECODE_STEPS
+    del cache
+    V = cfg.vocab_size
+    want = one_machine(params, cfg, tokens)
+    params32 = _tree_map(lambda t: t.float(), params)
+    logits32, cache32, record32 = prefill_decode(params32, cfg, tokens,
+                                                 LM_SEQ, LM_DECODE_STEPS)
+    del cache32
+    want32 = one_machine(params32, cfg, tokens)
+    del params32
+    torch.cuda.empty_cache()
+    for t in (logits, want, logits32, want32):
+        if not bool(torch.isfinite(t[..., :V]).all()):
+            raise RuntimeError(f"{phase}: non-finite logits")
+    held = _rel_l2(logits32, want32, V)
+    emit(phase, config=cfg.name, **record,
+         fp32={k: record32[k] for k in ("prefill_seconds", "step_ms_median",
+                                        "launches")},
+         fp32_decode_vs_forward_rel_l2=held,
+         limit_fp32_rel_l2=DECODE_FP32_REL_L2,
+         bf16_decode_vs_forward_rel_l2=_rel_l2(logits, want, V),
+         bf16_decode_vs_fp32_forward_rel_l2=_rel_l2(logits, want32, V),
+         bf16_forward_vs_fp32_forward_rel_l2=_rel_l2(want, want32, V))
+    if not held <= DECODE_FP32_REL_L2:
+        raise RuntimeError(f"{phase}: fp32 decode against the fp32 forward: "
+                           f"relative L2 error of the logits {held} > "
+                           f"{DECODE_FP32_REL_L2}")
+
+
+def phase_decode_serve(entry: dict):
+    from repro_torch.models import transformer as tr
+
+    cfg, params, info = init_full_width(DECODE_ARCH, DECODE_PARAMETERS,
+                                        DECODE_PARAMETER_BYTES)
+    if (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()) != tuple(
+            DECODE_PATH[2:]):
+        raise RuntimeError(f"{DECODE_ARCH}: heads and head_dim differ from "
+                           f"the decode path's {DECODE_PATH}")
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (DECODE_BATCH, DECODE_LEN)).astype(
+            np.int32)).cuda()
+    V = cfg.vocab_size
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache, record = prefill_decode(params, cfg, tokens,
+                                           DECODE_PROMPT, DECODE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    launches = record["launches"]["decode"]["decode_attention"]
+    if launches != cfg.num_layers * DECODE_STEPS:
+        raise RuntimeError(f"decode attention launched {launches} times")
+    entry["launches"] = launches
+    cache_bytes = _nbytes(cache)
+    if cache_bytes != DECODE_CACHE_BYTES:
+        raise RuntimeError(f"the cache holds {cache_bytes} B, the "
+                           f"reference's {DECODE_CACHE_BYTES} B")
+
+    # bf16: against the one-machine forward over the same 4160 tokens
+    want = one_machine(params, cfg, tokens)
+    if not bool(torch.isfinite(logits[..., :V]).all()):
+        raise RuntimeError("non-finite decode logits")
+    bf16 = _rel_l2(logits, want, V)
+
+    # fp32, request 0: the decode through the kernel against the fp32
+    # forward and against the same decode through the plain version
+    params32 = _tree_map(lambda t: t.float(), params)
+    tok0 = tokens[:1, :DECODE_PROMPT + DECODE_FP32_STEPS]
+    _, c32 = tr.prefill(params32, {"tokens": tok0[:, :DECODE_PROMPT]}, cfg,
+                        pad_to=tok0.shape[1])
+    c32_plain = _tree_map(torch.clone, c32)
+    counts = launch_counts()
+    k32, _ = decode_steps(params32, cfg, tok0, c32, DECODE_PROMPT,
+                          DECODE_FP32_STEPS)
+    if launches_since(counts) != _decode_step_launches(cfg,
+                                                       DECODE_FP32_STEPS):
+        raise RuntimeError(f"fp32 decode launched {launches_since(counts)}")
+    counts = launch_counts()
+    with plain_versions("decode_attention"):
+        p32, _ = decode_steps(params32, cfg, tok0, c32_plain, DECODE_PROMPT,
+                              DECODE_FP32_STEPS)
+    if launches_since(counts)["decode_attention"] != 0:
+        raise RuntimeError("the plain fp32 decode launched the kernel")
+    del c32, c32_plain
+    f32 = one_machine(params32, cfg, tok0)
+    del params32
+    torch.cuda.empty_cache()
+    fp32 = {"vs_forward_rel_l2": _rel_l2(k32, f32, V),
+            "vs_plain_rel_l2": _rel_l2(k32, p32, V),
+            "max_abs_err_vs_plain": float((k32[..., :V] - p32[..., :V])
+                                          .abs().max()),
+            "logits_rms": float(f32[..., :V].square().mean().sqrt())}
+
+    # an int8 cache from empty: through the kernel, through the plain
+    # version, and the same steps over a bf16 cache
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+
+    def from_empty(c):
+        cache0 = tr.init_decode_cache(c, DECODE_BATCH, DECODE_INT8_STEPS,
+                                      device="cuda")
+        return decode_steps(params, c, tokens, cache0, 0,
+                            DECODE_INT8_STEPS)[0]
+    counts = launch_counts()
+    k8 = from_empty(cfg8)
+    if launches_since(counts) != _decode_step_launches(cfg,
+                                                       DECODE_INT8_STEPS):
+        raise RuntimeError(f"int8 decode launched {launches_since(counts)}")
+    with plain_versions("decode_attention"):
+        p8 = from_empty(cfg8)
+    b16 = from_empty(cfg)
+    int8 = {"kernel_vs_plain_rel_l2": _rel_l2(k8, p8, V),
+            "vs_bf16_cache_rel_l2": _rel_l2(k8, b16, V),
+            "plain_vs_bf16_cache_rel_l2": _rel_l2(p8, b16, V)}
+    emit("decode_serve", **info, **record, cache_bytes=cache_bytes,
+         peak_memory_bytes=peak, bf16_decode_vs_forward_rel_l2=bf16,
+         limit_bf16_rel_l2=LM_PLAIN_REL_L2, fp32=fp32,
+         limit_fp32_rel_l2=DECODE_FP32_REL_L2, fp32_steps=DECODE_FP32_STEPS,
+         int8=int8, int8_steps=DECODE_INT8_STEPS)
+    for name, err, limit in (
+            ("bf16 decode vs the bf16 forward", bf16, LM_PLAIN_REL_L2),
+            ("fp32 decode vs the fp32 forward", fp32["vs_forward_rel_l2"],
+             DECODE_FP32_REL_L2),
+            ("fp32 decode, kernel vs plain version", fp32["vs_plain_rel_l2"],
+             DECODE_FP32_REL_L2),
+            ("int8-cache decode, kernel vs plain version",
+             int8["kernel_vs_plain_rel_l2"], LM_PLAIN_REL_L2)):
+        if not err <= limit:
+            raise RuntimeError(f"{name}: relative L2 error of the logits "
+                               f"{err} > {limit}")
+    return cfg, params, tokens, cache
+
+
+def phase_decode_profile(cfg, params, tokens, cache) -> None:
+    """The last DECODE_PROFILE_STEPS positions of the main path decoded
+    again through its cache (each row rewritten with what it held) under
+    ``torch.profiler``."""
+    from repro_torch.serving.profile_split import profile_decode
+    start = DECODE_LEN - DECODE_PROFILE_STEPS
+    out = profile_decode(params, cfg, tokens, cache, start,
+                         DECODE_PROFILE_STEPS)
+    if out["device_seconds"] is None:
+        raise RuntimeError("the profiler recorded no device activity")
+    want = _decode_step_launches(cfg, DECODE_PROFILE_STEPS)
+    if out["wrapper_launches"] != want:
+        raise RuntimeError(f"profiled decode launched "
+                           f"{out['wrapper_launches']}, expected {want}")
+    out["decode_attention_share"] = (
+        out["by_class"].get("decode_attention", 0.0) / out["device_seconds"])
+    emit("decode_profile", **out)
 
 
 def main() -> int:
@@ -1155,14 +1620,22 @@ def main() -> int:
         del served
         torch.cuda.empty_cache()
         lm_entries = phase_lm_kernels()
-        phase_lm_profile(*phase_lm_serve(lm_entries))
+        cloud, device, prompts = phase_lm_serve(lm_entries)
+        phase_lm_profile(cloud, device, prompts)
+        phase_model_decode("lm_decode", cloud.cfg, cloud.params, prompts)
+        del cloud, device
         gc.collect()                 # RecurrentGemma's 15 GB of weights
         torch.cuda.empty_cache()
         ssd_entry = phase_ssd_kernels()
-        phase_mamba_serve(ssd_entry)
+        phase_model_decode("mamba_decode", *phase_mamba_serve(ssd_entry))
+        gc.collect()                 # Mamba-2's 1.7 GB of weights
+        torch.cuda.empty_cache()
+        decode_entry = phase_decode_kernels()
+        phase_decode_profile(*phase_decode_serve(decode_entry))
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [kernel_entry, lm_entries["flash_attention"],
-                                  lm_entries["rglru_scan"], ssd_entry]}),
+                                  lm_entries["rglru_scan"], ssd_entry,
+                                  decode_entry]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -135,6 +135,11 @@ def load_library() -> ctypes.CDLL:
     # Q, stream
     lib.repro_ssd_scan.argtypes = [vp] * 8 + [ll] * 7 + [vp]
     lib.repro_ssd_scan.restype = ctypes.c_int
+    # q, k, v, lengths, o, part_acc, part_ml, B, Hq, Hkv, Skv, d, k strides
+    # (batch, seq, head), v strides, chunk, n_splits, scale, dtype, stream
+    lib.repro_decode_attention.argtypes = (
+        [vp] * 7 + [ll] * 13 + [ctypes.c_float, ctypes.c_int, vp])
+    lib.repro_decode_attention.restype = ctypes.c_int
     return lib
 
 

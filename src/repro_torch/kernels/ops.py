@@ -9,6 +9,7 @@ them (counterpart of ``repro/kernels/ops.py``).
 """
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int8_quant as _q8
 from repro_torch.kernels import rglru_scan as _lru
@@ -27,6 +28,18 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     o = _fa.flash_attention(qf, kf, vf, causal=causal, window=window,
                             softmax_scale=D ** -0.5)
     return o.reshape(B, Hq, Sq, D).transpose(1, 2)
+
+
+# --------------------------------------------------------------------------
+# Decode attention: model layout q (B, 1, Hq, D), cache (B, Skv, Hkv, D)
+# --------------------------------------------------------------------------
+def decode_attention(q, k, v, lengths):
+    """lengths (B,) int32 — valid KV length per sequence.  k and v are
+    read in the cache's own layout, views included: no copy of the cache
+    is made, and neither head_dim nor Skv is padded."""
+    o = _dec.decode_attention(q[:, 0].contiguous(), k, v, lengths,
+                              softmax_scale=q.shape[-1] ** -0.5)
+    return o[:, None]
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Attention: GQA/MQA/MHA, causal / sliding-window / cross, chunked softmax.
+"""Attention: GQA/MQA/MHA, causal / sliding-window / cross, chunked softmax,
+and the KV caches of decode.
 
-Counterpart of ``repro/models/attention.py`` (full-sequence paths; the
-KV caches come with decode).  Execution paths with identical math:
+Counterpart of ``repro/models/attention.py``.  Execution paths with
+identical math:
   * ``attention_einsum`` — plain einsum; fine for short sequences.
   * ``attention_chunked`` — a loop over KV chunks with an online softmax;
     never materializes the (Sq, Skv) score matrix.
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -149,3 +151,93 @@ def self_attention(q, k, v, *, causal=True, window=0, chunk_size=1024,
     pos = torch.arange(S, device=q.device)
     return attention_einsum(q, k, v, q_positions=pos, kv_positions=pos,
                             causal=causal, window=window)
+
+
+# --------------------------------------------------------------------------
+# KV caches
+# --------------------------------------------------------------------------
+# The reference updates a cache functionally (``dynamic_update_slice``
+# returns a new array, so a step copies the whole cache unless XLA
+# donates it).  Here the new row is written into the cache's tensors in
+# place and the same dict is returned: a decode step then moves one row
+# per layer, not the cache.
+def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int, dtype,
+                  quantized: bool = False, device: DeviceLike = None):
+    """Zero cache on ``device`` (``None`` = the GPU).  ``quantized``: int8
+    values with one fp32 scale per (position, head) row."""
+    dev = resolve_device(device)
+    shape = (batch, max_len, n_kv, head_dim)
+    if quantized:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_scale": torch.zeros(shape[:3] + (1,), device=dev),
+            "v_scale": torch.zeros(shape[:3] + (1,), device=dev),
+        }
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _quantize_rows(x):
+    """x (..., D) -> (int8 values, fp32 scales (..., 1))."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-12)
+    q = torch.clamp(torch.round(xf / s), -127, 127)
+    return q.to(torch.int8), s
+
+
+def dequantize_cache(cache):
+    """-> (k, v) as fp32 (from int8 + scales) or the cache's own tensors."""
+    if "k_scale" in cache:
+        return (cache["k"].float() * cache["k_scale"],
+                cache["v"].float() * cache["v_scale"])
+    return cache["k"], cache["v"]
+
+
+def _maybe_quantize_new(cache, k_new, v_new):
+    if "k_scale" in cache:
+        return _quantize_rows(k_new), _quantize_rows(v_new)
+    return (k_new, None), (v_new, None)
+
+
+def _write(cache, slot: int, kq, ks, vq, vs):
+    """Rows ``[slot, slot + S_new)`` of every tensor of ``cache``, in
+    place.  Unlike the reference's ``dynamic_update_slice``, which clamps
+    the slot so that the update fits, a slot past the end raises."""
+    n = kq.shape[1]
+    if not 0 <= slot <= cache["k"].shape[1] - n:
+        raise ValueError(f"cache write at {slot} of {n} rows outside a "
+                         f"cache of {cache['k'].shape[1]}")
+    cache["k"][:, slot:slot + n] = kq
+    cache["v"][:, slot:slot + n] = vq
+    if ks is not None:
+        cache["k_scale"][:, slot:slot + n] = ks
+        cache["v_scale"][:, slot:slot + n] = vs
+    return cache
+
+
+def cache_update_ring(cache, k_new, v_new, position: int):
+    """Write one step into a ring buffer of length W (SWA / local
+    attention) at slot ``position % W``, ``position`` being the new
+    token's global position.  Returns the same, updated cache."""
+    W = cache["k"].shape[1]
+    (kq, ks), (vq, vs) = _maybe_quantize_new(cache, k_new, v_new)
+    return _write(cache, int(position) % W, kq, ks, vq, vs)
+
+
+def ring_positions(window: int, position):
+    """Global position held in each ring slot at decode step ``position``
+    (an int, or a 0-d tensor whose device the results take): slot s holds
+    the latest p <= position with p % W == s; slots not yet written
+    (p < 0) are invalid.  Returns (positions, valid)."""
+    position = torch.as_tensor(position)
+    slots = torch.arange(window, device=position.device)
+    delta = torch.remainder(torch.remainder(position, window) - slots, window)
+    pos = position - delta
+    return pos, pos >= 0
+
+
+def cache_update_linear(cache, k_new, v_new, position: int):
+    """Write one step into a full-length cache at index ``position``."""
+    (kq, ks), (vq, vs) = _maybe_quantize_new(cache, k_new, v_new)
+    return _write(cache, int(position), kq, ks, vq, vs)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.rglru_scan import rglru_scan_ref
 from repro_torch.models.common import dense_init, pdtype
@@ -124,9 +125,11 @@ def apply_rglru_block(p, x, cfg, state=None, kernel_fn=None):
     return out, new_state
 
 
-def init_rglru_state(batch: int, cfg, device=None):
+def init_rglru_state(batch: int, cfg, device: DeviceLike = None):
+    """Zero decode state on ``device`` (``None`` = the GPU)."""
     r = cfg.rglru
     w = r.lru_width or cfg.d_model
+    device = resolve_device(device)
     return {
         "h": torch.zeros((batch, w), device=device),
         "conv": torch.zeros((batch, r.d_conv - 1, w), dtype=pdtype(cfg),

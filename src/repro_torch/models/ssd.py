@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 # the reference's oracle keeps its name here; in the port it lives
 # beside the kernel's wrapper
@@ -131,9 +132,11 @@ def apply_ssd_block(p, x_in, cfg, state=None, kernel_fn=None):
     return out, new_state
 
 
-def init_ssd_state(batch: int, cfg, device=None):
+def init_ssd_state(batch: int, cfg, device: DeviceLike = None):
+    """Zero decode state on ``device`` (``None`` = the GPU)."""
     s = cfg.ssm
     d, di, H, Pd, G, N = dims(cfg)
+    device = resolve_device(device)
     return {
         "ssm": torch.zeros((batch, H, Pd, N), device=device),
         "conv": torch.zeros((batch, s.d_conv - 1, di + 2 * G * N),

@@ -14,9 +14,17 @@ here; PyTorch runs eagerly, so there is nothing to compile or to remat.
 ``run_layer_range`` is the paper's segmentation hook: the cloud runs
 groups ``[0, g)``, ships the hidden state, the device runs ``[g, G)``.
 
+``prefill`` -> ``pad_kv_caches`` -> ``decode_step`` is autoregressive
+decode.  Unlike the reference, whose ``_decode_attn`` only says in a
+comment that its TPU path would use its decode kernel, every cache mode
+here (linear, SWA ring, SWA over a longer linear cache) goes through
+``kernels.ops.decode_attention``: the hand-written CUDA kernel on a CUDA
+tensor, its plain version on a CPU tensor.  The cache is updated in
+place (see ``models/attention.py``).
+
 Ported so far: attention (self-attention), RG-LRU and SSD (Mamba-2)
-blocks, dense MLPs.  Decode (KV caches) comes with the next slice; MoE,
-encoder-decoder and modality frontends after it (ROADMAP A5, A7).
+blocks, dense MLPs, decode over all three.  MoE, encoder-decoder and
+modality frontends raise ``NotImplementedError`` (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.convert import tree_map
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
@@ -291,6 +301,166 @@ def forward_hidden(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *,
         return_cache=return_cache, remat=remat, kernels=kernels)
     x = apply_norm(params["final_norm"], x)
     return x, aux, caches
+
+
+# ==========================================================================
+# Decode: caches & single-token step
+# ==========================================================================
+def init_decode_cache(cfg, batch: int, max_len: int,
+                      device: DeviceLike = None):
+    """Zero cache tree aligned with the group structure, on ``device``
+    (``None`` = the GPU).  Each group's cache is its own memory (the
+    reference broadcasts one zero cache; the port writes in place)."""
+    dev = resolve_device(device)
+    hd = cfg.resolved_head_dim()
+    kv_len = cfg.effective_kv_len(max_len)
+
+    def one(kind):
+        if kind == "attn":
+            return attn_lib.init_kv_cache(
+                batch, kv_len, cfg.num_kv_heads, hd, pdtype(cfg),
+                quantized=cfg.kv_cache_dtype == "int8", device=dev)
+        if kind == "rec":
+            return rglru_lib.init_rglru_state(batch, cfg, dev)
+        if kind == "ssd":
+            return ssd_lib.init_ssd_state(batch, cfg, dev)
+        raise ValueError(kind)
+
+    G = cfg.num_groups()
+    groups = {
+        f"b{i}": tree_map(lambda a: a.new_zeros((G,) + tuple(a.shape)),
+                          one(kind))
+        for i, kind in enumerate(cfg.block_pattern)
+    }
+    tail = {f"t{i}": one(kind) for i, kind in enumerate(cfg.tail_pattern())}
+    return {"groups": groups, "tail": tail}
+
+
+def prefill(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *, kernels=None,
+            pad_to: int = 0):
+    """Full-sequence prefill.  Returns (last-token logits, decode cache).
+    Like the reference's, the attention caches are the prompt's k and v
+    in the compute dtype, whatever ``cfg.kv_cache_dtype`` says."""
+    hidden, _, caches = forward_hidden(
+        params, batch, cfg, ctx, return_cache=True, remat=False,
+        kernels=kernels)
+    logits = unembed(params, hidden[:, -1:], cfg)
+    if pad_to:
+        caches = pad_kv_caches(caches, pad_to)
+    return logits, caches
+
+
+def pad_kv_caches(caches, pad_to: int):
+    """Grow attention KV caches (seq axis) with zeros so decode can append
+    tokens.  Attention caches are dicts with exactly {"k", "v"}; the seq
+    axis is ndim - 3 (stacked (G,B,S,H,D) and unstacked (B,S,H,D))."""
+    def fix(node):
+        if isinstance(node, dict) and set(node) == {"k", "v"}:
+            out = {}
+            for key, a in node.items():
+                ax = a.dim() - 3
+                if pad_to > a.shape[ax]:
+                    shape = list(a.shape)
+                    shape[ax] = pad_to
+                    grown = a.new_zeros(shape)
+                    grown.narrow(ax, 0, a.shape[ax]).copy_(a)
+                    a = grown
+                out[key] = a
+            return out
+        if isinstance(node, dict):
+            return {k: fix(v) for k, v in node.items()}
+        return node
+
+    return {k: (fix(v) if k != "enc_kv" else v) for k, v in caches.items()}
+
+
+def _decode_attn(p, x, cfg, cache, position: int, enc_kv=None):
+    """One-token attention block.  x (B,1,d); ``cache`` is updated in
+    place and returned.  The reference's position masks become the rows
+    [lo, lo + n) of the cache every sequence attends to."""
+    if enc_kv is not None:
+        raise _not_ported("cross-attention decode (encoder-decoder)", "A5")
+    h = apply_norm(p["norm1"], x)
+    pos1 = torch.full((1,), position, device=x.device)
+    q, k, v = _qkv(p, h, cfg, pos1)
+    W = cfg.window if cfg.attention_kind == "swa" else 0
+    if W and cache["k"].shape[1] == W:
+        # ring: every written slot, min(position + 1, W) of them in slots
+        # [0, n); softmax does not care for their order
+        cache = attn_lib.cache_update_ring(cache, k, v, position)
+        lo, n = 0, min(position + 1, W)
+    else:
+        # linear: keys [0, position], or the window (position - W,
+        # position] inside a longer cache
+        cache = attn_lib.cache_update_linear(cache, k, v, position)
+        lo = max(0, position - W + 1) if W else 0
+        n = position + 1 - lo
+    ck, cv = attn_lib.dequantize_cache(cache)
+    ck, cv = ck.to(q.dtype), cv.to(q.dtype)
+    if lo:               # a window inside a longer linear cache: a view
+        ck, cv = ck[:, lo:lo + n], cv[:, lo:lo + n]
+    lengths = torch.full((x.shape[0],), n, dtype=torch.int32,
+                         device=x.device)
+    o = ops.decode_attention(q, ck, cv, lengths)
+    x = x + torch.einsum("bshe,hed->bsd", o, p["wo"])
+    h2 = apply_norm(p["norm2"], x)
+    if "moe" in p:
+        y, _ = moe_lib.apply_moe(p["moe"], h2, cfg, LOCAL_CTX)
+    else:
+        y = apply_mlp(p["mlp"], h2, cfg)
+    return x + y, cache
+
+
+def _copy_state(cache, new_state):
+    """Write a block's new recurrent state into its cache, in place."""
+    for key, t in new_state.items():
+        cache[key].copy_(t)
+    return cache
+
+
+def _decode_block(kind, p, x, cfg, cache, position: int, enc_kv=None):
+    if kind == "attn":
+        return _decode_attn(p, x, cfg, cache, position, enc_kv)
+    if kind == "rec":
+        h = apply_norm(p["norm1"], x)
+        y, new_state = rglru_lib.apply_rglru_block(p["rglru"], h, cfg,
+                                                   state=cache)
+        x = x + y
+        h2 = apply_norm(p["norm2"], x)
+        return x + apply_mlp(p["mlp"], h2, cfg), _copy_state(cache, new_state)
+    if kind == "ssd":
+        h = apply_norm(p["norm1"], x)
+        y, new_state = ssd_lib.apply_ssd_block(p["ssd"], h, cfg, state=cache)
+        return x + y, _copy_state(cache, new_state)
+    raise ValueError(kind)
+
+
+def build_enc_kv(params, enc_out, cfg):
+    """Cross-attention K/V of encoder-decoder models: not ported."""
+    raise _not_ported("encoder-decoder decode (build_enc_kv)", "A5")
+
+
+def decode_step(params, token, cache, position, cfg,
+                ctx: ShardCtx = LOCAL_CTX):
+    """token (B,1) int; position: the new token's position, a Python int
+    or a 0-d tensor (read once, here, so every layer's key range is known
+    on the host).  Returns (logits (B,1,V), cache); the cache is the one
+    passed in, updated in place."""
+    if cache.get("enc_kv") is not None:
+        raise _not_ported("encoder-decoder decode (enc_kv)", "A5")
+    position = int(position)
+    x = embed_tokens(params, token, cfg)
+    for g in range(cfg.num_groups()):
+        gp = _tree_index(params["blocks"], g)
+        gc = _tree_index(cache["groups"], g)
+        for i, kind in enumerate(cfg.block_pattern):
+            x, _ = _decode_block(kind, gp[f"b{i}"], x, cfg, gc[f"b{i}"],
+                                 position)
+    for i, kind in enumerate(cfg.tail_pattern()):
+        x, _ = _decode_block(kind, params["tail"][f"t{i}"], x, cfg,
+                             cache["tail"][f"t{i}"], position)
+    x = apply_norm(params["final_norm"], x)
+    return unembed(params, x, cfg), cache
 
 
 # ==========================================================================

@@ -1,17 +1,19 @@
-"""Where the time of one layer split goes: a profiler trace of the cloud
-half (``LayerSplitEngine.process``) and the device half
-(``LayerSplitDevice.complete``) of one batch.
+"""Where the time of one layer split, or of a few decode steps, goes: a
+profiler trace of the cloud half (``LayerSplitEngine.process``) and the
+device half (``LayerSplitDevice.complete``) of one batch, or of
+``transformer.decode_step``.
 
 ``profile_round`` serves one batch through a pair of engines that have
 already served it once (so nothing is warmed inside the trace) under
 ``torch.profiler`` and returns each side's ``gpu_seconds``, the device
-time of each class of kernel (the flash-attention, RG-LRU and SSD
-kernels, GEMMs, copies, the rest), the ten largest kernels, the kernel
-launches the wrappers counted, and the device's idle share over the
-round.  It raises if the trace holds another number of the hand kernels
-than the wrappers counted.  ``chip_smoke.py`` runs it on the engines of
-its ``lm_serve`` and ``mamba_serve`` phases; on the CPU there are no
-device kernels and the device fields are null.
+time of each class of kernel (the flash-attention, decode-attention,
+RG-LRU and SSD kernels, GEMMs, copies, the rest), the ten largest
+kernels, the kernel launches the wrappers counted, and the device's idle
+share over the round.  ``profile_decode`` does the same for decode steps
+through a warm cache.  Both raise if the trace holds another number of
+the hand kernels than the wrappers launched.  ``chip_smoke.py`` runs
+them in its ``lm_serve``, ``mamba_serve`` and ``decode_profile`` phases;
+on the CPU there are no device kernels and the device fields are null.
 """
 from __future__ import annotations
 
@@ -24,17 +26,32 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru_scan as lru
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models import transformer as tr
 
 #: substrings of the kernel names of each class (lower case)
 KERNEL_CLASSES = (
     ("flash_attention", ("flash_attention_kernel",)),
+    ("decode_attention", ("decode_split_kernel", "decode_merge_kernel")),
     ("rglru_scan", ("rglru_scan_kernel",)),
     ("ssd_scan", ("ssd_scan_kernel",)),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
+
+
+#: the hand kernels' wrappers, by class
+WRAPPERS = {"flash_attention": fa, "decode_attention": dec,
+            "rglru_scan": lru, "ssd_scan": ssd}
+#: CUDA kernels one wrapper call launches (decode: split, then merge)
+KERNELS_PER_CALL = {"decode_attention": 2}
+
+
+def wrapper_counts() -> Dict[str, int]:
+    """The wrappers' launch counts, by class."""
+    return {n: m.launch_count for n, m in WRAPPERS.items()}
 
 
 def kernel_class(name: str) -> str:
@@ -89,49 +106,90 @@ def summarize_trace(events: List[dict], wall_s: float) -> Dict:
     }
 
 
+def _trace_events(prof) -> List[dict]:
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def _activities(dev: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize(dev)
+    return activities
+
+
+def _check_trace(out: Dict) -> Dict:
+    """Raise unless the trace holds each hand kernel as often as its
+    wrapper launched it."""
+    in_trace, launched = out["kernels_in_trace"], out["wrapper_launches"]
+    if in_trace is not None and any(
+            in_trace.get(k, 0) != n * KERNELS_PER_CALL.get(k, 1)
+            for k, n in launched.items()):
+        raise RuntimeError(f"the trace holds {in_trace} kernels, the "
+                           f"wrappers counted {launched} launches")
+    return out
+
+
 def profile_round(cloud, device, tokens: np.ndarray, group: int) -> Dict:
     """One round of ``tokens`` split at ``group`` through ``cloud`` (a
     ``LayerSplitEngine``) and ``device`` (its ``LayerSplitDevice``) under
     ``torch.profiler``; see the module's docstring for what it returns."""
     dev = device.device
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-        torch.cuda.synchronize(dev)
+    activities = _activities(dev)
     before = {"cloud": cloud.stats["gpu_seconds"],
               "device": device.stats["gpu_seconds"]}
     misses = cloud.stats["cache_misses"] + device.stats["cache_misses"]
-    launches = (fa.launch_count, lru.launch_count, ssd.launch_count)
+    counts = wrapper_counts()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         payload, _ = cloud.process({"tokens": tokens}, group)
         logits = device.complete(payload, group)
         wall = time.perf_counter() - t0
-    launched = {"flash_attention": fa.launch_count - launches[0],
-                "rglru_scan": lru.launch_count - launches[1],
-                "ssd_scan": ssd.launch_count - launches[2]}
+    launched = {k: n - counts[k] for k, n in wrapper_counts().items()}
     if cloud.stats["cache_misses"] + device.stats["cache_misses"] != misses:
         raise RuntimeError("the profiled round warmed an engine up: serve "
                            "the batch once before profiling it")
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("non-finite logits")
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    out = {
+    return _check_trace({
         "batch": int(tokens.shape[0]), "seq": int(tokens.shape[1]),
         "group": group, "wall_seconds": wall,
         "side_seconds": {k: s.stats["gpu_seconds"] - before[k]
                          for k, s in (("cloud", cloud), ("device", device))},
         "wrapper_launches": launched,
-        **summarize_trace(events, wall),
-    }
-    in_trace = out["kernels_in_trace"]
-    if in_trace is not None and any(in_trace.get(k, 0) != n
-                                    for k, n in launched.items()):
-        raise RuntimeError(f"the trace holds {in_trace} kernels, the "
-                           f"wrappers counted {launched} launches")
-    return out
+        **summarize_trace(_trace_events(prof), wall),
+    })
+
+
+def profile_decode(params, cfg, tokens: torch.Tensor, cache, start: int,
+                   steps: int) -> Dict:
+    """``steps`` teacher-forced ``decode_step``s under ``torch.profiler``:
+    token ``tokens[:, start + t]`` at position ``start + t``, through
+    ``cache`` (updated in place; it needs rows up to ``start + steps``).
+    The round ends in a synchronise, so its wall time holds the device's
+    work.  Returns the summary of ``profile_round`` with ``steps`` and the
+    host's milliseconds a step in place of the sides' seconds."""
+    dev = params["embed"].device
+    activities = _activities(dev)
+    counts = wrapper_counts()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for t in range(start, start + steps):
+            logits, cache = tr.decode_step(params, tokens[:, t:t + 1], cache,
+                                           t, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    launched = {k: n - counts[k] for k, n in wrapper_counts().items()}
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("non-finite logits")
+    return _check_trace({
+        "batch": int(tokens.shape[0]), "start": start, "steps": steps,
+        "wall_seconds": wall, "step_ms_host": wall / steps * 1e3,
+        "wrapper_launches": launched,
+        **summarize_trace(_trace_events(prof), wall),
+    })

@@ -18,6 +18,10 @@ torch.set_num_threads(1)
      "16>(...)", "flash_attention"),
     ("(anonymous namespace)::rglru_scan_kernel(float const*, ...)",
      "rglru_scan"),
+    ("void (anonymous namespace)::decode_split_kernel<__nv_bfloat16, 32>"
+     "(...)", "decode_attention"),
+    ("void (anonymous namespace)::decode_merge_kernel<__nv_bfloat16>(...)",
+     "decode_attention"),
     ("(anonymous namespace)::ssd_scan_kernel(float const*, ...)",
      "ssd_scan"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "gemm"),
@@ -78,6 +82,24 @@ def test_runs_on_the_cpu_when_asked():
     assert (out["batch"], out["seq"], out["group"]) == (1, 16, g)
     assert out["side_seconds"]["device"] > 0
     # CPU tensors never reach the kernels
-    assert out["wrapper_launches"] == {"flash_attention": 0, "rglru_scan": 0,
-                                       "ssd_scan": 0}
+    assert out["wrapper_launches"] == {"flash_attention": 0,
+                                       "decode_attention": 0,
+                                       "rglru_scan": 0, "ssd_scan": 0}
     assert out["device_seconds"] is None
+
+
+def test_profile_decode_runs_on_the_cpu_when_asked():
+    """Two decode steps through a padded prefill cache: the cache is
+    written in place at the two positions, nothing reaches a kernel."""
+    cfg = reduced_config("qwen2-7b")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 18)).astype(np.int32))
+    with torch.inference_mode():
+        _, cache = tr.prefill(params, {"tokens": tokens[:, :16]}, cfg,
+                              pad_to=18)
+        out = ps.profile_decode(params, cfg, tokens, cache, 16, 2)
+    assert (out["batch"], out["start"], out["steps"]) == (2, 16, 2)
+    assert out["wall_seconds"] > 0 and out["device_seconds"] is None
+    assert set(out["wrapper_launches"].values()) == {0}
+    assert cache["groups"]["b0"]["k"][:, :, 16:].abs().sum() > 0
