@@ -49,6 +49,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -105,10 +106,12 @@ FLASH_GRID = (
     (1, 512, 512, 3, 3, 64, True, 128),
 )
 # ragged tails the kernel masks by bounds (no tile divides these lengths),
-# d = 16, and a kv_len below Skv: (case, kv_len)
+# d = 16, a kv_len below Skv, and d = 36 (rows of 72 bytes: 8-byte
+# copies) with every mask at once: (case, kv_len)
 FLASH_RAGGED = (
     ((2, 100, 100, 4, 1, 16, True, 32), None),
     ((1, 77, 203, 6, 2, 32, False, 0), 150),
+    ((1, 97, 150, 3, 1, 36, True, 24), 121),
 )
 # (atol, rtol).  fp32 as tests/test_kernels.py holds the Pallas kernel.
 # In bf16 kernel and plain version both accumulate in fp32 and round the
@@ -199,6 +202,33 @@ def phase_env() -> str:
     return smi
 
 
+def ptxas_report(log: str, needle: str) -> list:
+    """Registers, spills and static shared memory of each kernel whose
+    (mangled) name holds ``needle``, from ptxas' ``-v`` report."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"function": m.group(1)} if needle in m.group(1) else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                       spill_load_bytes=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m[1])
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            cur["static_smem_bytes"] = int(m[1])
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     info = _build.build_library()
@@ -206,10 +236,43 @@ def phase_build() -> None:
     keep = ("registers", "spill", "Compiling entry")
     ptxas = [ln.strip() for ln in info.log.splitlines()
              if any(k in ln for k in keep)]
+    flash = ptxas_report(info.log, "flash_attention")
+    occupancy = flash_occupancy()
     emit("build", seconds=info.seconds, compiled=info.compiled,
-         sources=info.sources, ptxas=ptxas)
+         sources=info.sources, ptxas=ptxas, flash_ptxas=flash,
+         flash_occupancy=occupancy)
     if not info.compiled:
         raise RuntimeError("the kernel library was not built in this run")
+    if len(flash) != 6 or any(f.get("spill_store_bytes", 1)
+                              or f.get("spill_load_bytes", 1)
+                              for f in flash):
+        raise RuntimeError(f"flash: six instantiations without spills "
+                           f"expected, ptxas reports {flash}")
+    at256 = [o for o in occupancy if (o["head_dim"], o["dtype"]) == (
+        256, "bf16")]
+    if at256[0]["warps_per_sm"] < 8:
+        raise RuntimeError(f"flash bf16 at d = 256: {at256} (fewer than 8 "
+                           "resident warps an SM)")
+
+
+def flash_occupancy() -> list:
+    """Shared memory, threads and resident blocks an SM of the flash
+    launch at the top of each head-dim class, as the card reports them."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.load_library()
+    out = []
+    for d in (64, 128, 256):
+        for code, name in ((1, "bf16"), (0, "fp32")):
+            smem, blocks, threads = (ctypes.c_int() for _ in range(3))
+            _build.check_launch(lib, lib.repro_flash_attention_occupancy(
+                d, code, ctypes.byref(smem), ctypes.byref(blocks),
+                ctypes.byref(threads)), "flash_attention occupancy")
+            out.append({"head_dim": d, "dtype": name,
+                        "smem_bytes": smem.value, "threads": threads.value,
+                        "blocks_per_sm": blocks.value,
+                        "warps_per_sm": blocks.value * threads.value // 32})
+    return out
 
 
 def make_input(shape, gen) -> torch.Tensor:
@@ -550,6 +613,82 @@ def lm_path_shapes():
     return cfg, flash, (LM_BATCH, LM_SEQ, cfg.rglru.lru_width)
 
 
+def prefill_flash_shape():
+    """The shape decode_serve's prefill gives the flash kernel: Qwen2-7B,
+    8 sequences of 4096 tokens, causal, no window."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DECODE_ARCH)
+    return (DECODE_BATCH, DECODE_PROMPT, DECODE_PROMPT, cfg.num_heads,
+            cfg.num_kv_heads, cfg.resolved_head_dim(), True, cfg.window)
+
+
+def flash_prefill_entry(fa, gen, checks: list) -> dict:
+    """The flash kernel at Qwen2-7B's prefill shape: held to its plain
+    version at batch 1, batch 8 held to batch 1 bit for bit on the
+    sequence they share, then timed at batch 8 beside the plain version
+    (whose fp32 scores take 15 GB there) and SDPA."""
+    import torch.nn.functional as F
+    B, Sq, Skv, Hq, Hkv, D, causal, window = shape = prefill_flash_shape()
+
+    def n(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = n(B * Hq, Sq, D), n(B * Hkv, Skv, D), n(B * Hkv, Skv, D)
+    q1, k1, v1 = q[:Hq], k[:Hkv], v[:Hkv]
+    o1 = fa.flash_attention(q1, k1, v1, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_ref(q1, k1, v1, causal=causal, window=window)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    err = float((o1.float() - want.float()).abs().max())
+    checks.append({"shape": [1] + list(shape[1:]), "kv_len": None,
+                   "dtype": str(torch.bfloat16), "max_abs_err": err,
+                   "atol": atol, "rtol": rtol,
+                   "out_std": float(want.float().std())})
+    if not _within(o1, want, atol, rtol):
+        raise RuntimeError(f"flash_attention{shape} at batch 1 disagrees "
+                           f"with its plain version: max|d|={err}")
+
+    def run_kernel():
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+    def run_plain():
+        return fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    def run_library():
+        # a yardstick only: the port never calls it
+        return F.scaled_dot_product_attention(
+            q.view(B, Hq, Sq, D), k.view(B, Hkv, Skv, D),
+            v.view(B, Hkv, Skv, D), is_causal=True, enable_gqa=True)
+    o = run_kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(o[:Hq], o1) or not bool(torch.isfinite(o).all()):
+        raise RuntimeError(f"flash_attention{shape}: batch 8 differs from "
+                           "batch 1 on their shared sequence")
+    lib_err = float((run_library()[:1].reshape(q1.shape).float()
+                     - want.float()).abs().max())
+    del o, o1, want
+    plain_a = time_ms(run_plain, inner=1, samples=3)
+    kern_a = time_ms(run_kernel, inner=2, samples=5)
+    kern_b = time_ms(run_kernel, inner=2, samples=5)
+    plain_b = time_ms(run_plain, inner=1, samples=3)
+    library = time_ms(run_library, inner=2, samples=5)
+    bound_ms, bound_by, nbytes, flops = flash_bound(
+        B, Hq, Hkv, Sq, Skv, D, causal, window, q.element_size())
+    return {
+        "shape": list(shape), "dtype": str(torch.bfloat16),
+        "launches": None,                 # filled in by decode_serve
+        "max_abs_err": err,
+        "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
+        "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True)",
+        "library_max_abs_err_vs_plain": lib_err,
+        "timed": "one Qwen2-7B prefill attention layer at batch 8, bf16; "
+                 "kernel and SDPA median of 5 x 2 calls, plain version of "
+                 "3 x 1; best of 2",
+        "bytes": nbytes, "flops": flops,
+    }
+
+
 def phase_lm_kernels() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as lru
@@ -567,12 +706,14 @@ def phase_lm_kernels() -> dict:
         return n(B * Hq, Sq, D), n(B * Hkv, Skv, D), n(B * Hkv, Skv, D)
 
     flash_checks = []
-    path_inputs = None
+    path_inputs = path32_inputs = None
     cases = [(c, None, dt) for c in FLASH_GRID for dt in FLASH_TOL]
     cases += [(c, kv_len, dt) for c, kv_len in FLASH_RAGGED
               for dt in FLASH_TOL]
     cases.append((flash_path32, None, torch.float32))
     cases.append((flash_path, None, torch.bfloat16))
+    # the prefill path's head_dim 128 and group 7 in fp32, one sequence
+    cases.append(((1,) + prefill_flash_shape()[1:], None, torch.float32))
     for case, kv_len, dtype in cases:
         B, Sq, Skv, Hq, Hkv, D, causal, window = case
         q, k, v = qkv(B, Sq, Skv, Hq, Hkv, D, dtype)
@@ -594,7 +735,9 @@ def phase_lm_kernels() -> dict:
                                f"with its plain version: max|d|={err}")
         del o, want, diff
         if case == flash_path:
-            path_inputs = (q, k, v)
+            path_inputs, path_err = (q, k, v), err
+        elif case == flash_path32:
+            path32_inputs = (q, k, v)
 
     lru_checks = []
     for (B, S, W), with_h0 in [(c, True) for c in RGLRU_GRID] + [
@@ -637,14 +780,18 @@ def phase_lm_kernels() -> dict:
     kern_b = time_ms(run_kernel, inner=2, samples=5)
     plain_b = time_ms(run_plain, inner=2, samples=5)
     library = time_ms(run_library, inner=2, samples=5)
+    q32, k32, v32 = path32_inputs
+    fp32_ms = time_ms(lambda: fa.flash_attention(
+        q32, k32, v32, causal=causal, window=window), inner=2, samples=5)
     bound_ms, bound_by, nbytes, flops = flash_bound(
         B, Hq, Hkv, Sq, Skv, D, causal, window, q.element_size())
+    prefill = flash_prefill_entry(fa, gen, flash_checks)
     flash_entry = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86",
         "launches": None,                     # filled in by lm_serve
-        "max_abs_err": flash_checks[-1]["max_abs_err"],
+        "max_abs_err": path_err,
         "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
         "library_call": "F.scaled_dot_product_attention(enable_gqa=True, "
@@ -653,6 +800,10 @@ def phase_lm_kernels() -> dict:
         "timed": f"one RecurrentGemma-9B attention layer {list(flash_path)} "
                  "bf16; median of 5 x 2 calls, best of 2",
         "bytes": nbytes, "flops": flops,
+        "fp32_ms": fp32_ms,
+        "fp32_timed": f"the fp32 kernel at {list(flash_path32)}; median of "
+                      "5 x 2 calls",
+        "qwen2_7b_prefill": prefill,
     }
 
     a, b = lru_inputs
@@ -1480,7 +1631,7 @@ def phase_model_decode(phase: str, cfg, params, prompts) -> None:
                            f"{DECODE_FP32_REL_L2}")
 
 
-def phase_decode_serve(entry: dict):
+def phase_decode_serve(entry: dict, flash_entry: dict):
     from repro_torch.models import transformer as tr
 
     cfg, params, info = init_full_width(DECODE_ARCH, DECODE_PARAMETERS,
@@ -1503,6 +1654,8 @@ def phase_decode_serve(entry: dict):
     if launches != cfg.num_layers * DECODE_STEPS:
         raise RuntimeError(f"decode attention launched {launches} times")
     entry["launches"] = launches
+    flash_entry["qwen2_7b_prefill"]["launches"] = record["launches"][
+        "prefill"]["flash_attention"]
     cache_bytes = _nbytes(cache)
     if cache_bytes != DECODE_CACHE_BYTES:
         raise RuntimeError(f"the cache holds {cache_bytes} B, the "
@@ -1631,7 +1784,8 @@ def main() -> int:
         gc.collect()                 # Mamba-2's 1.7 GB of weights
         torch.cuda.empty_cache()
         decode_entry = phase_decode_kernels()
-        phase_decode_profile(*phase_decode_serve(decode_entry))
+        phase_decode_profile(*phase_decode_serve(
+            decode_entry, lm_entries["flash_attention"]))
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [kernel_entry, lm_entries["flash_attention"],
                                   lm_entries["rglru_scan"], ssd_entry,

@@ -128,6 +128,11 @@ def load_library() -> ctypes.CDLL:
         vp, vp, vp, vp, ll, ll, ll, ll, ll, ll, ctypes.c_int, ll,
         ctypes.c_float, ctypes.c_int, vp]
     lib.repro_flash_attention.restype = ctypes.c_int
+    # d, dtype -> smem bytes, blocks an SM, threads a block (out)
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.repro_flash_attention_occupancy.argtypes = [ll, ctypes.c_int, ip,
+                                                    ip, ip]
+    lib.repro_flash_attention_occupancy.restype = ctypes.c_int
     # a, b, h0 (or None), h, B, S, W, stream
     lib.repro_rglru_scan.argtypes = [vp, vp, vp, vp, ll, ll, ll, vp]
     lib.repro_rglru_scan.restype = ctypes.c_int

@@ -3,9 +3,9 @@
 Models of the port are plain functions ``f(params, cfg, x)`` over nested
 dicts of ``torch.Tensor``.  Where the reference takes a PRNG key, the
 port takes an explicit ``torch.Generator``; numbers are drawn on the
-generator's device and moved to ``device``.  Compute dtype is the
-parameters' (bfloat16 for the LM zoo) with fp32 islands for norms,
-softmax and gates, as in the reference.
+generator's device and moved to ``device`` (``None`` = the GPU).  Compute
+dtype is the parameters' (bfloat16 for the LM zoo) with fp32 islands for
+norms, softmax and gates, as in the reference.
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ import math
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.compat import DeviceLike, resolve_device
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -27,27 +29,29 @@ def pdtype(cfg) -> torch.dtype:
 # --------------------------------------------------------------------------
 def dense_init(generator: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype, fan_in: Optional[int] = None,
-               device=None) -> torch.Tensor:
+               device: DeviceLike = None) -> torch.Tensor:
     """Truncated-normal scaled by 1/sqrt(fan_in) (fan_in = shape[0] default)."""
     fan = fan_in if fan_in is not None else shape[0]
     std = 1.0 / math.sqrt(max(1, fan))
     w = torch.empty(tuple(shape), dtype=torch.float32,
                     device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * std).to(device=device, dtype=dtype)
+    return (w * std).to(device=resolve_device(device), dtype=dtype)
 
 
 def embed_init(generator: torch.Generator, shape: Sequence[int],
-               dtype: torch.dtype, device=None) -> torch.Tensor:
+               dtype: torch.dtype,
+               device: DeviceLike = None) -> torch.Tensor:
     w = torch.randn(tuple(shape), dtype=torch.float32,
                     device=generator.device, generator=generator)
-    return (w * 0.02).to(device=device, dtype=dtype)
+    return (w * 0.02).to(device=resolve_device(device), dtype=dtype)
 
 
 # --------------------------------------------------------------------------
 # Norms
 # --------------------------------------------------------------------------
-def init_norm(cfg, d: int, device=None):
+def init_norm(cfg, d: int, device: DeviceLike = None):
+    device = resolve_device(device)
     if cfg.norm == "layernorm":
         return {"scale": torch.ones((d,), device=device),
                 "bias": torch.zeros((d,), device=device)}
@@ -72,7 +76,9 @@ def apply_norm(p, x, eps: float = 1e-6):
 # --------------------------------------------------------------------------
 # Rotary position embeddings
 # --------------------------------------------------------------------------
-def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_frequencies(head_dim: int, theta: float,
+                     device: DeviceLike = None) -> torch.Tensor:
+    device = resolve_device(device)
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
     return 1.0 / (theta ** exponent)  # (head_dim/2,)

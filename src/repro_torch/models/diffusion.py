@@ -40,7 +40,8 @@ Params = Dict[str, Any]
 # ==========================================================================
 # Small helpers
 # ==========================================================================
-def init_ln(d, device=None):
+def init_ln(d, device: DeviceLike = None):
+    device = resolve_device(device)
     return {"scale": torch.ones((d,), device=device),
             "bias": torch.zeros((d,), device=device)}
 
@@ -50,7 +51,8 @@ def ln(p, x, eps=1e-5):
                         eps).to(x.dtype)
 
 
-def init_gn(c, device=None):
+def init_gn(c, device: DeviceLike = None):
+    device = resolve_device(device)
     return {"scale": torch.ones((c,), device=device),
             "bias": torch.zeros((c,), device=device)}
 
@@ -100,7 +102,8 @@ def _mha(q, k, v, heads, causal=False):
 # ==========================================================================
 # Text encoder (CLIP-ish)
 # ==========================================================================
-def init_text_encoder(cfg, generator, device=None) -> Params:
+def init_text_encoder(cfg, generator, device: DeviceLike = None) -> Params:
+    device = resolve_device(device)
     d = cfg.text_width
     f32 = torch.float32
     tok = embed_init(generator, (cfg.text_vocab, d), f32, device)
@@ -148,7 +151,9 @@ def _timestep_embedding(t, dim):
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-def init_resblock(generator, c_in, c_out, t_dim, device=None):
+def init_resblock(generator, c_in, c_out, t_dim,
+                  device: DeviceLike = None):
+    device = resolve_device(device)
     p = {
         "gn1": init_gn(c_in, device),
         "conv1": init_conv(generator, c_in, c_out, 3, device=device),
@@ -170,7 +175,8 @@ def apply_resblock(p, x, t_emb):
     return h + sc
 
 
-def init_xattn(generator, c, ctx_dim, heads, device=None):
+def init_xattn(generator, c, ctx_dim, heads, device: DeviceLike = None):
+    device = resolve_device(device)
     f32 = torch.float32
 
     def dense(shape):
@@ -215,7 +221,8 @@ def apply_xattn(p, x, ctx, heads):
     return x + conv2d(h, p["proj_out"])
 
 
-def init_unet(cfg, generator, device=None) -> Params:
+def init_unet(cfg, generator, device: DeviceLike = None) -> Params:
+    device = resolve_device(device)
     base = cfg.unet_base
     t_dim = base * 4
     f32 = torch.float32
@@ -306,7 +313,8 @@ def apply_unet(p, cfg, latent, t, ctx):
 # ==========================================================================
 # VAE decoder
 # ==========================================================================
-def init_vae_decoder(cfg, generator, device=None) -> Params:
+def init_vae_decoder(cfg, generator, device: DeviceLike = None) -> Params:
+    device = resolve_device(device)
     chans = [cfg.vae_base * m for m in reversed(cfg.vae_mults)]
     p: Params = {"conv_in": init_conv(generator, cfg.latent_channels,
                                       chans[0], 3, device=device)}

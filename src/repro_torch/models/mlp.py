@@ -8,11 +8,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.models.common import dense_init, pdtype
 
 
 def init_mlp(generator: torch.Generator, cfg, d: int | None = None,
-             f: int | None = None, device=None):
+             f: int | None = None, device: DeviceLike = None):
+    device = resolve_device(device)
     d = d or cfg.d_model
     f = f or cfg.d_ff
     dt = pdtype(cfg)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+from repro_torch.compat import DeviceLike, resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
@@ -31,7 +33,8 @@ _NOT_PORTED = ("Mixture-of-Experts layers are not ported yet "
                "(ROADMAP A5: MoE comes after SSD and decode)")
 
 
-def init_moe(generator, cfg, device=None):
+def init_moe(generator, cfg, device: DeviceLike = None):
+    resolve_device(device)           # no GPU and no device: that first
     raise NotImplementedError(_NOT_PORTED)
 
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.models.common import dense_init
 
 
@@ -34,7 +35,9 @@ def conv2d(x, w, stride=1, groups=1):
     return F.conv2d(x, w, stride=stride, padding=0, groups=groups)
 
 
-def init_conv(generator, c_in, c_out, k, groups=1, device=None):
+def init_conv(generator, c_in, c_out, k, groups=1,
+              device: DeviceLike = None):
+    device = resolve_device(device)
     fan = c_in // groups * k * k
     return dense_init(generator, (c_out, c_in // groups, k, k),
                       torch.float32, fan_in=fan, device=device)

@@ -30,7 +30,9 @@ from repro_torch.models.common import dense_init, pdtype
 lru_scan_ref = rglru_scan_ref
 
 
-def init_rglru_block(generator: torch.Generator, cfg, device=None):
+def init_rglru_block(generator: torch.Generator, cfg,
+                     device: DeviceLike = None):
+    device = resolve_device(device)
     r = cfg.rglru
     d = cfg.d_model
     w = r.lru_width or d

@@ -38,9 +38,10 @@ def dims(cfg):
     return d, di, H, s.head_dim, s.n_groups, s.d_state
 
 
-def init_ssd_block(generator: torch.Generator, cfg, device=None):
+def init_ssd_block(generator: torch.Generator, cfg, device: DeviceLike = None):
     """Separate projections per component (not mamba's fused in_proj), in
     the reference's tree."""
+    device = resolve_device(device)
     s = cfg.ssm
     d, di, H, P, G, N = dims(cfg)
     dt = pdtype(cfg)

@@ -76,7 +76,8 @@ def _tree_index(tree: Any, i: int) -> Any:
 # Block init
 # ==========================================================================
 def init_attn_block(generator, cfg, cross: bool = False,
-                    device=None) -> Params:
+                    device: DeviceLike = None) -> Params:
+    device = resolve_device(device)
     d = cfg.d_model
     hd = cfg.resolved_head_dim()
     dt = pdtype(cfg)
@@ -106,7 +107,8 @@ def init_attn_block(generator, cfg, cross: bool = False,
 
 
 def init_block(kind: str, generator, cfg, cross: bool = False,
-               device=None) -> Params:
+               device: DeviceLike = None) -> Params:
+    device = resolve_device(device)
     if kind == "attn":
         return init_attn_block(generator, cfg, cross=cross, device=device)
     if kind == "rec":

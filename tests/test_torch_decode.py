@@ -26,8 +26,10 @@ from repro.configs import reduced_config as ref_reduced_config
 from repro.models import attention as ref_attn
 from repro.models import transformer as ref_tr
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import stable_diffusion_v1
 from repro_torch.convert import from_jax_params, to_numpy_params
-from repro_torch.models import attention, rglru, ssd
+from repro_torch.models import (attention, common, diffusion, mlp, moe,
+                                regnet, rglru, ssd)
 from repro_torch.models import transformer as tr
 
 # The models here are tiny: one thread each, or the test workers that
@@ -302,6 +304,76 @@ def test_state_initialisers_default_to_the_gpu(monkeypatch):
             call()
     assert rglru.init_rglru_state(1, rg, device="cpu")["h"].device.type == (
         "cpu")
+
+
+def _initialisers():
+    """Every public initialiser below the ``init_params``, as a call
+    that takes the ``device`` keyword or nothing."""
+    qwen, rg, mamba = (reduced_config(a) for a in (
+        "qwen2-7b", "recurrentgemma-9b", "mamba2-780m"))
+    sd = stable_diffusion_v1.reduced()
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+    return {
+        "common.init_norm": lambda **kw: common.init_norm(qwen, 16, **kw),
+        "common.rope_frequencies": lambda **kw: common.rope_frequencies(
+            16, 10_000.0, **kw),
+        "common.dense_init": lambda **kw: common.dense_init(
+            gen(), (4, 8), torch.bfloat16, **kw),
+        "common.embed_init": lambda **kw: common.embed_init(
+            gen(), (4, 8), torch.bfloat16, **kw),
+        "mlp.init_mlp": lambda **kw: mlp.init_mlp(gen(), qwen, **kw),
+        "rglru.init_rglru_block": lambda **kw: rglru.init_rglru_block(
+            gen(), rg, **kw),
+        "ssd.init_ssd_block": lambda **kw: ssd.init_ssd_block(gen(), mamba,
+                                                              **kw),
+        "moe.init_moe": lambda **kw: moe.init_moe(gen(), qwen, **kw),
+        "transformer.init_attn_block": lambda **kw: tr.init_attn_block(
+            gen(), qwen, **kw),
+        "transformer.init_block": lambda **kw: tr.init_block(
+            "rec", gen(), rg, **kw),
+        "diffusion.init_ln": lambda **kw: diffusion.init_ln(8, **kw),
+        "diffusion.init_gn": lambda **kw: diffusion.init_gn(8, **kw),
+        "diffusion.init_text_encoder": lambda **kw:
+            diffusion.init_text_encoder(sd, gen(), **kw),
+        "diffusion.init_resblock": lambda **kw: diffusion.init_resblock(
+            gen(), 4, 8, 16, **kw),
+        "diffusion.init_xattn": lambda **kw: diffusion.init_xattn(
+            gen(), 8, 16, 2, **kw),
+        "diffusion.init_unet": lambda **kw: diffusion.init_unet(sd, gen(),
+                                                                **kw),
+        "diffusion.init_vae_decoder": lambda **kw:
+            diffusion.init_vae_decoder(sd, gen(), **kw),
+        "regnet.init_conv": lambda **kw: regnet.init_conv(gen(), 4, 8, 3,
+                                                          **kw),
+    }
+
+
+@pytest.mark.parametrize("name", list(_initialisers()))
+def test_initialisers_default_to_the_gpu(name, monkeypatch):
+    """Called without a device, each initialiser asks for the GPU and
+    raises on a host without one; with ``device="cpu"`` every tensor it
+    returns lies on the CPU."""
+    call = _initialisers()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        call()
+    if name == "moe.init_moe":
+        with pytest.raises(NotImplementedError):   # not ported yet (A5)
+            call(device="cpu")
+        return
+    out = call(device="cpu")
+    leaves = [out] if isinstance(out, torch.Tensor) else _leaves(out)
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
 
 
 # --------------------------------------------------------------------------

@@ -16,6 +16,10 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::flash_attention_kernel<__nv_bfloat16, 16, "
      "16>(...)", "flash_attention"),
+    ("void (anonymous namespace)::tc::flash_attention_kernel<256>(...)",
+     "flash_attention"),
+    ("void (anonymous namespace)::cc::flash_attention_kernel<16, 16>(...)",
+     "flash_attention"),
     ("(anonymous namespace)::rglru_scan_kernel(float const*, ...)",
      "rglru_scan"),
     ("void (anonymous namespace)::decode_split_kernel<__nv_bfloat16, 32>"
