@@ -22,13 +22,15 @@ drives the port's two serving paths, each at full published width:
     the RG-LRU kernel at one step;
   * the same layer split on Mamba-2-780M (48 SSD layers, bf16), after
     RecurrentGemma's weights are freed: the SSD kernel is held against its
-    plain version (phase ``ssd_kernels``), then 4 requests of 4096 tokens
+    plain version and timed at batch 4 and batch 1 (phase
+    ``ssd_kernels``), then 4 requests of 4096 tokens
     are split at g = 24 and request 0 at g = 0 and g = 48, with the SSD
     kernel in every layer, and one more g = 24 round is profiled (phase
     ``mamba_serve``); request 0 is decoded 16 steps (``mamba_decode``);
   * decode (Qwen2-7B, 28 attention layers, bf16), after Mamba-2's weights
     are freed: the decode-attention kernel is held against its plain
-    version (phase ``decode_kernels``), then 8 sequences of 4096 tokens
+    version and timed at Qwen2-7B's and RecurrentGemma-9B's decode shapes
+    (phase ``decode_kernels``), then 8 sequences of 4096 tokens
     are prefilled through the flash kernel and decoded 64 teacher-forced
     steps through a 4160-row cache, every layer's attention through the
     decode kernel; fp32 and int8-cache decodes are held to a one-machine
@@ -141,12 +143,19 @@ SSD_FP32_PLAIN_REL_L2 = 1e-4
 SSD_GRID = ((1, 256, 4, 64, 1, 128, 128), (2, 128, 8, 64, 2, 64, 64),
             (1, 512, 2, 32, 1, 16, 128), (2, 256, 8, 64, 2, 64, 512))
 SSD_Y_ATOL, SSD_FINAL_ATOL = 2e-4, 2e-5
+# single-chunk calls, each with and without init_state: one decode step of
+# Mamba-2-780M's heads at its chunk of 256 (the step kernel, also held to
+# the three phases to the bit), and the grid's Q == S case (the three
+# phases, one chunk)
+SSD_ONE_CHUNK = ((1, 1, 48, 64, 1, 128, 256), (2, 256, 8, 64, 2, 64, 512))
 
 # Decode of the two layer-split models above: request 0's prompt, then
 # teacher-forced steps on tokens drawn from SEED + 1, through a linear
 # cache of LM_SEQ + LM_DECODE_STEPS rows.  Held to a one-machine fp32
 # forward over the same tokens as the relative L2 error of the logits.
 LM_DECODE_STEPS = 16
+# of which the last are decoded once more under the profiler
+MODEL_PROFILE_STEPS = 4
 DECODE_FP32_REL_L2 = 1e-4
 
 # The decode path: full-width Qwen2-7B, uncut (28 attention layers, 28
@@ -176,6 +185,25 @@ DECODE_PATH_LENGTH = DECODE_PROMPT
 # (atol, rtol): fp32 as tests/test_kernels.py holds the Pallas kernel;
 # bf16 as the flash kernel (one bf16 step of the output)
 DECODE_TOL = {torch.float32: (5e-6, 0.0), torch.bfloat16: (2e-3, 2e-2)}
+# calls in each CUDA-event sample of decode attention, so that a sample of
+# the ~15 us C entry at the RecurrentGemma-9B shape lasts over 1 ms
+DECODE_TIMING_CALLS = 100
+# RecurrentGemma-9B's decode attention at lm_decode's first step: the
+# 2048-key window [position - 2047, position] of a 4112-row cache, read in
+# place, at position 4096
+RG_DECODE_CACHE = LM_SEQ + LM_DECODE_STEPS
+RG_DECODE_VIEW = (LM_SEQ - 2047, LM_SEQ + 1)
+# The kernels' times before their redesign, printed beside the new ones
+# in the ssd_kernels and decode_kernels lines (never in the kernels line,
+# which holds only this run's measurements): the parent tree's kernels,
+# this script's phases (run P18-0 in PERF.md, NVIDIA H100 80GB HBM3,
+# 700 W); ms of the wrapper and of the C entry alone (decode), or of a
+# wrapper call (SSD)
+DECODE_BEFORE_MS = {
+    "path": {"ms": 0.14776480197906494, "raw_launch_ms": 0.14580560326576233},
+    "rg_shape": {"ms": 0.11321839690208435,
+                 "raw_launch_ms": 0.11024159789085389}}
+SSD_BEFORE_MS = {"path": 8.187647819519043, "batch_1": 4.073232173919678}
 
 
 def emit(phase: str, **fields) -> None:
@@ -237,17 +265,25 @@ def phase_build() -> None:
     ptxas = [ln.strip() for ln in info.log.splitlines()
              if any(k in ln for k in keep)]
     flash = ptxas_report(info.log, "flash_attention")
+    # every kernel of the two sources this script's decode and SSD phases
+    # hold to their plain versions (the file's name is in each mangled name)
+    decode = ptxas_report(info.log, "decode_attention_cu")
+    ssd = ptxas_report(info.log, "ssd_scan_cu")
     occupancy = flash_occupancy()
+    decode_occ = decode_occupancy()
     emit("build", seconds=info.seconds, compiled=info.compiled,
          sources=info.sources, ptxas=ptxas, flash_ptxas=flash,
-         flash_occupancy=occupancy)
+         flash_occupancy=occupancy, decode_ptxas=decode,
+         decode_occupancy=decode_occ, ssd_ptxas=ssd)
     if not info.compiled:
         raise RuntimeError("the kernel library was not built in this run")
-    if len(flash) != 6 or any(f.get("spill_store_bytes", 1)
-                              or f.get("spill_load_bytes", 1)
-                              for f in flash):
-        raise RuntimeError(f"flash: six instantiations without spills "
-                           f"expected, ptxas reports {flash}")
+    for name, report, count in (("flash", flash, 6), ("decode", decode, 7),
+                                ("ssd", ssd, 4)):
+        if len(report) != count or any(f.get("spill_store_bytes", 1)
+                                       or f.get("spill_load_bytes", 1)
+                                       for f in report):
+            raise RuntimeError(f"{name}: {count} kernels without spills "
+                               f"expected, ptxas reports {report}")
     at256 = [o for o in occupancy if (o["head_dim"], o["dtype"]) == (
         256, "bf16")]
     if at256[0]["warps_per_sm"] < 8:
@@ -272,6 +308,25 @@ def flash_occupancy() -> list:
                         "smem_bytes": smem.value, "threads": threads.value,
                         "blocks_per_sm": blocks.value,
                         "warps_per_sm": blocks.value * threads.value // 32})
+    return out
+
+
+def decode_occupancy() -> list:
+    """Shared memory, threads and resident blocks an SM of the bf16
+    decode split kernel at the top of each head-dim class."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.load_library()
+    out = []
+    for d in (64, 128, 256):
+        smem, blocks, threads = (ctypes.c_int() for _ in range(3))
+        _build.check_launch(lib, lib.repro_decode_attention_occupancy(
+            d, ctypes.byref(smem), ctypes.byref(blocks),
+            ctypes.byref(threads)), "decode_attention occupancy")
+        out.append({"head_dim": d, "dtype": "bf16",
+                    "smem_bytes": smem.value, "threads": threads.value,
+                    "blocks_per_sm": blocks.value,
+                    "warps_per_sm": blocks.value * threads.value // 32})
     return out
 
 
@@ -1179,6 +1234,26 @@ def ssd_bound(b, S, H, P, G, N, Q, with_init=False):
             square)
 
 
+def ssd_three_phases(x, dt, A, Bm, Cm, Q, init_state=None):
+    """The SSD C entry handed scratch, so that it runs the three phases at
+    any length, S = 1 included (where the wrapper hands none and gets the
+    step kernel).  Not a launch of the main path: it counts nowhere."""
+    from repro_torch.kernels import _build
+    b, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = S // Q
+    y, final = torch.empty_like(x), x.new_empty((b, H, P, N))
+    states, decay = x.new_empty((b, H, nc, P, N)), x.new_empty((b, H, nc))
+    lib = _build.load_library()
+    _build.check_launch(lib, lib.repro_ssd_scan(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), None if init_state is None else init_state.data_ptr(),
+        y.data_ptr(), final.data_ptr(), states.data_ptr(), decay.data_ptr(),
+        b, S, H, P, G, N, Q, torch.cuda.current_stream().cuda_stream),
+        "ssd_scan")
+    return y, final
+
+
 def phase_ssd_kernels() -> dict:
     from repro_torch.kernels import ssd_scan as ssd
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1190,8 +1265,12 @@ def phase_ssd_kernels() -> dict:
         return lo + (hi - lo) * torch.rand(shape, generator=gen,
                                            device="cuda")
     path = ssd_path_shape()
-    checks = []
-    for case, with_init in [(c, True) for c in SSD_GRID] + [(path, False)]:
+    batch1 = (1,) + path[1:]
+    checks, timed_inputs = [], {}
+    cases = ([(c, True) for c in SSD_GRID] + [(c, w) for c in SSD_ONE_CHUNK
+                                              for w in (True, False)]
+             + [(batch1, False), (path, False)])
+    for case, with_init in cases:
         b, S, H, P, G, N, Q = case
         x, dt = normal(b, S, H, P), uniform(0.001, 0.1, b, S, H)
         A = -uniform(0.5, 2.0, H)
@@ -1204,6 +1283,7 @@ def phase_ssd_kernels() -> dict:
         y_err = float((y - y_ref).abs().max())
         final_err = float((final - final_ref).abs().max())
         checks.append({"shape": list(case), "init_state": with_init,
+                       "chunks": S // min(Q, S),
                        "y_max_abs_err": y_err, "y_atol": SSD_Y_ATOL,
                        "final_max_abs_err": final_err,
                        "final_atol": SSD_FINAL_ATOL,
@@ -1217,39 +1297,62 @@ def phase_ssd_kernels() -> dict:
             raise RuntimeError(f"ssd_scan{case} disagrees with its plain "
                                f"version: max|dy|={y_err}, "
                                f"max|dfinal|={final_err}")
+        if S == 1:
+            y3, final3 = ssd_three_phases(x, dt, A, Bm, Cm, 1, st)
+            torch.cuda.synchronize()
+            checks[-1]["step_kernel_equals_three_phases"] = bool(
+                torch.equal(y, y3) and torch.equal(final, final3))
+            if not checks[-1]["step_kernel_equals_three_phases"]:
+                raise RuntimeError(f"ssd_scan{case}: the step kernel and "
+                                   "the three phases differ")
+        if case in (batch1, path):
+            timed_inputs[case] = ((x, dt, A, Bm, Cm),
+                                  max(y_err, final_err))
         del y, final, y_ref, final_ref
 
-    # times at the path's shape (no init_state, as the model passes it);
-    # kernel and plain version in turns
-    b, S, H, P, G, N, Q = path
-    args = (x, dt, A, Bm, Cm)
-    plain_a = time_ms(lambda: ssd.ssd_chunked_ref(*args, Q), inner=2,
-                      samples=5)
-    kern_a = time_ms(lambda: ssd.ssd_scan(*args, chunk_size=Q), inner=2,
-                     samples=5)
-    kern_b = time_ms(lambda: ssd.ssd_scan(*args, chunk_size=Q), inner=2,
-                     samples=5)
-    plain_b = time_ms(lambda: ssd.ssd_chunked_ref(*args, Q), inner=2,
-                      samples=5)
-    bound_ms, bound_by, nbytes, flops, square = ssd_bound(*path)
+    def times(case):
+        """Kernel and plain version in turns (no init_state, as the model
+        passes it)."""
+        args, err = timed_inputs[case]
+        Q = case[-1]
+        plain_a = time_ms(lambda: ssd.ssd_chunked_ref(*args, Q), inner=2,
+                          samples=5)
+        kern_a = time_ms(lambda: ssd.ssd_scan(*args, chunk_size=Q),
+                         inner=2, samples=5)
+        kern_b = time_ms(lambda: ssd.ssd_scan(*args, chunk_size=Q),
+                         inner=2, samples=5)
+        plain_b = time_ms(lambda: ssd.ssd_chunked_ref(*args, Q), inner=2,
+                          samples=5)
+        bound_ms, bound_by, nbytes, flops, square = ssd_bound(*case)
+        return {"max_abs_err": err, "ms": min(kern_a, kern_b),
+                "plain_ms": min(plain_a, plain_b), "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+                "flops_full_square": square,
+                "bound_ms_full_square": square / FP32_FLOP_PER_S * 1e3}
+    at_path = times(path)
+    at_batch1 = times(batch1)
+    at_batch1.update(timed=f"one Mamba-2-780M SSD layer {list(batch1)} "
+                           "fp32 (request 0 alone, as the g = 0 and g = 48 "
+                           "splits run it); median of 5 x 2 calls, best "
+                           "of 2")
     entry = {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:73",
         "launches": None,                     # filled in by mamba_serve
-        "max_abs_err": max(checks[-1]["y_max_abs_err"],
-                           checks[-1]["final_max_abs_err"]),
-        "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        **{key: at_path[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         # no single PyTorch call computes a chunked state-space scan
         "library_ms": None,
         "timed": f"one Mamba-2-780M SSD layer {list(path)} fp32, "
                  "init_state None as the model passes it; median of 5 x 2 "
                  "calls, best of 2",
-        "bytes": nbytes, "flops": flops, "flops_full_square": square,
-        "bound_ms_full_square": square / FP32_FLOP_PER_S * 1e3,
+        **{key: at_path[key] for key in (
+            "bytes", "flops", "flops_full_square", "bound_ms_full_square")},
+        "batch_1": at_batch1,
     }
     emit("ssd_kernels", checks=checks, ssd_scan=entry,
+         before_ms=SSD_BEFORE_MS,
          memory_allocated_bytes=torch.cuda.memory_allocated())
     return entry
 
@@ -1365,12 +1468,78 @@ def decode_bound(lengths, Hq, Hkv, d, itemsize):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def phase_decode_kernels() -> dict:
+def rg_decode_inputs(gen):
+    """RecurrentGemma-9B's decode attention as ``lm_decode`` gives it at
+    its first step: q (1, 16, 256) against the 2048-key window, a view
+    inside a (1, 4112, 1, 256) bf16 cache."""
+    lo, hi = RG_DECODE_VIEW
+    q = torch.randn((1, 16, 256), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((1, RG_DECODE_CACHE, 1, 256), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    lens = torch.full((1,), hi - lo, dtype=torch.int32, device="cuda")
+    return q, k[:, lo:hi], v[:, lo:hi], lens
+
+
+def time_decode(q, k, v, lens) -> dict:
+    """The wrapper, its plain version (in turns), SDPA, and the C entry
+    alone (output and scratch allocated beforehand) on one input, with
+    its bound."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dec
+    import torch.nn.functional as F
+    B, Skv, Hkv, D = k.shape
+    Hq = q.shape[1]
+    mask = (torch.arange(Skv, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def run_library():
+        # a yardstick only: the port never calls it
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+    lib_err = float((run_library().float() - dec.decode_attention_ref(
+        q, k, v, lens).float()).abs().max())
+
+    def timed(fn):
+        return time_ms(fn, inner=DECODE_TIMING_CALLS, samples=10)
+    plain_a = timed(lambda: dec.decode_attention_ref(q, k, v, lens))
+    kern_a = timed(lambda: dec.decode_attention(q, k, v, lens))
+    kern_b = timed(lambda: dec.decode_attention(q, k, v, lens))
+    plain_b = timed(lambda: dec.decode_attention_ref(q, k, v, lens))
+    library = timed(run_library)
+
+    lib = _build.load_library()
+    chunk, n_splits = dec.split_plan(B * Hkv, Skv)
+    o = torch.empty_like(q)
+    part_acc = torch.empty((B * Hkv, n_splits, Hq // Hkv, D),
+                           device="cuda")
+    part_ml = torch.empty((B * Hkv, n_splits, Hq // Hkv, 2), device="cuda")
+    raw_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, Hq,
+                Hkv, Skv, D, *k.stride()[:3], *v.stride()[:3], chunk,
+                n_splits, D ** -0.5, 1, torch.cuda.current_stream()
+                .cuda_stream)
+    _build.check_launch(lib, lib.repro_decode_attention(*raw_args),
+                        "decode_attention")
+    torch.cuda.synchronize()
+    if not torch.equal(o, dec.decode_attention(q, k, v, lens)):
+        raise RuntimeError("the raw launch and the wrapper differ")
+    raw_ms = [timed(lambda: lib.repro_decode_attention(*raw_args))
+              for _ in range(2)]
+    bound_ms, bound_by, nbytes, flops = decode_bound(
+        lens.tolist(), Hq, Hkv, D, q.element_size())
+    return {"ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library, "raw_launch_ms": min(raw_ms),
+            "raw_launch_ms_turns": raw_ms,
+            "library_max_abs_err_vs_plain": lib_err, "bytes": nbytes,
+            "flops": flops, "split": [chunk, n_splits]}
+
+
+def phase_decode_kernels() -> dict:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import rglru_scan as lru
     from repro_torch.kernels import ssd_scan as ssd
-    import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def normal(*shape):
@@ -1457,71 +1626,48 @@ def phase_decode_kernels() -> dict:
         raise RuntimeError(f"ssd_scan at one step: max|dy|={y_err}, "
                            f"max|dfinal|={fin_err}")
 
-    # times at the path's shape; kernel and plain version in turns
+    # times at the path's shape and at RecurrentGemma-9B's decode shape
     q, k, v, lens = path_inputs
     B, Skv, Hq, Hkv, D = DECODE_PATH
-    mask = (torch.arange(Skv, device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
-
-    def run_library():
-        # a yardstick only: the port never calls it
-        return F.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)[:, :, 0]
-    lib_err = float((run_library().float() - dec.decode_attention_ref(
-        q, k, v, lens).float()).abs().max())
-    plain_a = time_ms(lambda: dec.decode_attention_ref(q, k, v, lens),
-                      inner=20, samples=10)
-    kern_a = time_ms(lambda: dec.decode_attention(q, k, v, lens), inner=20,
-                     samples=10)
-    kern_b = time_ms(lambda: dec.decode_attention(q, k, v, lens), inner=20,
-                     samples=10)
-    plain_b = time_ms(lambda: dec.decode_attention_ref(q, k, v, lens),
-                      inner=20, samples=10)
-    library = time_ms(run_library, inner=20, samples=10)
-
-    # the C entry point alone, output and scratch allocated beforehand:
-    # what is left of "ms" once the wrapper's host work is taken out
-    lib = _build.load_library()
-    chunk, n_splits = dec.split_plan(B * Hkv, Skv, D)
-    o = torch.empty_like(q)
-    part_acc = torch.empty((B * Hkv, n_splits, Hq // Hkv, D),
-                           device="cuda")
-    part_ml = torch.empty((B * Hkv, n_splits, Hq // Hkv, 2), device="cuda")
-    raw_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, Hq,
-                Hkv, Skv, D, *k.stride()[:3], *v.stride()[:3], chunk,
-                n_splits, D ** -0.5, 1, torch.cuda.current_stream()
-                .cuda_stream)
-    _build.check_launch(lib, lib.repro_decode_attention(*raw_args),
-                        "decode_attention")
-    torch.cuda.synchronize()
-    if not torch.equal(o, dec.decode_attention(q, k, v, lens)):
-        raise RuntimeError("the raw launch and the wrapper differ")
-    raw_ms = time_ms(lambda: lib.repro_decode_attention(*raw_args),
-                     inner=20, samples=10)
-    bound_ms, bound_by, nbytes, flops = decode_bound(
-        lens.tolist(), Hq, Hkv, D, q.element_size())
+    path_times = time_decode(q, k, v, lens)
+    rg = rg_decode_inputs(gen)
+    rg_err = check("RecurrentGemma-9B decode shape, window view", dec
+                   .decode_attention(*rg), dec.decode_attention_ref(*rg),
+                   torch.bfloat16)
+    rg_times = time_decode(*rg)
+    rg_times.update(max_abs_err=rg_err,
+                    timed=f"one RecurrentGemma-9B decode layer: q (1, 1, 16, "
+                          f"256) against the view [{RG_DECODE_VIEW[0]}:"
+                          f"{RG_DECODE_VIEW[1]}] of a (1, {RG_DECODE_CACHE}, "
+                          "1, 256) bf16 cache; median of 10 x "
+                          f"{DECODE_TIMING_CALLS} calls, best of 2")
     entry = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:65",
         "launches": None,                     # filled in by decode_serve
         "max_abs_err": path_err,
-        "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
-        "raw_launch_ms": raw_ms,
+        **{key: path_times[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "raw_launch_ms", "raw_launch_ms_turns")},
         "library_call": "F.scaled_dot_product_attention(enable_gqa=True, "
                         "boolean length mask, transposed views)",
-        "library_max_abs_err_vs_plain": lib_err,
+        "library_max_abs_err_vs_plain": path_times[
+            "library_max_abs_err_vs_plain"],
         "timed": f"one Qwen2-7B decode layer, q ({B}, 1, {Hq}, {D}), cache "
                  f"({B}, {Skv}, {Hkv}, {D}) bf16, {DECODE_PATH_LENGTH} valid "
-                 "keys a sequence; median of 10 x 20 calls, best of 2",
-        "bytes": nbytes, "flops": flops,
-        "split": list(dec.split_plan(B * Hkv, Skv, D)),
+                 f"keys a sequence; median of 10 x {DECODE_TIMING_CALLS} "
+                 "calls, best of 2. "
+                 "raw_launch_ms is the C entry alone (output and scratch "
+                 "allocated beforehand): the kernels' pace; ms is the "
+                 "wrapper (checks, three torch.empty, one ctypes call): "
+                 "what a caller pays",
+        "bytes": path_times["bytes"], "flops": path_times["flops"],
+        "split": path_times["split"],
+        "rg_shape": rg_times,
     }
     emit("decode_kernels", checks=checks, one_step_scans=one_step,
-         decode_attention=entry)
+         decode_attention=entry, before_ms=DECODE_BEFORE_MS)
     return entry
 
 
@@ -1593,9 +1739,12 @@ def one_machine(params, cfg, tokens):
 def phase_model_decode(phase: str, cfg, params, prompts) -> None:
     """Request 0 of a layer-split model: its prompt prefilled into a cache
     of ``LM_SEQ + LM_DECODE_STEPS`` rows, then as many teacher-forced
-    steps, in bf16 and in fp32.  The fp32 decode is held to the fp32
+    steps, in bf16 and in fp32, and the last MODEL_PROFILE_STEPS bf16
+    steps once more under ``torch.profiler`` (each cache row rewritten;
+    a recurrent state steps on).  The fp32 decode is held to the fp32
     one-machine forward over the same tokens; the bf16 distances are
     reported."""
+    from repro_torch.serving.profile_split import profile_decode
     extra = np.random.default_rng(SEED + 1).integers(
         0, cfg.vocab_size, (1, LM_DECODE_STEPS)).astype(np.int32)
     tokens = torch.from_numpy(np.concatenate([prompts[:1], extra],
@@ -1603,7 +1752,17 @@ def phase_model_decode(phase: str, cfg, params, prompts) -> None:
     logits, cache, record = prefill_decode(params, cfg, tokens, LM_SEQ,
                                            LM_DECODE_STEPS)
     record["cache_rows"] = LM_SEQ + LM_DECODE_STEPS
+    profile = profile_decode(params, cfg, tokens, cache,
+                             LM_SEQ + LM_DECODE_STEPS - MODEL_PROFILE_STEPS,
+                             MODEL_PROFILE_STEPS)
     del cache
+    launches = _decode_step_launches(cfg, MODEL_PROFILE_STEPS)
+    if profile["device_seconds"] is None or profile[
+            "wrapper_launches"] != launches:
+        raise RuntimeError(f"{phase}: the profiled steps launched "
+                           f"{profile['wrapper_launches']}, expected "
+                           f"{launches}; device seconds "
+                           f"{profile['device_seconds']}")
     V = cfg.vocab_size
     want = one_machine(params, cfg, tokens)
     params32 = _tree_map(lambda t: t.float(), params)
@@ -1617,7 +1776,7 @@ def phase_model_decode(phase: str, cfg, params, prompts) -> None:
         if not bool(torch.isfinite(t[..., :V]).all()):
             raise RuntimeError(f"{phase}: non-finite logits")
     held = _rel_l2(logits32, want32, V)
-    emit(phase, config=cfg.name, **record,
+    emit(phase, config=cfg.name, **record, profile=profile,
          fp32={k: record32[k] for k in ("prefill_seconds", "step_ms_median",
                                         "launches")},
          fp32_decode_vs_forward_rel_l2=held,
@@ -1754,6 +1913,26 @@ def phase_decode_profile(cfg, params, tokens, cache) -> None:
     emit("decode_profile", **out)
 
 
+#: the keys of a kernel in the kernels line: this run's measurements, its
+#: launches on the main path and its bound; the phase lines carry the rest
+KERNEL_LINE_KEYS = ("name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")
+
+
+def kernels_line(*entries) -> list:
+    """Each kernel's entry cut to KERNEL_LINE_KEYS; raises if one lacks a
+    key or was launched no time on the main path."""
+    line = []
+    for e in entries:
+        missing = [k for k in KERNEL_LINE_KEYS if k not in e]
+        if missing or not e["launches"]:
+            raise RuntimeError(f"{e.get('name')}: missing {missing} or "
+                               f"launched {e.get('launches')} times")
+        line.append({k: e[k] for k in KERNEL_LINE_KEYS})
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1787,10 +1966,9 @@ def main() -> int:
         phase_decode_profile(*phase_decode_serve(
             decode_entry, lm_entries["flash_attention"]))
     emit("total", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [kernel_entry, lm_entries["flash_attention"],
-                                  lm_entries["rglru_scan"], ssd_entry,
-                                  decode_entry]}),
-          flush=True)
+    print(json.dumps({"kernels": kernels_line(
+        kernel_entry, lm_entries["flash_attention"], lm_entries["rglru_scan"],
+        ssd_entry, decode_entry)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

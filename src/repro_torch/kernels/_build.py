@@ -1,12 +1,14 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``, which may
+include the headers ``csrc/*.cuh``).
 
 Each source is compiled by its own ``nvcc`` (all started together), the
 objects are linked into ``build/repro_torch/libkernels.so`` under the
 repository root, and the library is loaded with ``ctypes`` — plain C
 entry points, no PyTorch headers, so the build takes seconds.  The build
-runs at first use and is keyed by a hash of the sources and flags: an
-unchanged tree loads the library it finds.  A failed build or a failed
-load raises; nothing here gives way to a plain PyTorch version.
+runs at first use and is keyed by a hash of the sources, the headers and
+the flags: an unchanged tree loads the library it finds.  A failed build
+or a failed load raises; nothing here gives way to a plain PyTorch
+version.
 """
 from __future__ import annotations
 
@@ -44,7 +46,14 @@ class BuildResult:
 
 
 def sources() -> List[Path]:
+    """The translation units: each is handed to its own nvcc."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> List[Path]:
+    """What a source may include: hashed with the sources, never compiled
+    on its own."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -84,7 +93,7 @@ def build_library() -> BuildResult:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".hash")
-    digest = _source_hash(srcs)
+    digest = _source_hash(srcs + headers())
     names = [p.name for p in srcs]
     t0 = time.perf_counter()
     if lib.is_file() and stamp.is_file() and stamp.read_text() == digest:
@@ -136,15 +145,18 @@ def load_library() -> ctypes.CDLL:
     # a, b, h0 (or None), h, B, S, W, stream
     lib.repro_rglru_scan.argtypes = [vp, vp, vp, vp, ll, ll, ll, vp]
     lib.repro_rglru_scan.restype = ctypes.c_int
-    # x, dt, A, Bm, Cm, init_state (or None), y, final, b, S, H, P, G, N,
-    # Q, stream
-    lib.repro_ssd_scan.argtypes = [vp] * 8 + [ll] * 7 + [vp]
+    # x, dt, A, Bm, Cm, init_state (or None), y, final, states and decay
+    # scratch (or None for one chunk), b, S, H, P, G, N, Q, stream
+    lib.repro_ssd_scan.argtypes = [vp] * 10 + [ll] * 7 + [vp]
     lib.repro_ssd_scan.restype = ctypes.c_int
     # q, k, v, lengths, o, part_acc, part_ml, B, Hq, Hkv, Skv, d, k strides
     # (batch, seq, head), v strides, chunk, n_splits, scale, dtype, stream
     lib.repro_decode_attention.argtypes = (
         [vp] * 7 + [ll] * 13 + [ctypes.c_float, ctypes.c_int, vp])
     lib.repro_decode_attention.restype = ctypes.c_int
+    # d -> smem bytes, blocks an SM, threads a block (out), bf16 kernel
+    lib.repro_decode_attention_occupancy.argtypes = [ll, ip, ip, ip]
+    lib.repro_decode_attention_occupancy.restype = ctypes.c_int
     return lib
 
 

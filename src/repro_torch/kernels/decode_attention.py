@@ -33,8 +33,13 @@ launch_count = 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16
+#: warps of a block of the bf16 kernel, each with its own run of a split's
+#: keys, and the keys a warp stages at a time (csrc/decode_attention.cu)
+WARPS = 4
+KEYS_PER_TILE = 16
 #: blocks the kv split aims for: four a streaming multiprocessor of an
-#: H100 (132 of them), so that B * Hkv alone need not fill the card
+#: H100 (132 of them; four bf16 blocks fit one at head_dim 128), so that
+#: B * Hkv alone need not fill the card
 TARGET_BLOCKS = 4 * 132
 
 
@@ -70,20 +75,15 @@ def decode_attention_ref(q, k, v, lengths, *, softmax_scale=None):
     return o.to(q.dtype)
 
 
-def keys_per_tile(d: int) -> int:
-    """Keys the kernel stages in shared memory at a time (as in the C
-    source): 32 up to head_dim 128, 16 above."""
-    return 32 if d <= 128 else 16
-
-
-def split_plan(bh: int, skv: int, d: int) -> Tuple[int, int]:
+def split_plan(bh: int, skv: int) -> Tuple[int, int]:
     """(keys a split, number of splits) of the kv axis: about
-    ``TARGET_BLOCKS`` blocks over ``bh`` (batch x kv heads), at least two
-    tiles of keys a split, a whole number of tiles each."""
-    tile = keys_per_tile(d)
+    ``TARGET_BLOCKS`` blocks over ``bh`` (batch x kv heads), each split a
+    whole number of ``WARPS`` x ``KEYS_PER_TILE`` keys (a tile for each
+    warp at least; also a whole number of the fp32 kernel's tiles of 32
+    and 16)."""
+    unit = WARPS * KEYS_PER_TILE
     want = max(1, math.ceil(TARGET_BLOCKS / bh))
-    chunk = max(2 * tile, math.ceil(skv / want))
-    chunk = math.ceil(chunk / tile) * tile
+    chunk = math.ceil(max(unit, math.ceil(skv / want)) / unit) * unit
     return chunk, math.ceil(skv / chunk)
 
 
@@ -150,7 +150,7 @@ def decode_attention(q, k, v, lengths, *, softmax_scale=None):
     Hq = q.shape[1]
     G = Hq // Hkv
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    chunk, n_splits = split_plan(B * Hkv, Skv, d)
+    chunk, n_splits = split_plan(B * Hkv, Skv)
     lib = _build.load_library()
     o = torch.empty_like(q)
     part_acc = torch.empty((B * Hkv, n_splits, G, d), dtype=torch.float32,

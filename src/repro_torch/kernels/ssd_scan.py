@@ -24,8 +24,12 @@ from repro_torch.kernels import _build
 #: kernel launches made by ``ssd_scan`` in this process (incremented
 #: where the kernel is launched, and nowhere else)
 launch_count = 0
+#: CUDA kernels those launches enqueued: one for a decode step (S = 1),
+#: three (chunk states, state pass, chunk outputs) for any other length
+kernel_count = 0
 
-#: what the kernel's thread tiles hold (csrc/ssd_scan.cu)
+#: what the kernel's tiles hold (csrc/ssd_scan.cu): P in one 64-wide
+#: tile, N in two
 MAX_HEAD_DIM = 64
 MAX_STATE = 128
 
@@ -106,7 +110,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     never falls back.  Raises when S is not a multiple of
     ``min(chunk_size, S)``.
     """
-    global launch_count
+    global launch_count, kernel_count
     if x.dim() != 4:
         raise ValueError(f"ssd_scan: expected x (b,S,H,P), got "
                          f"{tuple(x.shape)}")
@@ -142,13 +146,25 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     final = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, final.zero_()
+    # scratch of the three phases: each chunk's state (then the state
+    # entering it) and its decay; a decode step (S = 1) needs none
+    nc = S // Q
+    states = decay = None
+    if S > 1:
+        states = torch.empty((b, H, nc, P, N), dtype=torch.float32,
+                             device=x.device)
+        decay = torch.empty((b, H, nc), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.repro_ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(),
             init_state.data_ptr() if init_state is not None else None,
-            y.data_ptr(), final.data_ptr(), b, S, H, P, G, N, Q, stream)
+            y.data_ptr(), final.data_ptr(),
+            states.data_ptr() if states is not None else None,
+            decay.data_ptr() if decay is not None else None,
+            b, S, H, P, G, N, Q, stream)
     _build.check_launch(lib, code, "ssd_scan")
     launch_count += 1
+    kernel_count += 1 if states is None else 3
     return y, final

@@ -8,12 +8,13 @@ already served it once (so nothing is warmed inside the trace) under
 ``torch.profiler`` and returns each side's ``gpu_seconds``, the device
 time of each class of kernel (the flash-attention, decode-attention,
 RG-LRU and SSD kernels, GEMMs, copies, the rest), the ten largest
-kernels, the kernel launches the wrappers counted, and the device's idle
-share over the round.  ``profile_decode`` does the same for decode steps
-through a warm cache.  Both raise if the trace holds another number of
-the hand kernels than the wrappers launched.  ``chip_smoke.py`` runs
-them in its ``lm_serve``, ``mamba_serve`` and ``decode_profile`` phases;
-on the CPU there are no device kernels and the device fields are null.
+kernels, the wrappers' calls and the CUDA kernels those enqueued, and
+the device's idle share over the round.  ``profile_decode`` does the
+same for decode steps through a warm cache.  Both raise if the trace
+holds another number of the hand kernels than the wrappers enqueued.
+``chip_smoke.py`` runs them in its ``lm_serve``, ``mamba_serve``,
+``lm_decode``, ``mamba_decode`` and ``decode_profile`` phases; on the CPU
+there are no device kernels and the device fields are null.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ KERNEL_CLASSES = (
     ("flash_attention", ("flash_attention_kernel",)),
     ("decode_attention", ("decode_split_kernel", "decode_merge_kernel")),
     ("rglru_scan", ("rglru_scan_kernel",)),
-    ("ssd_scan", ("ssd_scan_kernel",)),
+    ("ssd_scan", ("ssd_",)),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
 
@@ -45,13 +46,26 @@ KERNEL_CLASSES = (
 #: the hand kernels' wrappers, by class
 WRAPPERS = {"flash_attention": fa, "decode_attention": dec,
             "rglru_scan": lru, "ssd_scan": ssd}
-#: CUDA kernels one wrapper call launches (decode: split, then merge)
+#: CUDA kernels one wrapper call launches, where that is fixed (decode:
+#: split, then merge); the SSD wrapper counts what it enqueues (one kernel
+#: for a decode step, three phases for longer) in its ``kernel_count``
 KERNELS_PER_CALL = {"decode_attention": 2}
 
 
 def wrapper_counts() -> Dict[str, int]:
     """The wrappers' launch counts, by class."""
     return {n: m.launch_count for n, m in WRAPPERS.items()}
+
+
+def kernel_counts() -> Dict[str, int]:
+    """The CUDA kernels the wrappers enqueued, by class."""
+    return {n: getattr(m, "kernel_count",
+                       m.launch_count * KERNELS_PER_CALL.get(n, 1))
+            for n, m in WRAPPERS.items()}
+
+
+def _since(before: Dict[str, int], now: Dict[str, int]) -> Dict[str, int]:
+    return {k: n - before[k] for k, n in now.items()}
 
 
 def kernel_class(name: str) -> str:
@@ -123,14 +137,13 @@ def _activities(dev: torch.device):
 
 
 def _check_trace(out: Dict) -> Dict:
-    """Raise unless the trace holds each hand kernel as often as its
-    wrapper launched it."""
-    in_trace, launched = out["kernels_in_trace"], out["wrapper_launches"]
-    if in_trace is not None and any(
-            in_trace.get(k, 0) != n * KERNELS_PER_CALL.get(k, 1)
-            for k, n in launched.items()):
+    """Raise unless the trace holds each class of hand kernel as often as
+    its wrapper enqueued it."""
+    in_trace, enqueued = out["kernels_in_trace"], out["wrapper_kernels"]
+    if in_trace is not None and any(in_trace.get(k, 0) != n
+                                    for k, n in enqueued.items()):
         raise RuntimeError(f"the trace holds {in_trace} kernels, the "
-                           f"wrappers counted {launched} launches")
+                           f"wrappers enqueued {enqueued}")
     return out
 
 
@@ -143,13 +156,12 @@ def profile_round(cloud, device, tokens: np.ndarray, group: int) -> Dict:
     before = {"cloud": cloud.stats["gpu_seconds"],
               "device": device.stats["gpu_seconds"]}
     misses = cloud.stats["cache_misses"] + device.stats["cache_misses"]
-    counts = wrapper_counts()
+    counts, kernels = wrapper_counts(), kernel_counts()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         payload, _ = cloud.process({"tokens": tokens}, group)
         logits = device.complete(payload, group)
         wall = time.perf_counter() - t0
-    launched = {k: n - counts[k] for k, n in wrapper_counts().items()}
     if cloud.stats["cache_misses"] + device.stats["cache_misses"] != misses:
         raise RuntimeError("the profiled round warmed an engine up: serve "
                            "the batch once before profiling it")
@@ -160,7 +172,8 @@ def profile_round(cloud, device, tokens: np.ndarray, group: int) -> Dict:
         "group": group, "wall_seconds": wall,
         "side_seconds": {k: s.stats["gpu_seconds"] - before[k]
                          for k, s in (("cloud", cloud), ("device", device))},
-        "wrapper_launches": launched,
+        "wrapper_launches": _since(counts, wrapper_counts()),
+        "wrapper_kernels": _since(kernels, kernel_counts()),
         **summarize_trace(_trace_events(prof), wall),
     })
 
@@ -175,7 +188,7 @@ def profile_decode(params, cfg, tokens: torch.Tensor, cache, start: int,
     host's milliseconds a step in place of the sides' seconds."""
     dev = params["embed"].device
     activities = _activities(dev)
-    counts = wrapper_counts()
+    counts, kernels = wrapper_counts(), kernel_counts()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for t in range(start, start + steps):
@@ -184,12 +197,12 @@ def profile_decode(params, cfg, tokens: torch.Tensor, cache, start: int,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    launched = {k: n - counts[k] for k, n in wrapper_counts().items()}
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("non-finite logits")
     return _check_trace({
         "batch": int(tokens.shape[0]), "start": start, "steps": steps,
         "wall_seconds": wall, "step_ms_host": wall / steps * 1e3,
-        "wrapper_launches": launched,
+        "wrapper_launches": _since(counts, wrapper_counts()),
+        "wrapper_kernels": _since(kernels, kernel_counts()),
         **summarize_trace(_trace_events(prof), wall),
     })

@@ -7,6 +7,8 @@ Tolerances: fp32 5e-6 (as ``tests/test_kernels.py`` holds the Pallas
 kernel; the two sides sum in another order), bf16 2e-2 (one bf16
 rounding of outputs up to ~3).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,14 +122,13 @@ def test_cpu_tensors_never_touch_the_kernel(monkeypatch):
 
 
 def test_split_plan_covers_the_cache():
-    """Whole tiles a split, every key in exactly one split, no split
+    """A tile for each warp a split, every key in exactly one split, no split
     past the cache, and about four blocks an SM at the path's shape."""
-    for bh, skv, d in ((32, 4160, 128), (1, 2048, 256), (1, 1, 16),
-                       (3, 513, 80), (600, 40, 64)):
-        chunk, n = dec.split_plan(bh, skv, d)
-        assert chunk % dec.keys_per_tile(d) == 0
+    for bh, skv in ((32, 4160), (1, 2048), (1, 1), (3, 513), (600, 40)):
+        chunk, n = dec.split_plan(bh, skv)
+        assert chunk % (dec.WARPS * dec.KEYS_PER_TILE) == 0
         assert chunk * (n - 1) < skv <= chunk * n
-    assert dec.split_plan(32, 4160, 128) == (256, 17)
+    assert dec.split_plan(32, 4160) == (256, 17)
 
 
 def _bad(case):
@@ -161,3 +162,101 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     args, msg = _bad(case)
     with pytest.raises((ValueError, TypeError), match=msg):
         dec._check(*args)
+
+
+# --------------------------------------------------------------------------
+# The bf16 kernel's walk over the cache, emulated in plain PyTorch
+# --------------------------------------------------------------------------
+ROWS = 16                                # query-head rows of an mma tile
+# chip_smoke.py's DECODE_GRID: (B, Skv, Hq, Hkv, D)
+WALK_CASES = [(4, 512, 8, 2, 64), (2, 384, 4, 4, 128), (3, 512, 16, 1, 80),
+              (2, 1000, 28, 4, 128), (1, 2100, 16, 1, 256)]
+
+
+def _emulate_split_walk(q, k, v, lens):
+    """What the bf16 kernel computes, in its order: split_plan cuts each
+    (sequence, kv head)'s keys into splits; a split wholly past the
+    length is skipped; each of the WARPS warps of a split walks its own
+    run of chunk / WARPS keys in tiles of KEYS_PER_TILE keys (keys past
+    the run are zeros, masked to -inf) with its own running max m, sum l
+    and accumulator; the G query heads are the first of 16 rows, the
+    rest zero; S = Q K^T takes bf16 values with fp32 sums, scaled by
+    scale * log2(e), and P = exp2(S - m) enters P V as hi = bf16(p) and
+    lo = bf16(p - hi); the warps merge with weights exp2(m_w - M), the
+    splits likewise, o = acc / max(l, 1e-30) rounded to bf16.  Returns o
+    and what the walk met: warps without keys, splits past the length."""
+    B, Skv, Hkv, D = k.shape
+    G = q.shape[1] // Hkv
+    chunk, n_splits = dec.split_plan(B * Hkv, Skv)
+    run, tile = chunk // dec.WARPS, dec.KEYS_PER_TILE
+    scale_log2 = torch.tensor(D ** -0.5, dtype=torch.float32) * torch.tensor(
+        math.log2(math.e), dtype=torch.float32)
+    o = torch.empty(q.shape, dtype=torch.bfloat16)
+    met = {"idle_warps": 0, "splits_past_length": 0}
+    for b in range(B):
+        length = min(int(lens[b]), Skv)
+        for h in range(Hkv):
+            q16 = torch.zeros((ROWS, D))
+            q16[:G] = q[b, h * G:(h + 1) * G].float()
+            parts = []
+            for split in range(n_splits):
+                k_begin, k_end = split * chunk, min((split + 1) * chunk,
+                                                    length)
+                if k_begin >= k_end:
+                    met["splits_past_length"] += 1
+                    continue
+                warps = []
+                for w in range(dec.WARPS):
+                    w_begin = k_begin + w * run
+                    w_end = min(w_begin + run, k_end)
+                    m = torch.full((ROWS,), -math.inf)
+                    l, acc = torch.zeros(ROWS), torch.zeros((ROWS, D))
+                    met["idle_warps"] += w_begin >= w_end
+                    for t0 in range(w_begin, w_end, tile):
+                        n = min(tile, w_end - t0)
+                        kt, vt = torch.zeros((tile, D)), torch.zeros((tile, D))
+                        kt[:n] = k[b, t0:t0 + n, h].float()
+                        vt[:n] = v[b, t0:t0 + n, h].float()
+                        s = torch.where(torch.arange(tile) < n,
+                                        (q16 @ kt.T) * scale_log2, -math.inf)
+                        mx = torch.maximum(m, s.max(dim=1).values)
+                        corr = torch.exp2(m - mx)
+                        p = torch.exp2(s - mx[:, None])
+                        l = l * corr + p.sum(dim=1)
+                        hi = p.bfloat16().float()
+                        lo = (p - hi).bfloat16().float()
+                        acc = acc * corr[:, None] + hi @ vt + lo @ vt
+                        m = mx
+                    warps.append((m, l, acc))
+                M = torch.stack([w[0] for w in warps]).max(dim=0).values
+                wt = [torch.exp2(w[0] - M) for w in warps]
+                parts.append((M, sum(x * w[1] for x, w in zip(wt, warps)),
+                              sum(x[:, None] * w[2]
+                                  for x, w in zip(wt, warps))))
+            M = torch.stack([p[0] for p in parts]).max(dim=0).values
+            wt = [torch.exp2(p[0] - M) for p in parts]
+            l = torch.clamp(sum(x * p[1] for x, p in zip(wt, parts)),
+                            min=1e-30)
+            acc = sum(x[:, None] * p[2] for x, p in zip(wt, parts))
+            o[b, h * G:(h + 1) * G] = (acc / l[:, None])[:G].bfloat16()
+    return o, met
+
+
+@pytest.mark.parametrize("B,Skv,Hq,Hkv,D", WALK_CASES)
+def test_split_walk_matches_the_plain_version_and_pallas(B, Skv, Hq, Hkv,
+                                                          D):
+    """Ragged lengths, one of them (5) shorter than a warp's run, so that
+    warps find no keys and whole splits lie past the length: at
+    chip_smoke.py's bf16 tolerance (atol 2e-3 + rtol 2e-2) against the
+    port's plain version and the reference's Pallas kernel in interpret
+    mode."""
+    (qj, qt), (kj, kt), (vj, vt), lens = _inputs(50, B, Skv, Hq, Hkv, D,
+                                                 "bfloat16")
+    lens[0] = 5
+    got, met = _emulate_split_walk(qt[:, 0], kt, vt, lens)
+    assert met["idle_warps"] > 0 and met["splits_past_length"] > 0
+    plain = dec.decode_attention_ref(qt[:, 0], kt, vt, torch.from_numpy(lens))
+    pallas = ref_ops.decode_attention(qj, kj, vj, jnp.asarray(lens), bk=128)
+    for want in (plain.float().numpy(), np.asarray(pallas[:, 0], np.float32)):
+        np.testing.assert_allclose(got.float().numpy(), want, atol=2e-3,
+                                   rtol=2e-2)

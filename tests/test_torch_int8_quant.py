@@ -137,7 +137,9 @@ def test_wrapper_validates_cuda_inputs(monkeypatch, bad):
 
 # -- the build helper's control flow, with a stand-in compiler --------------
 _FAKE_NVCC = """#!/bin/sh
-# stand-in compiler: writes its output file, fails on sources named bad*
+# stand-in compiler: writes its output file, fails on sources named bad*,
+# and logs each call's arguments beside itself
+echo "$@" >> "$(dirname "$0")/calls.log"
 out=""; prev=""
 for a in "$@"; do
   [ "$prev" = "-o" ] && out="$a"
@@ -175,6 +177,27 @@ def test_build_is_keyed_by_the_sources(fake_toolchain):
     assert not _build.build_library().compiled       # unchanged: reused
     (csrc / "a.cu").write_text("// a, edited")
     assert _build.build_library().compiled           # edited: rebuilt
+
+
+def test_a_header_is_hashed_but_never_compiled_alone(fake_toolchain):
+    """A change to a header (``*.cuh``) alone rebuilds the library, and
+    nvcc is only ever handed the ``*.cu`` sources."""
+    csrc, build = fake_toolchain
+    (csrc / "common.cuh").write_text("// shared helpers")
+    first = _build.build_library()
+    assert first.compiled and first.sources == ["a.cu", "b.cu"]
+    assert not _build.build_library().compiled       # unchanged: reused
+    (csrc / "common.cuh").write_text("// shared helpers, edited")
+    assert _build.build_library().compiled           # header edited: rebuilt
+    (csrc / "other.cuh").write_text("// a new header")
+    assert _build.build_library().compiled           # header added: rebuilt
+    calls = (csrc.parent / "calls.log").read_text().splitlines()
+    assert len(calls) == 9                     # three builds: 2 compiles + link
+    assert not any(".cuh" in call for call in calls)
+    compiled = [a for call in calls for a in call.split()
+                if a.endswith(".cu")]
+    assert sorted(compiled) == sorted([str(csrc / "a.cu"),
+                                       str(csrc / "b.cu")] * 3)
 
 
 def test_failed_build_raises_and_leaves_no_library(fake_toolchain):

@@ -28,6 +28,16 @@ torch.set_num_threads(1)
      "decode_attention"),
     ("(anonymous namespace)::ssd_scan_kernel(float const*, ...)",
      "ssd_scan"),
+    ("(anonymous namespace)::ssd_step_kernel(float const*, ...)",
+     "ssd_scan"),
+    ("(anonymous namespace)::ssd_chunk_state_kernel(float const*, ...)",
+     "ssd_scan"),
+    ("(anonymous namespace)::ssd_state_pass_kernel(float*, ...)",
+     "ssd_scan"),
+    ("(anonymous namespace)::ssd_chunk_out_kernel(float const*, ...)",
+     "ssd_scan"),
+    ("void (anonymous namespace)::tc::decode_split_kernel<128>(...)",
+     "decode_attention"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "gemm"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x256x64", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
@@ -107,3 +117,79 @@ def test_profile_decode_runs_on_the_cpu_when_asked():
     assert out["wall_seconds"] > 0 and out["device_seconds"] is None
     assert set(out["wrapper_launches"].values()) == {0}
     assert cache["groups"]["b0"]["k"][:, :, 16:].abs().sum() > 0
+
+
+# the CUDA kernels one SSD call enqueues: the step kernel alone for a
+# decode step (S = 1), or the three phases
+_SSD_KERNELS = {True: ["ssd_step_kernel"],
+                False: ["ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                        "ssd_chunk_out_kernel"]}
+
+
+def _stub_ssd_kernels(monkeypatch, wrong_count=False):
+    """The SSD wrapper counted and traced as on the card: each call on a
+    CPU tensor adds to ``launch_count`` and ``kernel_count`` as a CUDA call
+    does, and the trace holds the kernels it would have enqueued."""
+    from repro_torch.kernels import ssd_scan as ssd
+    events = []
+    plain = ssd.ssd_scan
+
+    def counted(x, dt, A, Bm, Cm, *, chunk_size, init_state=None):
+        out = plain(x, dt, A, Bm, Cm, chunk_size=chunk_size,
+                    init_state=init_state)
+        step = x.shape[1] == 1
+        ssd.launch_count += 1
+        ssd.kernel_count += 1 if step and not wrong_count else 3
+        for name in _SSD_KERNELS[step]:
+            events.append({"ph": "X", "cat": "kernel", "ts": float(
+                len(events)), "dur": 0.5, "name": f"(anonymous namespace)::"
+                f"{name}(float const*, ...)"})
+        return out
+    monkeypatch.setattr(ssd, "ssd_scan", counted)
+    monkeypatch.setattr(ps, "_trace_events", lambda prof: list(events))
+    return events
+
+
+@pytest.mark.parametrize("prompt", [32, 64])
+def test_ssd_round_counts_the_kernels_each_call_enqueued(monkeypatch,
+                                                         prompt):
+    """A Mamba-2 round enqueues the three SSD phases a call, whether its
+    prompt is one chunk (32 tokens, the reduced config's chunk) or two.
+    The trace check takes the count from the wrapper."""
+    cfg = reduced_config("mamba2-780m")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cloud = LayerSplitEngine(params, cfg, link=WAN_LINK, device="cpu")
+    device = LayerSplitDevice(params, cfg, device="cpu")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, prompt)).astype(np.int32)
+    g = cfg.num_groups() // 2
+    with torch.inference_mode():
+        cloud.process({"tokens": tokens}, g)        # warm both engines
+        device.complete(cloud.process({"tokens": tokens}, g)[0], g)
+        events = _stub_ssd_kernels(monkeypatch)
+        out = ps.profile_round(cloud, device, tokens, g)
+    calls = out["wrapper_launches"]["ssd_scan"]
+    assert calls == cfg.num_layers
+    assert out["wrapper_kernels"]["ssd_scan"] == 3 * calls
+    assert out["kernels_in_trace"] == {"ssd_scan": len(events)}
+    assert len(events) == 3 * calls
+
+
+def test_ssd_decode_steps_count_one_kernel_a_call(monkeypatch):
+    """Decode steps of Mamba-2 call the SSD wrapper with one token: one
+    kernel a call in the trace.  Had the wrapper counted three, the check
+    would raise."""
+    cfg = reduced_config("mamba2-780m")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 36)).astype(np.int32))
+    with torch.inference_mode():
+        _, cache = tr.prefill(params, {"tokens": tokens[:, :32]}, cfg,
+                              pad_to=36)
+        _stub_ssd_kernels(monkeypatch)
+        out = ps.profile_decode(params, cfg, tokens, cache, 32, 2)
+        assert out["wrapper_launches"]["ssd_scan"] == 2 * cfg.num_layers
+        assert out["kernels_in_trace"] == {"ssd_scan": 2 * cfg.num_layers}
+        _stub_ssd_kernels(monkeypatch, wrong_count=True)
+        with pytest.raises(RuntimeError, match="enqueued"):
+            ps.profile_decode(params, cfg, tokens, cache, 34, 2)
