@@ -8,8 +8,10 @@ and holds each against its plain PyTorch version on the card.  Then it
 drives the port's two serving paths, each at full published width:
 
   * diffusion (Stable-Diffusion-v1): a split-serving engine answers 8
-    requests with int8 boundary payloads, and the device side completes
-    one request of each group;
+    requests with int8 boundary payloads, each group's latent and context
+    quantised in one launch (phase ``kernels`` holds the kernel to its
+    plain version first), and the device side completes one request of
+    each group;
   * layer split (RecurrentGemma-9B, 38 layers, bf16): the cloud engine
     runs groups [0, g) of 4 requests of 4096 tokens at g = 6 and of one
     request at g = 0 and g = 12, ships the fp16 hidden state, and the
@@ -68,6 +70,9 @@ BF16_FLOP_PER_S = 989e12
 
 MAIN_PATH_SHAPES = ((4, 4096), (2, 59136))     # latent, context per request
 RAGGED_SHAPES = ((509, 256), (1, 8), (130, 64))
+# int8 groups of the diffusion serve (requests, with the context): the
+# serve's end group is 7 requests without it
+INT8_GROUPS = ((1, True), (3, True), (8, True), (7, False))
 N_REQUESTS = 8
 SEED = 0
 # Images lie in [-1, 1]; the split run and the one-machine run do the same
@@ -265,20 +270,22 @@ def phase_build() -> None:
     ptxas = [ln.strip() for ln in info.log.splitlines()
              if any(k in ln for k in keep)]
     flash = ptxas_report(info.log, "flash_attention")
-    # every kernel of the two sources this script's decode and SSD phases
-    # hold to their plain versions (the file's name is in each mangled name)
+    # every kernel of the sources this script's decode, SSD and int8
+    # phases hold to their plain versions (the file's name is in each
+    # mangled name)
     decode = ptxas_report(info.log, "decode_attention_cu")
     ssd = ptxas_report(info.log, "ssd_scan_cu")
+    int8 = ptxas_report(info.log, "int8_quant_cu")
     occupancy = flash_occupancy()
     decode_occ = decode_occupancy()
     emit("build", seconds=info.seconds, compiled=info.compiled,
          sources=info.sources, ptxas=ptxas, flash_ptxas=flash,
          flash_occupancy=occupancy, decode_ptxas=decode,
-         decode_occupancy=decode_occ, ssd_ptxas=ssd)
+         decode_occupancy=decode_occ, ssd_ptxas=ssd, int8_ptxas=int8)
     if not info.compiled:
         raise RuntimeError("the kernel library was not built in this run")
     for name, report, count in (("flash", flash, 6), ("decode", decode, 7),
-                                ("ssd", ssd, 4)):
+                                ("ssd", ssd, 4), ("int8", int8, 2)):
         if len(report) != count or any(f.get("spill_store_bytes", 1)
                                        or f.get("spill_load_bytes", 1)
                                        for f in report):
@@ -376,7 +383,69 @@ def int8_bound(shapes):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
+def group_shapes(B: int, with_ctx: bool = True) -> list:
+    """The int8 segments of a group of B requests: its latent rows, and
+    its context rows where it ends before the last iteration."""
+    return [(T * B, d) for T, d in MAIN_PATH_SHAPES[:2 if with_ctx else 1]]
+
+
+def check_int8(name, x, q, s, checks: list) -> float:
+    """Hold one segment's kernel output to the plain version (codes
+    equal, scales within one ulp), to numpy on the host (equal) and the
+    ties row to even; returns the largest difference."""
+    from repro_torch.kernels import int8_quant
+    q_ref, s_ref = int8_quant.int8_quantize_ref(x)
+    q_err = int((q.int() - q_ref.int()).abs().max())
+    # distance in units in the last place: positive fp32 values order
+    # like their bit patterns
+    s_ulp = int((s.view(torch.int32) - s_ref.view(torch.int32))
+                .abs().max())
+    s_err = float((s - s_ref).abs().max())
+    x_np = x.cpu().numpy()
+    s_np = np.maximum(np.abs(x_np).max(1, keepdims=True)
+                      / np.float32(127.0), np.float32(1e-12))
+    q_np = np.clip(np.round(x_np / s_np), -127, 127).astype(np.int8)
+    host_equal = bool(np.array_equal(q.cpu().numpy(), q_np)
+                      and np.array_equal(s.cpu().numpy(), s_np))
+    checks.append({"check": name, "shape": list(x.shape),
+                   "q_max_abs_err": q_err, "s_ulp": s_ulp,
+                   "equal_to_numpy": host_equal})
+    if q.shape != x.shape or s.shape != (x.shape[0], 1):
+        raise RuntimeError(f"int8 {name}: wrong output shapes")
+    if q_err != 0 or s_ulp > 1:
+        raise RuntimeError(
+            f"int8 {name} disagrees with its plain version: "
+            f"max|dq|={q_err}, scales differ by {s_ulp} ulp")
+    if not host_equal:
+        raise RuntimeError(f"int8 {name} disagrees with numpy on the host")
+    return max(float(q_err), s_err)
+
+
+def int8_group_cases(gen) -> list:
+    """(name, segments) of the grouped checks: groups of 1, 3 and 8
+    requests at full width, a ragged mix, rows that start off 16 bytes,
+    and rows whose max sits in the last block's slice (and in a ragged
+    tail, d % 4 = 1)."""
+    cases = [(f"group of {B}", [make_input(sh, gen)
+                                for sh in group_shapes(B)])
+             for B, _ in INT8_GROUPS[:3]]
+    cases.append(("ragged mix", [make_input(sh, gen) for sh in
+                                 RAGGED_SHAPES + ((3, 333), (7, 1024))]))
+    base = torch.randn(3 * 4096 + 2 * 59136 + 2, generator=gen,
+                       device="cuda")
+    cases.append(("misaligned starts", [
+        base[1:1 + 3 * 4096].view(3, 4096),
+        base[2 + 3 * 4096:].view(2, 59136)]))
+    last = torch.randn((2, 59136), generator=gen, device="cuda") * 0.01
+    last[:, -1] = torch.tensor([40.0, -75.5], device="cuda")
+    tail = torch.randn((2, 59137), generator=gen, device="cuda") * 0.01
+    tail[:, -1] = torch.tensor([-9.0, 33.0], device="cuda")
+    cases.append(("max in the last block", [last, tail]))
+    return cases
+
+
 def phase_kernels() -> dict:
+    from quant_ab import group_c_entry, traced
     from repro_torch.kernels import _build, int8_quant
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err = 0.0
@@ -387,74 +456,83 @@ def phase_kernels() -> dict:
         inputs[shape] = x
         q, s = int8_quant.int8_quantize(x)
         torch.cuda.synchronize()
-        q_ref, s_ref = int8_quant.int8_quantize_ref(x)
-        q_err = int((q.int() - q_ref.int()).abs().max())
-        # distance in units in the last place: positive fp32 values order
-        # like their bit patterns
-        s_ulp = int((s.view(torch.int32) - s_ref.view(torch.int32))
-                    .abs().max())
-        s_err = float((s - s_ref).abs().max())
-        x_np = x.cpu().numpy()
-        s_np = np.maximum(np.abs(x_np).max(1, keepdims=True)
-                          / np.float32(127.0), np.float32(1e-12))
-        q_np = np.clip(np.round(x_np / s_np), -127, 127).astype(np.int8)
-        host_equal = bool(np.array_equal(q.cpu().numpy(), q_np)
-                          and np.array_equal(s.cpu().numpy(), s_np))
-        checks.append({"shape": list(shape), "q_max_abs_err": q_err,
-                       "s_ulp": s_ulp, "equal_to_numpy": host_equal})
-        max_err = max(max_err, float(q_err), s_err)
-        if q.shape != x.shape or s.shape != (shape[0], 1):
-            raise RuntimeError(f"int8_quantize{shape}: wrong output shapes")
-        if q_err != 0 or s_ulp > 1:
-            raise RuntimeError(
-                f"int8_quantize{shape} disagrees with its plain version: "
-                f"max|dq|={q_err}, scales differ by {s_ulp} ulp")
-        if not host_equal:
-            raise RuntimeError(
-                f"int8_quantize{shape} disagrees with numpy on the host")
+        max_err = max(max_err, check_int8("int8_quantize", x, q, s, checks))
         if ties_row_wrong(q, x):
             raise RuntimeError(f"int8_quantize{shape}: ties not to even")
+    for name, segs in int8_group_cases(gen):
+        shapes = [tuple(x.shape) for x in segs]
+        buf = int8_quant.int8_quantize_group(segs)
+        torch.cuda.synchronize()
+        for x, (q, s) in zip(segs, int8_quant.split_group(buf, shapes)):
+            max_err = max(max_err, check_int8(name, x, q, s, checks))
 
-    def one_request(fn):
-        return lambda: [fn(inputs[sh]) for sh in MAIN_PATH_SHAPES]
-
-    # kernel and plain version in turns, on this one card
-    plain_a = time_ms(one_request(int8_quant.int8_quantize_ref))
-    kern_a = time_ms(one_request(int8_quant.int8_quantize))
-    kern_b = time_ms(one_request(int8_quant.int8_quantize))
-    plain_b = time_ms(one_request(int8_quant.int8_quantize_ref))
     lib = _build.load_library()
     stream = torch.cuda.current_stream().cuda_stream
+
+    def c_entry(segs, buf):
+        """The C entry alone, its table and output made beforehand."""
+        return group_c_entry(lib, int8_quant, segs, buf, stream)
+
     per_shape = []
     for sh in MAIN_PATH_SHAPES:
         b_ms, _, nbytes = int8_bound([sh])
         x = inputs[sh]
-        q, s = int8_quant.int8_quantize(x)
-
-        def raw_launch():
-            # the C entry point alone, outputs allocated beforehand: what
-            # is left of "ms" once the wrapper's host work is taken out
-            return lib.repro_int8_quantize_rows(
-                x.data_ptr(), q.data_ptr(), s.data_ptr(), sh[0], sh[1],
-                stream)
         per_shape.append({
             "shape": list(sh), "bytes": nbytes, "bound_ms": b_ms,
             "ms": time_ms(lambda: int8_quant.int8_quantize(x)),
-            "raw_launch_ms": time_ms(raw_launch),
+            "raw_launch_ms": time_ms(c_entry(
+                [x], int8_quant.int8_quantize_group([x]))),
             "plain_ms": time_ms(lambda: int8_quant.int8_quantize_ref(x))})
-    bound_ms, bound_by, _ = int8_bound(MAIN_PATH_SHAPES)
+    per_group = []
+    for B, with_ctx in INT8_GROUPS:
+        shapes = group_shapes(B, with_ctx)
+        # values like the serve's: no zero row, whose quotients 0 / 1e-12
+        # take the slow path of an IEEE divide
+        segs = [torch.randn(sh, generator=gen, device="cuda") * 3.0
+                for sh in shapes]
+        b_ms, b_by, nbytes = int8_bound(shapes)
+        rows, max_d = sum(T for T, _ in shapes), max(d for _, d in shapes)
+
+        def kernel():
+            return int8_quant.int8_quantize_group(segs)
+
+        def plain():
+            return int8_quant.int8_quantize_group_ref(segs)
+
+        def empty():
+            return lib.repro_int8_empty_launch(rows, max_d, stream)
+        _build.check_launch(lib, empty(), "int8 empty launch")
+        # kernel and plain version in turns, on this one card
+        plain_a, kern_a = time_ms(plain), time_ms(kernel)
+        kern_b, plain_b = time_ms(kernel), time_ms(plain)
+        before = int8_quant.launch_count
+        trace = traced(torch, kernel, 20)
+        if int8_quant.launch_count - before != 21:
+            raise RuntimeError(f"a group of {B} took more than one launch")
+        floor = traced(torch, empty, 20)
+        per_group.append({
+            "requests": B, "context": with_ctx, "shapes": shapes,
+            "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+            "raw_launch_ms": time_ms(c_entry(segs, kernel())),
+            "device_us": trace["int8_us"],
+            "kernels_in_trace": trace["int8_launches"],
+            "empty_launch": {"raw_launch_ms": time_ms(empty),
+                             "device_us": floor["empty_us"]}})
+    one = per_group[0]
     entry = {
         "name": "int8_quantize", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_quant.cu",
         "replaces": "src/repro/kernels/int8_quant.py:30",
         "launches": None,                      # filled in by the serve phase
         "max_abs_err": max_err,
-        # one request's boundary: the latent and the context, two launches
-        "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "timed": "wrapper calls, latent (4,4096) + context (2,59136), "
+        # one request's boundary, the latent and the context, in one launch
+        "ms": one["ms"], "plain_ms": one["plain_ms"],
+        "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+        "library_ms": None,
+        "timed": "int8_quantize_group, latent (4,4096) + context (2,59136), "
                  "inputs warm in L2; median of 20 x 50 calls, best of 2",
-        "per_shape": per_shape,
+        "per_shape": per_shape, "per_group": per_group,
     }
     emit("kernels", checks=checks, int8_quantize=entry)
     return entry
@@ -498,6 +576,19 @@ def phase_serve(kernel_entry: dict):
                                  dtype=np.int32),
                     np.zeros((1, cfg.text_len), np.int32)) for d in fleet]
 
+    # the engine's int8 encoding of each group, timed on the host, and its
+    # fp32 boundary kept on the card for the checks after the serve
+    encoded = []
+    encode_group = engine._encode_int8_group
+
+    def timed_encode(lat, ctx2, fmt):
+        t0 = time.perf_counter()
+        payloads = encode_group(lat, ctx2, fmt)
+        encoded.append({"seconds": time.perf_counter() - t0, "lat": lat,
+                        "ctx2": ctx2, "payloads": payloads})
+        return payloads
+    engine._encode_int8_group = timed_encode
+
     torch.cuda.reset_peak_memory_stats()
     int8_quant.launch_count = 0
     t0 = time.perf_counter()
@@ -505,6 +596,7 @@ def phase_serve(kernel_entry: dict):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = int8_quant.launch_count
+    del engine._encode_int8_group
 
     n_total = cfg.n_total_iterations
     groups = {}
@@ -517,18 +609,20 @@ def phase_serve(kernel_entry: dict):
                              cfg.latent_size),
                   "context": (2, cfg.text_len, cfg.text_width)}
     shapes_end = {"latent": shapes_mid["latent"]}
-    expected = 0
     for res in results.values():
         mid = res.n_cloud < n_total
-        expected += 2 if mid else 1
         want = wire_nbytes(shapes_mid if mid else shapes_end, "int8")
         if len(res.payload) != want:
             raise RuntimeError(f"{res.request_id}: payload of "
                                f"{len(res.payload)} B, expected {want} B")
-    if launches <= 0 or launches != expected:
-        raise RuntimeError(f"int8 kernel launched {launches} times on the "
-                           f"serving path, expected {expected}")
+    # one launch a group: the group's latent and context together
+    expected = len(groups)
+    if launches <= 0 or launches != expected or len(encoded) != expected:
+        raise RuntimeError(f"int8 kernel launched {launches} times in "
+                           f"{len(encoded)} encodings on the serving path, "
+                           f"expected {expected}")
     kernel_entry["launches"] = launches
+    equal = check_served_payloads(engine, encoded)
     emit("serve", config=cfg.name, parameters=n_params,
          init_seconds=init_s, serve_seconds=serve_s,
          groups=[{"n_cloud": n, "batch": len(m),
@@ -539,8 +633,42 @@ def phase_serve(kernel_entry: dict):
                  for n, m in sorted(groups.items())],
          stats=engine.stats, int8_launches=launches,
          int8_launches_expected=expected,
+         int8_encode_seconds=[e["seconds"] for e in encoded],
+         payloads_bit_equal=equal,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     return params, cfg, cost, link, results, groups
+
+
+def check_served_payloads(engine, encoded: list) -> dict:
+    """Each served payload against the same group's boundary encoded
+    through the quantiser's plain version on the card, and through
+    ``pack_boundary_wire`` with the numpy quantiser on the host: equal
+    byte for byte, or this raises."""
+    from repro_torch.core.transport import (get_wire_format,
+                                            pack_boundary_wire,
+                                            rowwise_quantize_int8)
+    from repro_torch.kernels import int8_quant
+    fmt = get_wire_format(engine.wire)
+    kernel = int8_quant.int8_quantize_group
+    counts = {"plain": 0, "numpy": 0}
+    for e in encoded:
+        lat, ctx2, served = e["lat"], e["ctx2"], e["payloads"]
+        int8_quant.int8_quantize_group = int8_quant.int8_quantize_group_ref
+        try:
+            plain = engine._encode_int8_group(lat, ctx2, fmt)
+        finally:
+            int8_quant.int8_quantize_group = kernel
+        lat_np = lat.float().cpu().numpy()
+        ctx_np = None if ctx2 is None else ctx2.float().cpu().numpy()
+        host = [pack_boundary_wire(
+            lat_np[i], None if ctx_np is None else ctx_np[:, i], fmt,
+            rowwise=rowwise_quantize_int8) for i in range(len(served))]
+        for name, want in (("plain", plain), ("numpy", host)):
+            if want != served:
+                raise RuntimeError(f"served int8 payloads differ from the "
+                                   f"{name} version's")
+            counts[name] += len(want)
+    return counts
 
 
 def phase_device(params, cfg, cost, link, results, groups) -> None:

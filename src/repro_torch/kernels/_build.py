@@ -129,8 +129,15 @@ def load_library() -> ctypes.CDLL:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    lib.repro_int8_quantize_rows.argtypes = [vp, vp, vp, ll, ll, vp]
-    lib.repro_int8_quantize_rows.restype = ctypes.c_int
+    # x pointers, rows, widths, code and scale offsets (arrays of n_seg),
+    # n_seg, out, stream
+    llp = ctypes.POINTER(ll)
+    lib.repro_int8_quantize_group.argtypes = [
+        ctypes.POINTER(vp), llp, llp, llp, llp, ctypes.c_int, vp, vp]
+    lib.repro_int8_quantize_group.restype = ctypes.c_int
+    # rows, widest row, stream
+    lib.repro_int8_empty_launch.argtypes = [ll, ll, vp]
+    lib.repro_int8_empty_launch.restype = ctypes.c_int
     # q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal, window, scale,
     # dtype, stream
     lib.repro_flash_attention.argtypes = [

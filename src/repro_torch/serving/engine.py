@@ -23,7 +23,6 @@ shipped.  Counterpart of ``repro/serving/engine.py``.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -37,12 +36,14 @@ from repro_torch.core.telemetry import DeviceProfile
 from repro_torch.core.transport import (
     LinkProfile,
     WAN_LINK,
+    get_wire_format,
     pack_boundary,
     pack_boundary_wire,
-    rowwise_quantize_int8,
+    serialize,
     transmission_time,
     unpack_boundary,
 )
+from repro_torch.kernels import int8_quant
 from repro_torch.kernels.ops import kernel_registry
 from repro_torch.models import diffusion as dif
 from repro_torch.models import transformer as tr
@@ -58,22 +59,6 @@ from repro_torch.models.moe import LOCAL_CTX
 ENGINE_STATS_KEYS = ("gpu_seconds", "compile_seconds", "bytes_shipped",
                      "requests", "executables", "cache_hits",
                      "cache_misses")
-
-
-def cuda_rowwise_int8(x: np.ndarray, device: DeviceLike = None
-                      ) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-row symmetric int8 through the hand-written CUDA kernel
-    (``kernels/csrc/int8_quant.cu``): upload, launch, download.  This is
-    the ``rowwise`` hook ``pack_boundary_wire`` accepts, so engine
-    payloads are quantized by the accelerator kernel rather than numpy
-    (same values as ``transport.rowwise_quantize_int8``)."""
-    from repro_torch.kernels import ops
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"cuda_rowwise_int8 needs a CUDA device, got {dev}")
-    xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
-    q, s = ops.int8_quantize(xt)
-    return q.cpu().numpy(), s.cpu().numpy()
 
 
 def _new_stats() -> Dict[str, Any]:
@@ -120,15 +105,14 @@ class DiffusionSplitEngine:
         self.link = link
         self.transfer_mode = transfer_mode
         #: wire-format name (core.transport.WIRE_FORMATS): when set it
-        #: overrides ``transfer_mode`` and payloads ship through
-        #: ``pack_boundary_wire`` with the CUDA int8 kernel as the
-        #: row-wise quantizer; None keeps the legacy pack_boundary modes
+        #: overrides ``transfer_mode``; the int8 formats quantise a whole
+        #: group on the engine's device (``_encode_int8_group``), the others
+        #: ship through ``pack_boundary_wire``.  None keeps the legacy
+        #: pack_boundary modes
         self.wire = wire
-        #: the ``rowwise=`` hook: the kernel on a GPU engine, its plain
-        #: numpy version on a CPU engine
-        self._rowwise = (
-            functools.partial(cuda_rowwise_int8, device=self.device)
-            if self.device.type == "cuda" else rowwise_quantize_int8)
+        #: host buffer the int8 codes and scales of a group are copied into,
+        #: grown as needed and reused (pinned on a GPU engine)
+        self._staging: Optional[torch.Tensor] = None
         # the shared decision-maker: assign() delegates here, so the
         # engine runs the exact per-request policy the simulators and
         # the fleet planner use (pass a shared Planner to keep one
@@ -214,18 +198,24 @@ class DiffusionSplitEngine:
                 lat = run(self.params, lat, ctx2)
                 _sync(dev)
                 gpu_s = time.perf_counter() - t0
-            lat_np = lat.float().cpu().numpy()
-            ctx_np = ctx2.float().cpu().numpy()
-        results = []
-        for i, r in enumerate(requests):
             need_ctx = n_cloud < cfg.n_total_iterations
-            ctx_i = ctx_np[:, i] if need_ctx else None
-            if self.wire is not None:
-                payload = pack_boundary_wire(lat_np[i], ctx_i, self.wire,
-                                             rowwise=self._rowwise)
+            fmt = None if self.wire is None else get_wire_format(self.wire)
+            if fmt is not None and fmt.name in ("int8", "int8_zlib"):
+                payloads = self._encode_int8_group(
+                    lat, ctx2 if need_ctx else None, fmt)
             else:
-                payload = pack_boundary(lat_np[i], ctx_i,
-                                        mode=self.transfer_mode)
+                lat_np = lat.float().cpu().numpy()
+                ctx_np = ctx2.float().cpu().numpy() if need_ctx else None
+                payloads = []
+                for i in range(B):
+                    ctx_i = None if ctx_np is None else ctx_np[:, i]
+                    payloads.append(
+                        pack_boundary_wire(lat_np[i], ctx_i, fmt)
+                        if fmt is not None else
+                        pack_boundary(lat_np[i], ctx_i,
+                                      mode=self.transfer_mode))
+        results = []
+        for r, payload in zip(requests, payloads):
             t_net = transmission_time(len(payload), self.link)
             results.append(SplitResult(
                 request_id=r.request_id, n_cloud=n_cloud, payload=payload,
@@ -234,6 +224,45 @@ class DiffusionSplitEngine:
         self.stats["gpu_seconds"] += gpu_s
         self.stats["requests"] += B
         return results
+
+    def _encode_int8_group(self, lat: torch.Tensor,
+                           ctx2: Optional[torch.Tensor], fmt) -> List[bytes]:
+        """Each request's payload on an int8 wire format, quantised where
+        the boundary lies: the group's latent (B, C, H, W) as (B·C, H·W)
+        rows and its context (2, B, L, W) as (2B, L·W) rows go through ONE
+        call of ``int8_quantize_group`` (one kernel launch on a GPU), and
+        its one buffer of codes and scales comes to the host in ONE copy.
+        No fp32 tensor leaves the device.  Each payload is byte for byte
+        ``pack_boundary_wire(latent_i, context_i, fmt)``: the same wire
+        tree (``latent``, ``latent_rowscales``, ``context``,
+        ``context_rowscales``) through ``transport.serialize``."""
+        B, C, H, W = lat.shape
+        segs = [lat.float().reshape(B * C, H * W)]
+        if ctx2 is not None:
+            L, Wd = ctx2.shape[2:]
+            segs.append(ctx2.float().reshape(2 * B, L * Wd))
+        buf = int8_quant.int8_quantize_group(segs)
+        n = buf.numel()
+        if self._staging is None or self._staging.numel() < n:
+            self._staging = torch.empty(
+                n, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        host = self._staging[:n]
+        host.copy_(buf)
+        parts = int8_quant.split_group(host.numpy(),
+                                       [tuple(x.shape) for x in segs])
+        q_lat, s_lat = parts[0]
+        payloads = []
+        for i in range(B):
+            rows = slice(i * C, (i + 1) * C)
+            tree = {"latent": q_lat[rows].reshape(C, H, W),
+                    "latent_rowscales": s_lat[rows]}
+            if ctx2 is not None:
+                q_ctx, s_ctx = parts[1]
+                pick = [i, B + i]          # the uncond and cond rows
+                tree["context"] = q_ctx[pick].reshape(2, L, Wd)
+                tree["context_rowscales"] = s_ctx[pick]
+            payloads.append(serialize(tree, compress=fmt.compress))
+        return payloads
 
     def serve(self, requests: List[Request], seed: int = 0
               ) -> Dict[str, SplitResult]:

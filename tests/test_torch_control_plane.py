@@ -185,7 +185,9 @@ def _imported_roots(path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src/repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    # the scripts run on the card, chip_smoke.py's helper quant_ab.py too
+    files += [ROOT / n for n in ("chip_smoke.py", "decode_ab.py",
+                                 "quant_ab.py")]
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ("kernels/flash_attention", "kernels/rglru_scan",
                    "kernels/ssd_scan", "models/ssd",
