@@ -5,13 +5,19 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 and holds each against its plain PyTorch version on the card.  Then it
-drives the port's two serving paths, each at full published width:
+drives the port's serving paths, each at full published width:
 
   * diffusion (Stable-Diffusion-v1): a split-serving engine answers 8
     requests with int8 boundary payloads, each group's latent and context
     quantised in one launch (phase ``kernels`` holds the kernel to its
     plain version first), and the device side completes one request of
     each group;
+  * the paper's scheduler end to end (phase ``replay``): the fleet
+    simulator records the golden workload's decision trace, every plan is
+    re-derived from it, and its first 12 dispatch records run through a
+    fresh full-width diffusion engine on the serve's weights; executables,
+    cache hit rate and int8 payload bytes are reconciled with the model's,
+    one int8 launch a dispatch;
   * layer split (RecurrentGemma-9B, 38 layers, bf16): the cloud engine
     runs groups [0, g) of 4 requests of 4096 tokens at g = 6 and of one
     request at g = 0 and g = 12, ships the fp16 hidden state, and the
@@ -38,6 +44,11 @@ drives the port's two serving paths, each at full published width:
     decode kernel; fp32 and int8-cache decodes are held to a one-machine
     forward and to the plain version (``decode_serve``), and 8 more steps
     are profiled (``decode_profile``).
+  * RegNet-Y-128GF, the paper's classifier (phase ``regnet``), after
+    Qwen2-7B's weights are freed: one 384 x 384 image through the forward
+    and split at each point of paper Table 1, the activation through the
+    host, held to the forward; its segments and forward timed at batch 1
+    and 8.
 
 Each phase prints one JSON line (``total``: the script's own time, the
 kernels' build included).  The line before the last two is
@@ -78,6 +89,33 @@ SEED = 0
 # Images lie in [-1, 1]; the split run and the one-machine run do the same
 # fp32 arithmetic on the same card, so they should agree far inside this.
 SPLIT_ATOL = 1e-3
+
+# The paper's scheduler end to end: the golden fleet-sim workload of the
+# reference's engine-replay bench (benchmarks/engine_replay.py FULL_CELL),
+# its decision trace re-derived (490 plans, no replans), and its first
+# dispatch records (the bench's smoke cap) through a fresh full-width
+# engine on the card.
+REPLAY_CELL = dict(seed=7, rate=12.0, duration=40.0, gpus_init=10,
+                   max_gpus=32, metrics_interval_s=10.0)
+REPLAY_PLANS = 490
+REPLAY_RECORDS = 12
+
+# RegNet-Y-128GF, the paper's classifier, uncut: its parameters as the
+# reference's jax.eval_shape counts them, the activation bytes at each
+# split point of paper Table 1 (batch 1, 384 x 384, fp32), and the
+# floating-point operations of one image through the reference's forward
+# as XLA's cost_analysis counts them (a count, not a time).
+REGNET_PARAMETERS = 644_733_224
+REGNET_PARAMETER_BYTES = 2_578_932_896
+REGNET_TABLE1_BYTES = {"stem": 4_718_592, "block1": 19_464_192,
+                       "block2": 9_732_096, "block3": 6_690_816,
+                       "block4": 4_257_792, "avgpool": 29_568}
+REGNET_FLOPS_PER_IMAGE = 739_913_170_944
+REGNET_BATCHES = (1, 8)
+# The split runs the same fp32 convolutions on the same card as forward,
+# with an exact copy through the host between its halves: summation order
+# is all that may differ, far inside this share of the largest logit.
+REGNET_SPLIT_RTOL = 1e-5
 
 # The layer-split path: full-width RecurrentGemma-9B, uncut.
 LM_ARCH = "recurrentgemma-9b"
@@ -2041,6 +2079,216 @@ def phase_decode_profile(cfg, params, tokens, cache) -> None:
     emit("decode_profile", **out)
 
 
+def phase_replay(params, cfg) -> None:
+    """The paper's scheduler end to end: the port's fleet simulator
+    records the golden workload's decision trace, every plan is
+    re-derived from it, and the first REPLAY_RECORDS dispatch records run
+    through a fresh full-width engine (cold cache, int8 wire) on the
+    serve's weights.  At full width the engine's grid is the simulator's
+    (50 iterations, stride 5): each record keeps its own key."""
+    import tempfile
+    from repro_torch.core.cost_model import CostParams
+    from repro_torch.core.transport import LOCAL_LINK, wire_nbytes
+    from repro_torch.kernels import int8_quant
+    from repro_torch.serving.engine import DiffusionSplitEngine
+    from repro_torch.serving.fleet_sim import SimConfig, run_fleet_sim
+    from repro_torch.serving.replay import (read_trace,
+                                            replay_through_engine,
+                                            scaled_group_key,
+                                            verify_decisions)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.jsonl")
+        sim = run_fleet_sim(SimConfig(trace_out=path, **REPLAY_CELL))
+        trace = read_trace(path)
+    decisions = verify_decisions(trace)
+    if (decisions.n_plans, decisions.n_replans, len(decisions.mismatches),
+            sim.n_arrivals) != (REPLAY_PLANS, 0, 0, REPLAY_PLANS):
+        raise RuntimeError(f"decision trace: {decisions.to_json()}, "
+                           f"{sim.n_arrivals} arrivals")
+    sim_n_total = int(trace.header["planner"]["params"]["n_total"])
+    records = trace.dispatches()[:REPLAY_RECORDS]
+    keys = [scaled_group_key(r, sim_n_total, cfg.n_total_iterations,
+                             cfg.split_stride) for r in records]
+    if keys != [(r["n_final"], r["batch"]) for r in records]:
+        raise RuntimeError(f"engine keys {keys} are not the records' own")
+
+    cost = CostParams(r_cloud=10.0, n_total=cfg.n_total_iterations,
+                      n_step=cfg.split_stride, t_lim=5.0, k_decode=1.0)
+    engine = DiffusionSplitEngine(params, cfg, cost, link=LOCAL_LINK,
+                                  wire="int8", device="cuda")
+    reset_launch_counts()
+    int8_quant.launch_count = 0
+    t0 = time.perf_counter()
+    report = replay_through_engine(trace, engine=engine,
+                                   max_records=REPLAY_RECORDS)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    int8_launches = int8_quant.launch_count
+    others = launch_counts()
+
+    latent = (cfg.latent_channels, cfg.latent_size, cfg.latent_size)
+    context = (2, cfg.text_len, cfg.text_width)
+    faults = []
+    if report.executed != len(records):
+        faults.append(f"executed {report.executed} of {len(records)}")
+    if report.executable_bound != 11:
+        faults.append(f"executable bound {report.executable_bound}")
+    if report.measured_executables != report.modeled_executables:
+        faults.append("executables: measured "
+                      f"{report.measured_executables}, modeled "
+                      f"{report.modeled_executables}")
+    if report.measured_executables != len(set(keys)):
+        faults.append(f"{report.measured_executables} executables for "
+                      f"{len(set(keys))} keys")
+    if report.measured_hit_rate != report.modeled_hit_rate:
+        faults.append(f"hit rate: measured {report.measured_hit_rate}, "
+                      f"modeled {report.modeled_hit_rate}")
+    shipped = 0
+    for g in report.groups:
+        shapes = {"latent": latent}
+        if g.n_scaled < cfg.n_total_iterations:
+            shapes["context"] = context
+        want = wire_nbytes(shapes, "int8")
+        if not g.measured_bytes == g.modeled_bytes == want:
+            faults.append(f"group {(g.n_scaled, g.batch)}: measured "
+                          f"{g.measured_bytes} B, modeled "
+                          f"{g.modeled_bytes} B, closed form {want} B")
+        shipped += want * g.batch * g.executions
+    if report.bytes_shipped != shipped or report.bytes_overhead != 0.0:
+        faults.append(f"{report.bytes_shipped} B shipped, {shipped} B "
+                      f"closed form")
+    if report.requests != sum(r["batch"] for r in records):
+        faults.append(f"{report.requests} requests served")
+    if int8_launches != report.executed or any(others.values()):
+        faults.append(f"int8 launched {int8_launches} times for "
+                      f"{report.executed} dispatches; others {others}")
+    if not all(math.isfinite(g.measured_s) and g.measured_s > 0
+               for g in report.groups):
+        faults.append("a group has no measured seconds")
+    if faults:
+        raise RuntimeError("replay: " + "; ".join(faults))
+    del engine
+    emit("replay", workload=REPLAY_CELL, arrivals=sim.n_arrivals,
+         trace_records=len(trace.records),
+         decisions={"plans": decisions.n_plans,
+                    "replans": decisions.n_replans,
+                    "mismatches": len(decisions.mismatches)},
+         dispatches=report.n_dispatches, executed=report.executed,
+         skipped=report.skipped,
+         executables={"modeled": report.modeled_executables,
+                      "measured": report.measured_executables,
+                      "bound": report.executable_bound},
+         hit_rate={"modeled": report.modeled_hit_rate,
+                   "measured": report.measured_hit_rate},
+         gpu_seconds=report.gpu_seconds,
+         compile_seconds=report.compile_seconds,
+         bytes_shipped=report.bytes_shipped, requests=report.requests,
+         calibration_ratio=report.calibration_ratio,
+         max_rel_dev=report.max_rel_dev,
+         groups=[{"n_scaled": g.n_scaled, "batch": g.batch,
+                  "executions": g.executions, "measured_s": g.measured_s,
+                  "modeled_s": g.modeled_s,
+                  "payload_bytes": g.measured_bytes}
+                 for g in report.groups],
+         int8_launches=int8_launches, replay_seconds=replay_s,
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_regnet() -> None:
+    """RegNet-Y-128GF at full width on the card: the forward of one
+    384 x 384 image, and at each split point of paper Table 1 the cloud's
+    half, the activation through the host (the shipped bytes) and the
+    device's half, held to the forward; then each segment and the forward
+    timed at batch 1 and 8.  Its convolutions are cuDNN's (fp32, TF32
+    off): no hand kernel is on this path."""
+    from repro_torch.configs import regnet_y_128gf
+    from repro_torch.convert import tree_map
+    from repro_torch.models import regnet
+    cfg = regnet_y_128gf.CONFIG
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    params = regnet.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    leaves = []
+    tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    if (n_params, n_bytes) != (REGNET_PARAMETERS, REGNET_PARAMETER_BYTES):
+        raise RuntimeError(f"RegNet: {n_params} parameters in {n_bytes} B")
+    table = regnet.split_activations(cfg)
+    if {name: b for name, _, b in table} != REGNET_TABLE1_BYTES:
+        raise RuntimeError(f"split_activations {table}")
+
+    torch.cuda.reset_peak_memory_stats()
+    size = cfg.image_size
+    images = torch.randn((max(REGNET_BATCHES), 3, size, size),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(SEED), device="cuda")
+    logits = regnet.forward(params, cfg, images[:1])
+    if (tuple(logits.shape) != (1, cfg.num_classes)
+            or not bool(torch.isfinite(logits).all())):
+        raise RuntimeError(f"logits {tuple(logits.shape)}, finite "
+                           f"{bool(torch.isfinite(logits).all())}")
+    scale = float(logits.abs().max())
+    limit = REGNET_SPLIT_RTOL * scale
+    splits = []
+    for name, shape, nbytes in table:
+        act = regnet.run_from(params, cfg, images[:1], "input", name)
+        shipped = act.cpu()
+        if (tuple(shipped.shape) != shape
+                or shipped.numel() * shipped.element_size() != nbytes):
+            raise RuntimeError(f"{name}: activation {tuple(shipped.shape)}")
+        out = regnet.run_from(params, cfg, shipped.to("cuda"), name,
+                              "logits")
+        err = float((out - logits).abs().max())
+        if not err <= limit:
+            raise RuntimeError(f"split at {name}: logits off by {err} > "
+                               f"{limit}")
+        splits.append({"point": name, "shape": list(shape),
+                       "bytes": nbytes, "max_abs_err": err})
+
+    order = ("input",) + regnet.SPLIT_POINTS + ("logits",)
+    timings = []
+    for B in REGNET_BATCHES:
+        x = images[:B]
+        segments = {}
+        for start, stop in zip(order, order[1:]):
+            nxt = regnet.run_from(params, cfg, x, start, stop)
+            segments[stop] = time_ms(
+                lambda x=x, start=start, stop=stop:
+                regnet.run_from(params, cfg, x, start, stop),
+                inner=1, samples=5)
+            x = nxt
+        if B > 1:
+            # image 0 alone and in the batch: the same logits
+            err = float((x[:1] - logits).abs().max())
+            if not err <= limit:
+                raise RuntimeError(f"batch {B}: image 0's logits off by "
+                                   f"{err} > {limit}")
+        fwd_ms = time_ms(lambda B=B: regnet.forward(params, cfg, images[:B]),
+                         inner=1, samples=5)
+        timings.append({
+            "batch": B, "forward_ms": fwd_ms, "segments_ms": segments,
+            "tflop_per_s": REGNET_FLOPS_PER_IMAGE * B / fwd_ms / 1e9,
+            "fp32_peak_share": (REGNET_FLOPS_PER_IMAGE * B / (fwd_ms / 1e3)
+                                / FP32_FLOP_PER_S)})
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    if any(launches.values()):
+        raise RuntimeError(f"hand kernels launched on RegNet's path: "
+                           f"{launches}")
+    del params
+    emit("regnet", config=cfg.name, parameters=n_params,
+         parameter_bytes=n_bytes, init_seconds=init_s,
+         image_size=size, logit_scale=scale, split_rtol=REGNET_SPLIT_RTOL,
+         splits=splits, timings=timings,
+         flops_per_image=REGNET_FLOPS_PER_IMAGE, peak_memory_bytes=peak,
+         seconds=time.perf_counter() - t_phase)
+
+
 #: the keys of a kernel in the kernels line: this run's measurements, its
 #: launches on the main path and its bound; the phase lines carry the rest
 KERNEL_LINE_KEYS = ("name", "route", "source", "replaces", "launches",
@@ -2077,6 +2325,7 @@ def main() -> int:
         kernel_entry = phase_kernels()
         served = phase_serve(kernel_entry)
         phase_device(*served)
+        phase_replay(served[0], served[1])
         del served
         torch.cuda.empty_cache()
         lm_entries = phase_lm_kernels()
@@ -2093,6 +2342,9 @@ def main() -> int:
         decode_entry = phase_decode_kernels()
         phase_decode_profile(*phase_decode_serve(
             decode_entry, lm_entries["flash_attention"]))
+        gc.collect()                 # Qwen2-7B's 15 GB of weights
+        torch.cuda.empty_cache()
+        phase_regnet()
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels_line(
         kernel_entry, lm_entries["flash_attention"], lm_entries["rglru_scan"],

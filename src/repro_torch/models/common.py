@@ -30,13 +30,18 @@ def pdtype(cfg) -> torch.dtype:
 def dense_init(generator: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype, fan_in: Optional[int] = None,
                device: DeviceLike = None) -> torch.Tensor:
-    """Truncated-normal scaled by 1/sqrt(fan_in) (fan_in = shape[0] default)."""
+    """Truncated-normal scaled by 1/sqrt(fan_in) (fan_in = shape[0] default).
+    On the ``meta`` device nothing is drawn: the tensor has its shape and
+    type only (``regnet.split_activations``)."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=dev)
     fan = fan_in if fan_in is not None else shape[0]
     std = 1.0 / math.sqrt(max(1, fan))
     w = torch.empty(tuple(shape), dtype=torch.float32,
                     device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * std).to(device=resolve_device(device), dtype=dtype)
+    return (w * std).to(device=dev, dtype=dtype)
 
 
 def embed_init(generator: torch.Generator, shape: Sequence[int],

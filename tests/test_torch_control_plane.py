@@ -4,7 +4,11 @@ nothing of the reference or of JAX."""
 import ast
 import dataclasses
 import json
+import os
 import pathlib
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -26,6 +30,18 @@ COPIED = ("cost_model", "telemetry", "capacity", "admission", "scheduler",
           "planner", "transport")
 CONFIG_FILES = sorted(
     p.name for p in (ROOT / "src/repro/configs").glob("*.py"))
+#: the scheduler's modules, copied whole with ``repro`` renamed
+#: ``repro_torch`` wherever it stands as a word (``shard_sim`` also
+#: imports the package itself, to put its root on a spawned child's path)
+WORD_COPIED = ("core/sla.py", "serving/event_wheel.py",
+               "serving/mobility.py", "serving/simulator.py",
+               "serving/fleet_sim.py", "serving/shard_sim.py",
+               "serving/__init__.py", "train/fault_tolerance.py",
+               "train/__init__.py", "api.py")
+
+
+def _renamed(text):
+    return re.sub(r"\brepro\b", "repro_torch", text)
 
 
 def _cost(mod, t_lim):
@@ -45,6 +61,58 @@ def test_config_copies_differ_only_in_the_import_prefix(name):
     ref = (ROOT / "src/repro/configs" / name).read_text()
     own = (ROOT / "src/repro_torch/configs" / name).read_text()
     assert own == ref.replace("repro.", "repro_torch.")
+
+
+@pytest.mark.parametrize("rel", WORD_COPIED)
+def test_scheduler_copies_differ_only_in_the_package_name(rel):
+    ref = (ROOT / "src/repro" / rel).read_text()
+    own = (ROOT / "src/repro_torch" / rel).read_text()
+    assert own == _renamed(ref)
+
+
+def _without_function(text, name):
+    """``text`` with the top-level function ``name`` cut out, and that
+    function's source."""
+    lines = text.splitlines(keepends=True)
+    node = next(n for n in ast.parse(text).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    first = node.lineno - 1 - len(node.decorator_list)
+    cut = "".join(lines[first:node.end_lineno])
+    return "".join(lines[:first] + lines[node.end_lineno:]), cut
+
+
+#: the two lines of the reference's replay module that tell its own
+#: history (found by these fragments), and what the port's copy says there
+REPLAY_HISTORY = {
+    "validated every scheduling claim against a *modeled* simulator;":
+    "The simulators validate every scheduling claim against a *model*;",
+    "compile_seconds: float        # reported separately (the ":
+    "    compile_seconds: float        # reported apart from gpu_seconds",
+}
+
+
+def test_replay_copy_differs_only_in_replay_through_engine():
+    """Outside ``replay_through_engine`` the port's replay module is the
+    reference's with the package renamed, plus the one import of the
+    ``device`` argument's type and two reworded history notes; that
+    function builds the torch engine."""
+    ref, ref_fn = _without_function(
+        (ROOT / "src/repro/serving/replay.py").read_text(),
+        "replay_through_engine")
+    own, own_fn = _without_function(
+        (ROOT / "src/repro_torch/serving/replay.py").read_text(),
+        "replay_through_engine")
+    extra = "from repro_torch.compat import DeviceLike\n"
+    assert own.count(extra) == 1
+    lines = ref.splitlines(keepends=True)
+    for fragment, port_line in REPLAY_HISTORY.items():
+        hits = [i for i, ln in enumerate(lines) if fragment in ln]
+        assert len(hits) == 1, fragment
+        lines[hits[0]] = port_line + "\n"
+    ref = "".join(lines)
+    assert own.replace(extra, "") == _renamed(ref)
+    assert "import jax" in ref_fn and "jax" not in own_fn
+    assert "device: DeviceLike = None" in own_fn
 
 
 def test_segmentation_copy_drops_only_the_unused_jax_imports():
@@ -193,7 +261,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "kernels/ssd_scan", "models/ssd",
                    "models/attention", "models/rglru", "models/moe",
                    "models/transformer", "core/segmentation",
-                   "configs/recurrentgemma_9b"):
+                   "configs/recurrentgemma_9b", "serving/fleet_sim",
+                   "serving/replay", "api", "models/regnet"):
         assert f"src/repro_torch/{module}.py" in names
     assert len(files) > 40
     banned = {"jax", "jaxlib", "repro", "flax", "optax"}
@@ -201,3 +270,19 @@ def test_port_imports_neither_jax_nor_the_reference():
            for p in files for root, line in _imported_roots(p)
            if root in banned]
     assert not bad, bad
+
+
+def test_api_facade_exports_the_reference_s_names_without_jax():
+    """``import repro_torch.api`` loads neither jax nor the reference, and
+    the facade exports the reference's names."""
+    code = ("import sys, repro_torch.api as api; "
+            "print(sorted(api.__all__)); "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")}
+                         ).stdout.splitlines()
+    import repro.api as ref_api
+    assert out == [str(sorted(ref_api.__all__)), "[]"]

@@ -26,7 +26,7 @@ from repro.configs import reduced_config as ref_reduced_config
 from repro.models import attention as ref_attn
 from repro.models import transformer as ref_tr
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.configs import stable_diffusion_v1
+from repro_torch.configs import regnet_y_128gf, stable_diffusion_v1
 from repro_torch.convert import from_jax_params, to_numpy_params
 from repro_torch.models import (attention, common, diffusion, mlp, moe,
                                 regnet, rglru, ssd)
@@ -347,6 +347,11 @@ def _initialisers():
             diffusion.init_vae_decoder(sd, gen(), **kw),
         "regnet.init_conv": lambda **kw: regnet.init_conv(gen(), 4, 8, 3,
                                                           **kw),
+        "regnet.init_bn": lambda **kw: regnet.init_bn(8, **kw),
+        "regnet.init_yblock": lambda **kw: regnet.init_yblock(
+            gen(), 8, 16, 2, 8, 0.25, **kw),
+        "regnet.init_params": lambda **kw: regnet.init_params(
+            regnet_y_128gf.reduced(), gen(), **kw),
     }
 
 
