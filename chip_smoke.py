@@ -44,6 +44,21 @@ drives the port's serving paths, each at full published width:
     decode kernel; fp32 and int8-cache decodes are held to a one-machine
     forward and to the plain version (``decode_serve``), and 8 more steps
     are profiled (``decode_profile``).
+  * Mixture-of-Experts (OLMoE-1B-7B, 16 MHA attention layers, 64 experts
+    top-8, bf16), after Qwen2-7B's weights are freed: the flash kernel
+    held to its plain version and timed at the MHA prefill layout, then
+    4 requests of 4096 tokens split at g = 8 and request 0 at g = 0 and
+    g = 16 through the layer-split engines, each split held to a
+    one-machine forward of the same batch, the router's capacity, drops
+    and largest load per layer and the aux sums reported, one g = 8 round
+    profiled (MoE dispatch and gather, expert products, attention, the
+    rest), and the first two layers held in fp32, layer by layer,
+    through the kernels against the plain versions with routing flips
+    counted (phase ``moe_serve``); the 4 prompts prefilled and decoded
+    32 steps (drops at 4 tokens a step), the decode kernel held to its
+    plain version and timed on that cache, and request 0 decoded at
+    capacity factor 16 in bf16 and fp32 against the one-machine forward
+    at the same factor (``moe_decode``).
   * RegNet-Y-128GF, the paper's classifier (phase ``regnet``), after
     Qwen2-7B's weights are freed: one 384 x 384 image through the forward
     and split at each point of paper Table 1, the activation through the
@@ -247,6 +262,32 @@ DECODE_BEFORE_MS = {
     "rg_shape": {"ms": 0.11321839690208435,
                  "raw_launch_ms": 0.11024159789085389}}
 SSD_BEFORE_MS = {"path": 8.187647819519043, "batch_1": 4.073232173919678}
+
+# Mixture-of-Experts (phases moe_serve, moe_decode): full-width
+# OLMoE-1B-7B, uncut (16 attention layers, MHA: 16 heads of 128 on 16 kv
+# heads; 64 experts of 1024, top-8, at the published capacity factor
+# 1.25), through the layer split at g = 8 of 16 and prefill + decode.
+MOE_ARCH = "olmoe-1b-7b"
+MOE_SPLIT = 8
+# jax.eval_shape of the reference's init_params for this config
+MOE_PARAMETERS = 6_922_766_336
+MOE_PARAMETER_BYTES = 13_849_862_144
+MOE_DECODE_STEPS = 32
+# the layer-by-layer fp32 check, kernels against plain versions: groups
+# [0, MOE_FP32_GROUPS) at full width on request 0's first MOE_FP32_SEQ
+# tokens, each layer fed the same input in both runs.  A token may route
+# to other experts through the kernels than through the plain versions
+# only where the plain run's k-th and (k+1)-th probabilities lie closer
+# than MOE_FLIP_GAP (such a flip changes its output by O(1)); the layer's
+# output on the tokens whose routing agreed is held to the fp32 limit of
+# the earlier slices
+MOE_FP32_GROUPS, MOE_FP32_SEQ = 2, 1024
+MOE_FLIP_GAP = 1e-5
+MOE_LAYER_REL_L2 = 5e-5
+# decode is held to the forward at this capacity factor, as
+# tests/test_models.py does: the capacity depends on the tokens in the
+# call, so at 1.25 a decode step may drop a choice the forward keeps
+MOE_CHECK_FACTOR = 16.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -843,6 +884,18 @@ def prefill_flash_shape():
             cfg.num_kv_heads, cfg.resolved_head_dim(), True, cfg.window)
 
 
+def time_in_turns(run_kernel, run_plain, run_library) -> dict:
+    """CUDA-event medians of a kernel's wrapper (5 samples of 2 calls)
+    and its plain version (3 of 1) in turns, plain, kernel, kernel,
+    plain, the best of each pair; then the library call as the kernel."""
+    plain_a = time_ms(run_plain, inner=1, samples=3)
+    kern_a = time_ms(run_kernel, inner=2, samples=5)
+    kern_b = time_ms(run_kernel, inner=2, samples=5)
+    plain_b = time_ms(run_plain, inner=1, samples=3)
+    return {"ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+            "library_ms": time_ms(run_library, inner=2, samples=5)}
+
+
 def flash_prefill_entry(fa, gen, checks: list) -> dict:
     """The flash kernel at Qwen2-7B's prefill shape: held to its plain
     version at batch 1, batch 8 held to batch 1 bit for bit on the
@@ -887,19 +940,14 @@ def flash_prefill_entry(fa, gen, checks: list) -> dict:
     lib_err = float((run_library()[:1].reshape(q1.shape).float()
                      - want.float()).abs().max())
     del o, o1, want
-    plain_a = time_ms(run_plain, inner=1, samples=3)
-    kern_a = time_ms(run_kernel, inner=2, samples=5)
-    kern_b = time_ms(run_kernel, inner=2, samples=5)
-    plain_b = time_ms(run_plain, inner=1, samples=3)
-    library = time_ms(run_library, inner=2, samples=5)
+    times = time_in_turns(run_kernel, run_plain, run_library)
     bound_ms, bound_by, nbytes, flops = flash_bound(
         B, Hq, Hkv, Sq, Skv, D, causal, window, q.element_size())
     return {
         "shape": list(shape), "dtype": str(torch.bfloat16),
         "launches": None,                 # filled in by decode_serve
-        "max_abs_err": err,
-        "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
+        "max_abs_err": err, **times,
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_call": "F.scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True)",
         "library_max_abs_err_vs_plain": lib_err,
@@ -1902,18 +1950,18 @@ def one_machine(params, cfg, tokens):
     return tr.unembed(params, hidden[:, -1:], cfg)
 
 
-def phase_model_decode(phase: str, cfg, params, prompts) -> None:
+def phase_model_decode(phase: str, cfg, params, prompts, **extra) -> None:
     """Request 0 of a layer-split model: its prompt prefilled into a cache
     of ``LM_SEQ + LM_DECODE_STEPS`` rows, then as many teacher-forced
     steps, in bf16 and in fp32, and the last MODEL_PROFILE_STEPS bf16
     steps once more under ``torch.profiler`` (each cache row rewritten;
     a recurrent state steps on).  The fp32 decode is held to the fp32
     one-machine forward over the same tokens; the bf16 distances are
-    reported."""
+    reported; ``extra`` fields join the phase's line."""
     from repro_torch.serving.profile_split import profile_decode
-    extra = np.random.default_rng(SEED + 1).integers(
+    steps = np.random.default_rng(SEED + 1).integers(
         0, cfg.vocab_size, (1, LM_DECODE_STEPS)).astype(np.int32)
-    tokens = torch.from_numpy(np.concatenate([prompts[:1], extra],
+    tokens = torch.from_numpy(np.concatenate([prompts[:1], steps],
                                              axis=1)).cuda()
     logits, cache, record = prefill_decode(params, cfg, tokens, LM_SEQ,
                                            LM_DECODE_STEPS)
@@ -1949,7 +1997,8 @@ def phase_model_decode(phase: str, cfg, params, prompts) -> None:
          limit_fp32_rel_l2=DECODE_FP32_REL_L2,
          bf16_decode_vs_forward_rel_l2=_rel_l2(logits, want, V),
          bf16_decode_vs_fp32_forward_rel_l2=_rel_l2(logits, want32, V),
-         bf16_forward_vs_fp32_forward_rel_l2=_rel_l2(want, want32, V))
+         bf16_forward_vs_fp32_forward_rel_l2=_rel_l2(want, want32, V),
+         **extra)
     if not held <= DECODE_FP32_REL_L2:
         raise RuntimeError(f"{phase}: fp32 decode against the fp32 forward: "
                            f"relative L2 error of the logits {held} > "
@@ -2077,6 +2126,317 @@ def phase_decode_profile(cfg, params, tokens, cache) -> None:
     out["decode_attention_share"] = (
         out["by_class"].get("decode_attention", 0.0) / out["device_seconds"])
     emit("decode_profile", **out)
+
+
+class record_routing:
+    """Within the block, every ``apply_moe`` call first records what its
+    router does with the layer's input: ``moe.routing_stats`` (host
+    values), or with ``detail`` each token's routing (see
+    ``routing_of``)."""
+
+    def __init__(self, detail: bool = False):
+        self.detail = detail
+        self.layers = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._apply = moe, moe.apply_moe
+
+        def apply(p, x, cfg, ctx=moe.LOCAL_CTX):
+            self.layers.append(routing_of(p, x, cfg) if self.detail
+                               else moe.routing_stats(p, x, cfg))
+            return self._apply(p, x, cfg, ctx)
+        moe.apply_moe = apply
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.apply_moe = self._apply
+        return False
+
+
+def routing_of(p, x, cfg) -> dict:
+    """Each token's routing at ``cfg``'s capacity as an (E,) code (0: not
+    routed there, 1: routed and kept, 2: routed and dropped), and the gap
+    between its k-th and (k+1)-th router probability."""
+    from repro_torch.models import moe
+    m = cfg.moe
+    x2d = x.reshape(-1, x.shape[-1])
+    T = x2d.shape[0]
+    _, ids, _ = moe._route(x2d, p["router"], m.top_k)
+    cap = moe._capacity(T, m.top_k, m.num_experts, m.capacity_factor)
+    _, keep, _ = moe._slots(ids, cap, 0, m.num_experts)
+    code = torch.zeros((T, m.num_experts), dtype=torch.int8,
+                       device=x.device)
+    code.scatter_(1, ids, 2 - keep.view(T, -1).to(torch.int8))
+    probs = torch.softmax(x2d.float() @ p["router"], dim=-1)
+    top = torch.topk(probs, m.top_k + 1, dim=-1).values
+    return {"code": code, "gap": top[:, -2] - top[:, -1], "capacity": cap}
+
+
+def moe_layer_check(cfg, params, tokens) -> list:
+    """Groups [0, MOE_FP32_GROUPS) in fp32 on request 0's first
+    MOE_FP32_SEQ tokens, each layer run through the flash kernel and
+    through its plain version on the same input (the plain run's output
+    of the layer before).  Routing flips (the set of experts differs) are
+    counted and allowed only below MOE_FLIP_GAP; tokens whose routing
+    differs only in what the capacity dropped (a flip earlier in an
+    expert's queue) are counted too; the other tokens' outputs are held
+    to MOE_LAYER_REL_L2."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    kernels = ops.kernel_registry()
+    toks = tokens[:1, :MOE_FP32_SEQ]
+    x = tr.embed_inputs(params, {"tokens": toks}, cfg).float()
+    pos = torch.arange(MOE_FP32_SEQ, device=x.device)
+    layers = []
+    for g in range(MOE_FP32_GROUPS):
+        p32 = _tree_map(lambda t: t[g].float(), params["blocks"]["b0"])
+        runs = {}
+        for name, plain in (("kernel", ()), ("plain", ("flash_attention",))):
+            counts = launch_counts()
+            with record_routing(detail=True) as rec, plain_versions(*plain):
+                y, _, _ = tr.apply_block_seq("attn", p32, x, cfg,
+                                             moe.LOCAL_CTX, positions=pos,
+                                             kernels=kernels)
+            launched = launches_since(counts)["flash_attention"]
+            if launched != (0 if plain else 1):
+                raise RuntimeError(f"layer {g}, {name} run: flash launched "
+                                   f"{launched} times")
+            runs[name] = (y[0], rec.layers[0])
+        (yk, rk), (yp, rp) = runs["kernel"], runs["plain"]
+        flip = ((rk["code"] > 0) != (rp["code"] > 0)).any(-1)
+        knock_on = ~flip & (rk["code"] != rp["code"]).any(-1)
+        agree = ~flip & ~knock_on
+        gaps = rp["gap"][flip]
+        worst = float(gaps.max()) if gaps.numel() else None
+        diff = yk[agree] - yp[agree]
+        rel = float(diff.norm() / yp[agree].norm())
+        layers.append({
+            "group": g, "tokens": MOE_FP32_SEQ, "capacity": rp["capacity"],
+            "routing_flips": int(flip.sum()), "knock_on": int(knock_on.sum()),
+            "agreed": int(agree.sum()), "max_flip_gap": worst,
+            "drop_share_plain": float((rp["code"] == 2).sum()
+                                      / (rp["code"] > 0).sum()),
+            "rel_l2_agreed": rel,
+            "max_abs_err_agreed": float(diff.abs().max())})
+        if worst is not None and worst >= MOE_FLIP_GAP:
+            raise RuntimeError(f"layer {g}: a token routed to other experts "
+                               f"through the kernel where the plain run's "
+                               f"k-th probability leads by {worst} >= "
+                               f"{MOE_FLIP_GAP}")
+        if not rel <= MOE_LAYER_REL_L2:
+            raise RuntimeError(f"layer {g}: fp32 kernels vs plain versions "
+                               f"on the tokens whose routing agreed: "
+                               f"relative L2 {rel} > {MOE_LAYER_REL_L2}")
+        x = yp[None]
+    return layers
+
+
+def flash_mha_entry(cfg, gen) -> dict:
+    """The flash kernel at OLMoE-1B-7B's prefill layout (MHA: 16 heads of
+    128 on 16 kv heads, 4 x 4096 tokens, causal), bf16: held to its plain
+    version, then timed beside it and SDPA, with its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, D = LM_BATCH, LM_SEQ, cfg.num_heads, cfg.resolved_head_dim()
+
+    def n():
+        return torch.randn((B * H, S, D), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    q, k, v = n(), n(), n()
+
+    def run_kernel():
+        return fa.flash_attention(q, k, v, causal=True, window=0)
+
+    def run_plain():
+        return fa.flash_attention_ref(q, k, v, causal=True, window=0)
+
+    def run_library():
+        # a yardstick only: the port never calls it
+        return F.scaled_dot_product_attention(
+            q.view(B, H, S, D), k.view(B, H, S, D), v.view(B, H, S, D),
+            is_causal=True)
+    o, want = run_kernel(), run_plain()
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    err = float((o.float() - want.float()).abs().max())
+    if not _within(o, want, atol, rtol) or not bool(torch.isfinite(o).all()):
+        raise RuntimeError(f"flash_attention at the MHA layout disagrees with "
+                           f"its plain version: max|d|={err}")
+    lib_err = float((run_library().reshape(o.shape).float()
+                     - want.float()).abs().max())
+    del o, want
+    times = time_in_turns(run_kernel, run_plain, run_library)
+    bound_ms, bound_by, _, _ = flash_bound(B, H, H, S, S, D, True, 0,
+                                          q.element_size())
+    return {"shape": [B, S, S, H, H, D, True, 0], "dtype": "bfloat16",
+            "max_abs_err": err, "atol": atol, "rtol": rtol, **times,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_call": "F.scaled_dot_product_attention(is_causal=True)",
+            "library_max_abs_err_vs_plain": lib_err,
+            "timed": "one OLMoE-1B-7B prefill attention layer at batch 4, "
+                     "bf16; kernel and SDPA median of 5 x 2 calls, plain "
+                     "version of 3 x 1; best of 2"}
+
+
+def phase_moe_serve():
+    """OLMoE-1B-7B at full width through the layer split: see the
+    module's docstring."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    mha = flash_mha_entry(get_config(MOE_ARCH),
+                          torch.Generator(device="cuda").manual_seed(SEED))
+    cfg, params, info = init_full_width(MOE_ARCH, MOE_PARAMETERS,
+                                        MOE_PARAMETER_BYTES)
+    G = cfg.num_groups()
+    if (cfg.block_pattern != ("attn",) or cfg.tail_pattern()
+            or cfg.num_heads != cfg.num_kv_heads):
+        raise RuntimeError(f"{MOE_ARCH}: expected {G} MHA attention layers, "
+                           "no tail")
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)).astype(np.int32)
+    plan = ((MOE_SPLIT, tokens), (0, tokens[:1]), (G, tokens[:1]))
+    cloud, device, logits, record = serve_plan(cfg, params, plan)
+    flash = record["launches"]["flash_attention"]
+    if not flash or flash != G * record["whole_forwards"]:
+        raise RuntimeError(f"layer-split path launched {record['launches']}, "
+                           f"not one flash launch an attention layer")
+
+    # one machine, same batches, same kernels: the served batch (whose
+    # 16384 tokens set the capacity of the g = 8 split) with the router's
+    # choices recorded layer by layer, and request 0 alone (the g = 0 and
+    # g = G splits)
+    kernels = ops.kernel_registry()
+    batch = torch.from_numpy(tokens).cuda()
+    counts = launch_counts()
+    with record_routing() as rec:
+        hidden, aux, _ = tr.forward_hidden(params, {"tokens": batch}, cfg,
+                                           kernels=kernels)
+    want = tr.unembed(params, hidden[:, -1:], cfg)
+    hidden, _, _ = tr.forward_hidden(params, {"tokens": batch[:1]}, cfg,
+                                     kernels=kernels)
+    want0 = tr.unembed(params, hidden[:, -1:], cfg)
+    del hidden
+    torch.cuda.synchronize()
+    if launches_since(counts)["flash_attention"] != 2 * G:
+        raise RuntimeError(f"one-machine forwards launched "
+                           f"{launches_since(counts)}")
+    for split in record["splits"]:
+        g = split["group"]
+        target = want if g == MOE_SPLIT else want0
+        err = float((logits[g].float() - target.float()).abs().max())
+        split.update(logit_max_abs_err=err, compared_with=(
+            f"forward_hidden + unembed of the same {split['batch']} "
+            "request(s)"))
+        if not bool(torch.isfinite(logits[g]).all()):
+            raise RuntimeError(f"g={g}: non-finite logits")
+        if not _within(logits[g], target, LM_SPLIT_ATOL, LM_SPLIT_RTOL):
+            raise RuntimeError(f"g={g}: split logits differ from the "
+                               f"one-machine forward by {err}")
+    aux_sums = {"load_balance": float(aux[0]), "router_z": float(aux[1])}
+    for i, name in enumerate(aux_sums):
+        layer_sum = sum(lay[name] for lay in rec.layers)
+        if not math.isclose(layer_sum, aux_sums[name], rel_tol=1e-4):
+            raise RuntimeError(f"aux {name}: forward_hidden summed "
+                               f"{aux_sums[name]}, the layers {layer_sum}")
+    routing = [{k: lay[k] for k in ("capacity", "drop_share",
+                                    "max_load_over_mean")}
+               for lay in rec.layers]
+    dropped = sum(lay["dropped"] for lay in rec.layers)
+    choices = sum(lay["choices"] for lay in rec.layers)
+
+    # one more g = MOE_SPLIT round through the warm engines, traced; the
+    # moe scopes of models/moe.py split the MoE layers' device time
+    prof = profile_split(cloud, device, tokens, MOE_SPLIT)
+    scope = prof["by_scope"]
+    attention = prof["by_class"].get("flash_attention", 0.0)
+    prof["classes"] = {
+        "moe_dispatch_and_gather": scope["moe_dispatch"],
+        "moe_expert_products": scope["moe_experts"],
+        "attention_kernels": attention,
+        "rest": prof["device_seconds"] - scope["moe_dispatch"]
+        - scope["moe_experts"] - attention}
+    if not (scope["moe_dispatch"] > 0 and scope["moe_experts"] > 0):
+        raise RuntimeError(f"the trace shows no device time in the moe "
+                           f"scopes: {scope}")
+    del cloud, device
+    layer_check = moe_layer_check(cfg, params, batch)
+    torch.cuda.empty_cache()
+    emit("moe_serve", **info, batch=LM_BATCH, seq=LM_SEQ, groups=G,
+         heads=[cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()],
+         experts=[cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff],
+         capacity_factor=cfg.moe.capacity_factor, **record,
+         aux_sums=aux_sums, routing_per_layer=routing,
+         drop_share=dropped / choices, flash_mha=mha, profile=prof,
+         fp32_layer_check=layer_check, limit_flip_gap=MOE_FLIP_GAP,
+         limit_layer_rel_l2=MOE_LAYER_REL_L2)
+    return cfg, params, tokens
+
+
+def phase_moe_decode(cfg, params, prompts) -> None:
+    """The served batch's 4 prompts prefilled through flash and decoded
+    MOE_DECODE_STEPS teacher-forced steps through decode attention at the
+    published capacity factor (timed; then decoded again through the same
+    cache with the routing recorded: the drops at 4 tokens a step); the
+    decode kernel held to its plain version on that cache and timed; then
+    request 0 at capacity factor MOE_CHECK_FACTOR through
+    ``phase_model_decode`` (bf16 and fp32 decode against the one-machine
+    forward at the same factor), which prints the line."""
+    from repro_torch.kernels import decode_attention as dec
+    extra = np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (LM_BATCH, MOE_DECODE_STEPS)).astype(np.int32)
+    tokens = torch.from_numpy(np.concatenate([prompts, extra],
+                                             axis=1)).cuda()
+    rows = LM_SEQ + MOE_DECODE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache, record = prefill_decode(params, cfg, tokens, LM_SEQ,
+                                           MOE_DECODE_STEPS)
+    record["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise RuntimeError("non-finite decode logits")
+    hd = cfg.resolved_head_dim()
+    record["cache_bytes"] = _nbytes(cache)
+    want_bytes = 2 * cfg.num_layers * LM_BATCH * rows * cfg.num_kv_heads \
+        * hd * 2
+    if record["cache_bytes"] != want_bytes:
+        raise RuntimeError(f"the cache holds {record['cache_bytes']} B, "
+                           f"expected {want_bytes} B")
+    with record_routing() as rec:
+        decode_steps(params, cfg, tokens, cache, LM_SEQ, MOE_DECODE_STEPS)
+    dropped = sum(lay["dropped"] for lay in rec.layers)
+    choices = sum(lay["choices"] for lay in rec.layers)
+    record["routing"] = {
+        "capacity": sorted({lay["capacity"] for lay in rec.layers}),
+        "choices": choices, "dropped": dropped,
+        "drop_share": dropped / choices,
+        "max_load_over_mean_median": statistics.median(
+            lay["max_load_over_mean"] for lay in rec.layers)}
+
+    # the decode kernel at this layout (MHA) on layer 0's cache, every
+    # sequence at its last step's length
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k, v = cache["groups"]["b0"]["k"][0], cache["groups"]["b0"]["v"][0]
+    q = torch.randn((LM_BATCH, cfg.num_heads, hd), generator=gen,
+                    device="cuda").bfloat16()
+    lens = torch.full((LM_BATCH,), rows, dtype=torch.int32, device="cuda")
+    got = dec.decode_attention(q, k, v, lens)
+    want = dec.decode_attention_ref(q, k, v, lens)
+    atol, rtol = DECODE_TOL[torch.bfloat16]
+    err = float((got.float() - want.float()).abs().max())
+    if not _within(got, want, atol, rtol):
+        raise RuntimeError(f"decode_attention at the MHA layout disagrees "
+                           f"with its plain version: max|d|={err}")
+    kernel = {"shape": [LM_BATCH, rows, cfg.num_heads, cfg.num_kv_heads, hd],
+              "dtype": "bfloat16", "max_abs_err": err, "atol": atol,
+              "rtol": rtol, **time_decode(q, k, v, lens)}
+    del cache, k, v
+    torch.cuda.empty_cache()
+    cfg16 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_CHECK_FACTOR))
+    phase_model_decode("moe_decode", cfg16, params, prompts,
+                       served=record, decode_attention_mha=kernel,
+                       check_capacity_factor=MOE_CHECK_FACTOR)
 
 
 def phase_replay(params, cfg) -> None:
@@ -2343,6 +2703,9 @@ def main() -> int:
         phase_decode_profile(*phase_decode_serve(
             decode_entry, lm_entries["flash_attention"]))
         gc.collect()                 # Qwen2-7B's 15 GB of weights
+        torch.cuda.empty_cache()
+        phase_moe_decode(*phase_moe_serve())
+        gc.collect()                 # OLMoE-1B-7B's 13.8 GB of weights
         torch.cuda.empty_cache()
         phase_regnet()
     emit("total", seconds=time.perf_counter() - t_start)

@@ -1,16 +1,36 @@
-"""Mixture-of-Experts: the sharding context the model code takes.
+"""Mixture-of-Experts layer: top-k token-choice routing, capacity dispatch.
 
-Counterpart of ``repro/models/moe.py``, so far only ``ShardCtx`` and
-``LOCAL_CTX``, which ``transformer.py`` takes in its signatures.  The
-port runs single-device (``mesh=None``); expert routing and dispatch are
-still to be ported (ROADMAP A5), and the MoE entry points say so.
+Counterpart of ``repro/models/moe.py`` on one device (``LOCAL_CTX``, or
+any ``ShardCtx`` without a mesh): the router, the capacity dispatch, the
+experts' FFNs and the combine are ported.  The reference's two sharded
+modes over a mesh, ``tp`` (each expert's ``d_ff`` sliced over the model
+axis) and ``ep`` (experts sliced over it), wait for ROADMAP A10, which
+ports them on ``torch.distributed``; ``apply_moe`` raises on a mesh.
+
+Dispatch uses the capacity trick: scatter into an (E, C+1, d) buffer where
+row C is the overflow sink for capacity-dropped tokens, then slice it off.
+The reference has no Pallas kernel here (its dispatch is jnp code under
+``named_scope("moe_dispatch")``), so neither has the port: the dispatch is
+PyTorch indexing and the experts three batched products.  The two
+``record_function`` scopes, ``moe_dispatch`` around the whole layer and
+``moe_experts`` around the products, let a profiler trace tell the
+dispatch and gather from the experts' GEMMs.
+
+Top-k follows ``jax.lax.top_k``: among equal probabilities the lower
+expert id comes first (a stable descending sort, not ``torch.topk``,
+which promises no order among ties).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
 from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.models.common import dense_init, pdtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,14 +49,151 @@ class ShardCtx:
 
 LOCAL_CTX = ShardCtx(mesh=None, data_axes=(), model_axis=None)
 
-_NOT_PORTED = ("Mixture-of-Experts layers are not ported yet "
-               "(ROADMAP A5: MoE comes after SSD and decode)")
-
 
 def init_moe(generator, cfg, device: DeviceLike = None):
-    resolve_device(device)           # no GPU and no device: that first
-    raise NotImplementedError(_NOT_PORTED)
+    """Router (d, E) fp32; w_gate/w_up (E, d, f) for swiglu, else w_in;
+    w_down (E, f, d); the experts in the parameter dtype."""
+    device = resolve_device(device)
+    m = cfg.moe
+    dt = pdtype(cfg)
+    d, f, E = cfg.d_model, m.d_ff, m.num_experts
+    p = {"router": dense_init(generator, (d, E), torch.float32,
+                              device=device)}
+    if cfg.activation == "swiglu":
+        p["w_gate"] = dense_init(generator, (E, d, f), dt, fan_in=d,
+                                 device=device)
+        p["w_up"] = dense_init(generator, (E, d, f), dt, fan_in=d,
+                               device=device)
+    else:
+        p["w_in"] = dense_init(generator, (E, d, f), dt, fan_in=d,
+                               device=device)
+    p["w_down"] = dense_init(generator, (E, f, d), dt, fan_in=f,
+                             device=device)
+    return p
+
+
+def _activation(h, kind):
+    hf = h.float()
+    if kind == "relu2":
+        return F.relu(hf).square().to(h.dtype)
+    return F.gelu(hf, approximate="tanh").to(h.dtype)
+
+
+def _expert_ffn(p, buf, activation):
+    """buf: (E, C, d) -> (E, C, d) through each expert's FFN."""
+    if "w_gate" in p:
+        g = torch.bmm(buf, p["w_gate"])
+        u = torch.bmm(buf, p["w_up"])
+        h = F.silu(g.float()).to(buf.dtype) * u
+    else:
+        h = _activation(torch.bmm(buf, p["w_in"]), activation)
+    return torch.bmm(h, p["w_down"])
+
+
+def _route(x2d, router_w, top_k):
+    """x2d (T, d) -> gates (T,k) fp32, ids (T,k) int64, aux losses."""
+    logits = x2d.float() @ router_w
+    probs = torch.softmax(logits, dim=-1)
+    # the k largest, lower id first among equals (as jax.lax.top_k)
+    gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, ids = gates[:, :top_k], ids[:, :top_k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # switch-style load-balance loss + router z-loss
+    E = router_w.shape[-1]
+    frac_prob = probs.mean(dim=0)                                    # (E,)
+    frac_tok = F.one_hot(ids[:, 0], E).float().mean(dim=0)
+    aux = {
+        "load_balance": E * torch.sum(frac_prob * frac_tok),
+        "router_z": torch.logsumexp(logits, dim=-1).square().mean(),
+    }
+    return gates, ids, aux
+
+
+def _slots(ids, capacity, expert_offset, n_local):
+    """Each (token, choice)'s expert and row in its queue, in the flat
+    token-major order of ``ids.reshape(-1)``.  Returns (flat expert ids
+    clipped to the local range, keep mask, slot), the slot being the
+    running count of earlier choices of that expert, or ``capacity`` (the
+    overflow row) where the choice is dropped or not local."""
+    flat_ids = ids.reshape(-1) - expert_offset                       # (T*k,)
+    local = (flat_ids >= 0) & (flat_ids < n_local)
+    flat_ids_c = flat_ids.clamp(0, n_local - 1)
+    # the reference's (T*k, E) one-hot, laid out expert-major so that the
+    # running count scans the contiguous axis: on CUDA a scan down the
+    # token axis runs one thread an expert (51 ms a layer at 4 x 4096
+    # tokens on an H100, PERF.md)
+    oh = torch.zeros((n_local, flat_ids.numel()), dtype=torch.int32,
+                     device=ids.device)
+    oh.scatter_(0, flat_ids_c[None], local[None].to(torch.int32))
+    pos = torch.gather(torch.cumsum(oh, dim=1, dtype=torch.int32) - 1, 0,
+                       flat_ids_c[None])[0].long()
+    keep = local & (pos >= 0) & (pos < capacity)
+    slot = torch.where(keep, pos, torch.full_like(pos, capacity))
+    return flat_ids_c, keep, slot
+
+
+def _dispatch_compute_combine(p, x2d, gates, ids, capacity, activation,
+                              expert_offset=0, n_local_experts=None):
+    """Scatter tokens to (E_local, C(+1 overflow), d), run FFNs, gather back.
+
+    expert_offset / n_local_experts implement the EP mode: choices routed to
+    experts outside [offset, offset+n_local) are sent to the overflow row.
+    """
+    T, d = x2d.shape
+    k = ids.shape[1]
+    n_local = n_local_experts or p["w_down"].shape[0]
+    flat_ids_c, keep, slot = _slots(ids, capacity, expert_offset, n_local)
+    x_rep = torch.repeat_interleave(x2d, k, dim=0)                   # (T*k, d)
+    buf = x2d.new_zeros((n_local, capacity + 1, d))
+    # Rows [0, C) get one choice each (a slot is a running count within
+    # its expert); every dropped choice writes the overflow row C, so
+    # which of them lands there is unspecified on CUDA -- harmless, the
+    # row is sliced off before the experts run
+    buf[flat_ids_c, slot] = x_rep
+    with record_function("moe_experts"):
+        out_buf = _expert_ffn(p, buf[:, :capacity], activation)     # (E, C, d)
+    out_buf = F.pad(out_buf, (0, 0, 0, 1))                          # overflow row -> 0
+    y_rep = out_buf[flat_ids_c, slot]                                # (T*k, d)
+    y_rep = y_rep * keep[:, None].to(y_rep.dtype)
+    w = gates.reshape(-1).to(y_rep.dtype)
+    return (y_rep * w[:, None]).reshape(T, k, d).sum(dim=1)
+
+
+def _capacity(n_tokens: int, top_k: int, n_experts: int, factor: float) -> int:
+    return max(1, int(n_tokens * top_k / n_experts * factor + 0.999))
 
 
 def apply_moe(p, x, cfg, ctx: ShardCtx = LOCAL_CTX):
-    raise NotImplementedError(_NOT_PORTED)
+    """x: (B, S, d) -> (y (B,S,d), aux dict of scalars)."""
+    if ctx.mesh is not None:
+        raise NotImplementedError(
+            "sharded Mixture-of-Experts (tp / ep over a mesh) is not ported "
+            "yet (ROADMAP A10)")
+    m = cfg.moe
+    B, S, d = x.shape
+    x2d = x.reshape(B * S, d)
+    with record_function("moe_dispatch"):
+        gates, ids, aux = _route(x2d, p["router"], m.top_k)
+        cap = _capacity(B * S, m.top_k, m.num_experts, m.capacity_factor)
+        y = _dispatch_compute_combine(p, x2d, gates, ids, cap, cfg.activation)
+    return y.reshape(B, S, d), aux
+
+
+def routing_stats(p, x, cfg) -> dict:
+    """What ``apply_moe`` does with the tokens of ``x`` (B, S, d) at
+    ``cfg``'s capacity: the capacity, the share of (token, choice) pairs
+    dropped, the largest expert's load (choices routed to it, kept or
+    not) over the mean load, and the two aux losses.  Reads the values
+    back to the host."""
+    m = cfg.moe
+    x2d = x.reshape(-1, x.shape[-1])
+    _, ids, aux = _route(x2d, p["router"], m.top_k)
+    cap = _capacity(x2d.shape[0], m.top_k, m.num_experts, m.capacity_factor)
+    _, keep, _ = _slots(ids, cap, 0, m.num_experts)
+    load = torch.bincount(ids.reshape(-1), minlength=m.num_experts).float()
+    return {"capacity": cap, "choices": int(keep.numel()),
+            "dropped": int((~keep).sum()),
+            "drop_share": float((~keep).float().mean()),
+            "max_load_over_mean": float(load.max() / load.mean()),
+            "load_balance": float(aux["load_balance"]),
+            "router_z": float(aux["router_z"])}

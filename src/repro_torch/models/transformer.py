@@ -23,7 +23,8 @@ tensor, its plain version on a CPU tensor.  The cache is updated in
 place (see ``models/attention.py``).
 
 Ported so far: attention (self-attention), RG-LRU and SSD (Mamba-2)
-blocks, dense MLPs, decode over all three.  MoE, encoder-decoder and
+blocks, dense MLPs and Mixture-of-Experts FFNs (``models/moe.py``, on
+one device), decode over all of them.  The encoder-decoder and the
 modality frontends raise ``NotImplementedError`` (ROADMAP A5).
 """
 from __future__ import annotations

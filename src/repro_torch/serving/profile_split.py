@@ -9,11 +9,14 @@ already served it once (so nothing is warmed inside the trace) under
 time of each class of kernel (the flash-attention, decode-attention,
 RG-LRU and SSD kernels, GEMMs, copies, the rest), the ten largest
 kernels, the wrappers' calls and the CUDA kernels those enqueued, and
-the device's idle share over the round.  ``profile_decode`` does the
+the device time launched inside each ``record_function`` scope of
+``SCOPES`` (the MoE layers' dispatch and experts), and the device's
+idle share over the round.  ``profile_decode`` does the
 same for decode steps through a warm cache.  Both raise if the trace
 holds another number of the hand kernels than the wrappers enqueued.
 ``chip_smoke.py`` runs them in its ``lm_serve``, ``mamba_serve``,
-``lm_decode``, ``mamba_decode`` and ``decode_profile`` phases; on the CPU
+``moe_serve``, ``lm_decode``, ``mamba_decode``, ``moe_decode`` and
+``decode_profile`` phases; on the CPU
 there are no device kernels and the device fields are null.
 """
 from __future__ import annotations
@@ -41,6 +44,12 @@ KERNEL_CLASSES = (
     ("ssd_scan", ("ssd_",)),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
+
+
+#: the ``record_function`` scopes of the model code whose device time a
+#: trace reports (``models/moe.py``); a kernel counts for the innermost
+#: scope its launch lies in
+SCOPES = ("moe_dispatch", "moe_experts")
 
 
 #: the hand kernels' wrappers, by class
@@ -87,6 +96,30 @@ def _busy_us(spans: List[Tuple[float, float]]) -> float:
     return busy
 
 
+def time_by_scope(events: List[dict], device: List[dict]) -> Dict:
+    """Device seconds of the ``device`` events (kernels, copies) whose
+    launch on the host (the runtime or driver call of the same
+    correlation id) lies inside a ``SCOPES`` span of the same thread; the
+    innermost span takes it."""
+    spans = [(e["ts"], e["ts"] + e["dur"], e.get("tid"), e["name"])
+             for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation" and e["name"] in SCOPES]
+    launched = {e["args"]["correlation"]: (e["ts"], e.get("tid"))
+                for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = dict.fromkeys(SCOPES, 0.0)
+    for e in device:
+        at = launched.get(e.get("args", {}).get("correlation"))
+        if at is None:
+            continue
+        inside = [s for s in spans if s[2] == at[1] and s[0] <= at[0] <= s[1]]
+        if inside:
+            name = min(inside, key=lambda s: s[1] - s[0])[3]
+            out[name] += e["dur"] * 1e-6
+    return out
+
+
 def summarize_trace(events: List[dict], wall_s: float) -> Dict:
     """Device time by kernel class from Chrome-trace events (microseconds),
     and the share of ``wall_s`` in which no kernel or copy ran.  Raises if
@@ -94,8 +127,8 @@ def summarize_trace(events: List[dict], wall_s: float) -> Dict:
     device = [e for e in events if e.get("ph") == "X" and e.get("cat") in
               ("kernel", "gpu_memcpy", "gpu_memset")]
     if not device:
-        return {"device_seconds": None, "by_class": None, "top": None,
-                "kernels_in_trace": None, "idle_share": None}
+        return {"device_seconds": None, "by_class": None, "by_scope": None,
+                "top": None, "kernels_in_trace": None, "idle_share": None}
     by_class: Dict[str, float] = {}
     per_name: Dict[str, List[float]] = {}
     counts: Dict[str, int] = {}
@@ -113,6 +146,7 @@ def summarize_trace(events: List[dict], wall_s: float) -> Dict:
         "device_seconds": sum(by_class.values()),
         "busy_seconds": busy,
         "by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+        "by_scope": time_by_scope(events, device),
         "kernels_in_trace": counts,
         "top": [{"name": n[:120], "calls": len(d), "seconds": sum(d)}
                 for n, d in top],

@@ -3,8 +3,8 @@
 ``models/transformer.py`` against the reference's, on reduced Qwen2-7B
 (dense GQA, also with two kv heads), h2o-danube-1.8b (sliding window:
 ring cache, and a linear cache past the window), RecurrentGemma-9B (RG-LRU
-state, tail layers, window) and Mamba-2-780M (SSD state), and an int8
-cache.  Parameters are initialised in JAX and converted; tokens come from
+state, tail layers, window), Mamba-2-780M (SSD state), SmolLM-135M (tied
+head) and Nemotron-4-15B (squared ReLU, layernorm), and an int8 cache.  Parameters are initialised in JAX and converted; tokens come from
 numpy.  The reference's ``decode_step`` is jitted (position traced) so
 that the ring test's 36 steps compile once.
 
@@ -43,13 +43,16 @@ MODELS = {
     "h2o-danube-1.8b": {},
     "recurrentgemma-9b": {},
     "mamba2-780m": {},
+    "smollm-135m": {},
+    "nemotron-4-15b": {},
 }
 # (prompt length, cache length after pad_to, decode steps): the SWA
 # models' prompts pass their window of 32, so decode reads a window inside
 # a longer linear cache; Mamba-2's prompt is a whole number of its chunks
 PLAN = {"qwen2-7b": (16, 24, 4), "qwen2-7b-kv2": (16, 24, 4),
         "h2o-danube-1.8b": (40, 48, 4), "recurrentgemma-9b": (40, 48, 4),
-        "mamba2-780m": (32, 0, 3)}
+        "mamba2-780m": (32, 0, 3), "smollm-135m": (16, 24, 4),
+        "nemotron-4-15b": (16, 24, 4)}
 
 
 def _arch(name):
@@ -309,8 +312,8 @@ def test_state_initialisers_default_to_the_gpu(monkeypatch):
 def _initialisers():
     """Every public initialiser below the ``init_params``, as a call
     that takes the ``device`` keyword or nothing."""
-    qwen, rg, mamba = (reduced_config(a) for a in (
-        "qwen2-7b", "recurrentgemma-9b", "mamba2-780m"))
+    qwen, rg, mamba, olmoe = (reduced_config(a) for a in (
+        "qwen2-7b", "recurrentgemma-9b", "mamba2-780m", "olmoe-1b-7b"))
     sd = stable_diffusion_v1.reduced()
 
     def gen():
@@ -328,7 +331,7 @@ def _initialisers():
             gen(), rg, **kw),
         "ssd.init_ssd_block": lambda **kw: ssd.init_ssd_block(gen(), mamba,
                                                               **kw),
-        "moe.init_moe": lambda **kw: moe.init_moe(gen(), qwen, **kw),
+        "moe.init_moe": lambda **kw: moe.init_moe(gen(), olmoe, **kw),
         "transformer.init_attn_block": lambda **kw: tr.init_attn_block(
             gen(), qwen, **kw),
         "transformer.init_block": lambda **kw: tr.init_block(
@@ -364,10 +367,6 @@ def test_initialisers_default_to_the_gpu(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device is required"):
         call()
-    if name == "moe.init_moe":
-        with pytest.raises(NotImplementedError):   # not ported yet (A5)
-            call(device="cpu")
-        return
     out = call(device="cpu")
     leaves = [out] if isinstance(out, torch.Tensor) else _leaves(out)
     assert leaves and all(t.device.type == "cpu" for t in leaves)

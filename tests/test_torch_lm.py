@@ -1,8 +1,10 @@
 """Port parity, the layer-split LM path as a whole: norms, RoPE, MLPs,
 ``forward_hidden``, ``run_layer_range`` and the layer-split engines of
 the port against the reference's, on reduced RecurrentGemma-9B (pattern
-rec, rec, attn: both kernels' blocks) and reduced Qwen2-7B (dense GQA
-with QKV bias and a padded vocabulary).  Parameters are initialised in
+rec, rec, attn: both kernels' blocks), reduced Qwen2-7B (dense GQA
+with QKV bias and a padded vocabulary), reduced SmolLM-135M (the head
+tied to the embedding) and reduced Nemotron-4-15B (squared ReLU,
+layernorm).  Parameters are initialised in
 JAX and converted; tokens come from numpy.
 
 Tolerances.  fp32 (the tree and the config cast to fp32): 5e-5 on the
@@ -39,7 +41,7 @@ from repro_torch.serving import engine
 # share a machine fight over cores inside PyTorch's thread pool.
 torch.set_num_threads(1)
 
-ARCHS = ["recurrentgemma-9b", "qwen2-7b"]
+ARCHS = ["recurrentgemma-9b", "qwen2-7b", "smollm-135m", "nemotron-4-15b"]
 B, S = 2, 40
 
 
@@ -243,7 +245,15 @@ def test_run_layer_range_matches(models, arch, dtype):
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "seamless-m4t-medium"])
 def test_unported_blocks_say_so(arch):
+    """The encoder-decoder still raises; Mixture-of-Experts is ported
+    (tests/test_torch_moe.py) and initialises on the CPU."""
     cfg = reduced_config(arch)
+    if cfg.moe is not None:
+        params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        assert set(params["blocks"]["b0"]["moe"]) == {
+            "router", "w_gate", "w_up", "w_down"}
+        assert all(t.device.type == "cpu" for t in _flat(params).values())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 

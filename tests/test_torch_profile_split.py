@@ -193,3 +193,57 @@ def test_ssd_decode_steps_count_one_kernel_a_call(monkeypatch):
         _stub_ssd_kernels(monkeypatch, wrong_count=True)
         with pytest.raises(RuntimeError, match="enqueued"):
             ps.profile_decode(params, cfg, tokens, cache, 34, 2)
+
+
+def test_time_by_scope_takes_the_innermost_scope():
+    """A device event counts for the innermost ``SCOPES`` span (same host
+    thread) that holds its launch, matched by correlation id; launches
+    outside every span, or on another thread, count for none."""
+    def span(name, ts, dur, tid=1):
+        return {"ph": "X", "cat": "user_annotation", "name": name,
+                "ts": ts, "dur": dur, "tid": tid}
+
+    def launch(corr, ts, tid=1, cat="cuda_runtime"):
+        return {"ph": "X", "cat": cat, "name": "cudaLaunchKernel", "ts": ts,
+                "dur": 1.0, "tid": tid, "args": {"correlation": corr}}
+
+    def kernel(corr, dur, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": f"k{corr}", "ts": 5000.0,
+                "dur": dur, "args": {"correlation": corr}}
+    ev = [span("moe_dispatch", 0.0, 1000.0), span("moe_experts", 200.0, 300.0),
+          span("other_scope", 600.0, 100.0),
+          launch(1, 100.0), launch(2, 250.0, cat="cuda_driver"),
+          launch(3, 2000.0), launch(4, 300.0, tid=2), launch(5, 650.0),
+          kernel(1, 10.0), kernel(2, 20.0), kernel(3, 30.0),
+          kernel(4, 40.0), kernel(5, 50.0, cat="gpu_memcpy")]
+    s = ps.summarize_trace(ev, wall_s=1.0)
+    assert s["by_scope"] == pytest.approx({"moe_dispatch": 6e-5,
+                                           "moe_experts": 2e-5})
+    assert ps.SCOPES == ("moe_dispatch", "moe_experts")
+
+
+def test_moe_round_on_the_cpu_records_its_scopes(monkeypatch):
+    """Reduced OLMoE through the engines under the profiler: the trace
+    holds one ``moe_dispatch`` and one ``moe_experts`` span a layer run
+    (what ``time_by_scope`` attributes device time to on a GPU); on the
+    CPU there is no device time to attribute."""
+    cfg = reduced_config("olmoe-1b-7b")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cloud = LayerSplitEngine(params, cfg, link=WAN_LINK, device="cpu")
+    device = LayerSplitDevice(params, cfg, device="cpu")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    seen = []
+    real = ps._trace_events
+
+    def keep(prof):
+        seen.extend(real(prof))
+        return seen
+    monkeypatch.setattr(ps, "_trace_events", keep)
+    with torch.inference_mode():
+        device.complete(cloud.process({"tokens": tokens}, 1)[0], 1)
+        out = ps.profile_round(cloud, device, tokens, 1)
+    names = [e["name"] for e in seen if e.get("cat") == "user_annotation"]
+    G = cfg.num_groups()
+    assert names.count("moe_dispatch") == names.count("moe_experts") == G
+    assert out["by_scope"] is None and out["device_seconds"] is None
