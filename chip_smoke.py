@@ -59,11 +59,28 @@ drives the port's serving paths, each at full published width:
     plain version and timed on that cache, and request 0 decoded at
     capacity factor 16 in bf16 and fp32 against the one-machine forward
     at the same factor (``moe_decode``).
+  * the encoder-decoder (seamless-m4t-medium, 12 encoder and 12 decoder
+    layers, MHA: 16 heads of 64, bf16), after OLMoE's weights are freed:
+    the flash kernel held to its plain version and timed at the
+    encoder's non-causal layout (4 x 1024 frames) and at the
+    cross-attention layout (64 prompt tokens against 1024 frames), the
+    decode kernel at the cross-decode layout (one token against the
+    1024-row static cache) (phase ``encdec_kernels``); 4 requests of
+    1024 random frames of 1024 and a 64-token prompt prefilled (encoder,
+    decoder with cross-attention, ``build_enc_kv``), the encoder and the
+    prefill timed, the decoder split at group 6 of 12 through
+    ``run_layer_range(..., enc_out=...)`` held to ``forward_hidden`` to
+    the bit, the first two encoder and decoder blocks held in fp32,
+    kernels against plain versions (``encdec_serve``); the 4 requests
+    decoded 32 steps through the self-attention cache and the static
+    ``enc_kv``, the decode kernel held to its plain version on the served
+    ``enc_kv``, and request 0 decoded in bf16 and fp32 against the
+    one-machine forward, its last steps profiled (``encdec_decode``).
   * RegNet-Y-128GF, the paper's classifier (phase ``regnet``), after
-    Qwen2-7B's weights are freed: one 384 x 384 image through the forward
-    and split at each point of paper Table 1, the activation through the
-    host, held to the forward; its segments and forward timed at batch 1
-    and 8.
+    the encoder-decoder's weights are freed: one 384 x 384 image through
+    the forward and split at each point of paper Table 1, the activation
+    through the host, held to the forward; its segments and forward
+    timed at batch 1 and 8.
 
 Each phase prints one JSON line (``total``: the script's own time, the
 kernels' build included).  The line before the last two is
@@ -288,6 +305,24 @@ MOE_LAYER_REL_L2 = 5e-5
 # tests/test_models.py does: the capacity depends on the tokens in the
 # call, so at 1.25 a decode step may drop a choice the forward keeps
 MOE_CHECK_FACTOR = 16.0
+
+# The encoder-decoder (phases encdec_kernels, encdec_serve,
+# encdec_decode): full-width seamless-m4t-medium, uncut (12 encoder and
+# 12 decoder layers, MHA: 16 heads of 64; the audio frontend a stub whose
+# 1024 frames of 1024 are drawn at random), 4 requests of a 64-token
+# prompt each, the decoder split at group 6 of 12 through the
+# segmentation hook, then 32 decode steps.
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_SPLIT = 6
+ENCDEC_PROMPT, ENCDEC_DECODE_STEPS = 64, 32
+# jax.eval_shape of the reference's init_params for this config (the
+# analytic ModelConfig.param_count() says 877,092,864)
+ENCDEC_PARAMETERS = 880_930_816
+ENCDEC_PARAMETER_BYTES = 1_762_115_584
+# the first blocks of the encoder and of the decoder in fp32, layer by
+# layer, kernels against plain versions: held to the fp32 limit of the
+# earlier slices
+ENCDEC_FP32_BLOCKS = 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -1101,21 +1136,31 @@ def phase_lm_kernels() -> dict:
     return {"flash_attention": flash_entry, "rglru_scan": lru_entry}
 
 
-def _layers_run(cfg, start: int, stop: int) -> dict:
+def _layers_run(cfg, start: int, stop: int, cross: bool = False) -> dict:
     """Kernel launches one run of ``run_layer_range(start, stop)`` makes:
-    one a layer of each kind, and the tail whenever ``stop == G``."""
+    one a layer of each kind, and the tail whenever ``stop == G``; with
+    ``cross`` (an encoder's output given) two an attention layer."""
     kinds = list(cfg.block_pattern) * (stop - start)
     if stop == cfg.num_groups():
         kinds += list(cfg.tail_pattern())
-    return {"flash_attention": kinds.count("attn"), "decode_attention": 0,
-            "rglru_scan": kinds.count("rec"),
+    return {"flash_attention": kinds.count("attn") * (2 if cross else 1),
+            "decode_attention": 0, "rglru_scan": kinds.count("rec"),
             "ssd_scan": kinds.count("ssd")}
+
+
+def _prefill_launches(cfg) -> dict:
+    """Kernel launches one ``prefill`` makes: the decoder's layers, with
+    cross-attention and one flash launch an encoder layer where the
+    model has an encoder."""
+    run = _layers_run(cfg, 0, cfg.num_groups(), cross=cfg.encoder_layers > 0)
+    run["flash_attention"] += cfg.encoder_layers
+    return run
 
 
 def _decode_step_launches(cfg, steps: int) -> dict:
     """Kernel launches ``steps`` decode steps make: one a layer, decode
-    attention for each attention layer."""
-    run = _layers_run(cfg, 0, cfg.num_groups())
+    attention for each attention layer (twice with cross-attention)."""
+    run = _layers_run(cfg, 0, cfg.num_groups(), cross=cfg.encoder_layers > 0)
     return {"flash_attention": 0,
             "decode_attention": steps * run["flash_attention"],
             "rglru_scan": steps * run["rglru_scan"],
@@ -1903,16 +1948,23 @@ def decode_steps(params, cfg, tokens, cache, start: int, steps: int):
     return logits, [a.elapsed_time(b) for a, b in marks]
 
 
-def prefill_decode(params, cfg, tokens, prompt: int, steps: int):
-    """Prefill ``tokens[:, :prompt]`` into a cache of ``prompt + steps``
-    rows, then ``steps`` teacher-forced decode steps; the launch counts
-    set to 0 just before and read after each part.  Returns (last logits,
-    cache, record)."""
+def _lm_batch(tokens, frames=None) -> dict:
+    """A model's batch: the tokens, and an encoder-decoder's frames."""
+    return ({"tokens": tokens} if frames is None
+            else {"tokens": tokens, "frontend": frames})
+
+
+def prefill_decode(params, cfg, tokens, prompt: int, steps: int,
+                   frames=None):
+    """Prefill ``tokens[:, :prompt]`` (and an encoder-decoder's
+    ``frames``) into a cache of ``prompt + steps`` rows, then ``steps``
+    teacher-forced decode steps; the launch counts set to 0 just before
+    and read after each part.  Returns (last logits, cache, record)."""
     from repro_torch.models import transformer as tr
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, cache = tr.prefill(params, {"tokens": tokens[:, :prompt]}, cfg,
+    _, cache = tr.prefill(params, _lm_batch(tokens[:, :prompt], frames), cfg,
                           pad_to=prompt + steps)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1926,7 +1978,7 @@ def prefill_decode(params, cfg, tokens, prompt: int, steps: int):
         "tokens_per_second": tokens.shape[0] * steps / decode_s,
         "launches": {"prefill": prefill_launches,
                      "decode": launches_since(prefill_launches)}}
-    want = {"prefill": _layers_run(cfg, 0, cfg.num_groups()),
+    want = {"prefill": _prefill_launches(cfg),
             "decode": _decode_step_launches(cfg, steps)}
     if record["launches"] != want:
         raise RuntimeError(f"prefill + decode launched {record['launches']}"
@@ -1934,40 +1986,47 @@ def prefill_decode(params, cfg, tokens, prompt: int, steps: int):
     return logits, cache, record
 
 
-def one_machine(params, cfg, tokens):
-    """Last-token logits of the forward over all of ``tokens``.  An SSD
-    model whose chunk does not divide the length (Mamba-2's 256 and 4112
-    tokens) runs with the largest chunk that does (16): the chunked scan
-    computes the same function at any chunk length."""
+def one_machine(params, cfg, tokens, frames=None):
+    """Last-token logits of the forward over all of ``tokens`` (and an
+    encoder-decoder's ``frames``).  An SSD model whose chunk does not
+    divide the length (Mamba-2's 256 and 4112 tokens) runs with the
+    largest chunk that does (16): the chunked scan computes the same
+    function at any chunk length."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tr
     S = tokens.shape[1]
     if cfg.ssm is not None and S % cfg.ssm.chunk_size:
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
             cfg.ssm, chunk_size=math.gcd(S, cfg.ssm.chunk_size)))
-    hidden, _, _ = tr.forward_hidden(params, {"tokens": tokens}, cfg,
+    hidden, _, _ = tr.forward_hidden(params, _lm_batch(tokens, frames), cfg,
                                      kernels=ops.kernel_registry())
     return tr.unembed(params, hidden[:, -1:], cfg)
 
 
-def phase_model_decode(phase: str, cfg, params, prompts, **extra) -> None:
-    """Request 0 of a layer-split model: its prompt prefilled into a cache
-    of ``LM_SEQ + LM_DECODE_STEPS`` rows, then as many teacher-forced
-    steps, in bf16 and in fp32, and the last MODEL_PROFILE_STEPS bf16
-    steps once more under ``torch.profiler`` (each cache row rewritten;
-    a recurrent state steps on).  The fp32 decode is held to the fp32
-    one-machine forward over the same tokens; the bf16 distances are
-    reported; ``extra`` fields join the phase's line."""
+def phase_model_decode(phase: str, cfg, params, prompts, frames=None,
+                       **extra) -> None:
+    """Request 0 of a layer-split model (and of an encoder-decoder's
+    ``frames``): its prompt prefilled into a cache of ``prompt +
+    LM_DECODE_STEPS`` rows, then as many teacher-forced steps, in bf16
+    and in fp32, and the last MODEL_PROFILE_STEPS bf16 steps once more
+    under ``torch.profiler`` (each cache row rewritten; a recurrent state
+    steps on).  The fp32 decode is held to the fp32 one-machine forward
+    over the same tokens; the bf16 distances are reported; ``extra``
+    fields join the phase's line.  The fp32 runs cast every parameter
+    to fp32; an encoder-decoder's also take its config's parameter dtype
+    as fp32, which the frames are cast to."""
     from repro_torch.serving.profile_split import profile_decode
+    prompt = prompts.shape[1]
     steps = np.random.default_rng(SEED + 1).integers(
         0, cfg.vocab_size, (1, LM_DECODE_STEPS)).astype(np.int32)
     tokens = torch.from_numpy(np.concatenate([prompts[:1], steps],
                                              axis=1)).cuda()
-    logits, cache, record = prefill_decode(params, cfg, tokens, LM_SEQ,
-                                           LM_DECODE_STEPS)
-    record["cache_rows"] = LM_SEQ + LM_DECODE_STEPS
+    frames0 = None if frames is None else frames[:1]
+    logits, cache, record = prefill_decode(params, cfg, tokens, prompt,
+                                           LM_DECODE_STEPS, frames0)
+    record["cache_rows"] = prompt + LM_DECODE_STEPS
     profile = profile_decode(params, cfg, tokens, cache,
-                             LM_SEQ + LM_DECODE_STEPS - MODEL_PROFILE_STEPS,
+                             prompt + LM_DECODE_STEPS - MODEL_PROFILE_STEPS,
                              MODEL_PROFILE_STEPS)
     del cache
     launches = _decode_step_launches(cfg, MODEL_PROFILE_STEPS)
@@ -1978,12 +2037,15 @@ def phase_model_decode(phase: str, cfg, params, prompts, **extra) -> None:
                            f"{launches}; device seconds "
                            f"{profile['device_seconds']}")
     V = cfg.vocab_size
-    want = one_machine(params, cfg, tokens)
+    want = one_machine(params, cfg, tokens, frames0)
     params32 = _tree_map(lambda t: t.float(), params)
-    logits32, cache32, record32 = prefill_decode(params32, cfg, tokens,
-                                                 LM_SEQ, LM_DECODE_STEPS)
+    cfg32 = (cfg if frames is None
+             else dataclasses.replace(cfg, param_dtype="float32"))
+    logits32, cache32, record32 = prefill_decode(params32, cfg32, tokens,
+                                                 prompt, LM_DECODE_STEPS,
+                                                 frames0)
     del cache32
-    want32 = one_machine(params32, cfg, tokens)
+    want32 = one_machine(params32, cfg32, tokens, frames0)
     del params32
     torch.cuda.empty_cache()
     for t in (logits, want, logits32, want32):
@@ -2439,6 +2501,326 @@ def phase_moe_decode(cfg, params, prompts) -> None:
                        check_capacity_factor=MOE_CHECK_FACTOR)
 
 
+def encdec_shapes():
+    """seamless-m4t-medium's attention layouts: (config, heads, head_dim,
+    encoder frames)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC_ARCH)
+    return (cfg, cfg.num_heads, cfg.resolved_head_dim(),
+            cfg.frontend.num_positions)
+
+
+def encdec_flash_entry(gen, B, Sq, Skv, H, D, layout: str) -> dict:
+    """The flash kernel at one of the encoder-decoder's non-causal
+    layouts (MHA, no window): held to its plain version in bf16 at batch
+    B and in fp32 at batch 1, then timed in bf16 beside the plain version
+    and SDPA, with its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    checks, inputs = [], None
+    for dtype, b in ((torch.bfloat16, B), (torch.float32, 1)):
+        q, k, v = (torch.randn((b * H, n, D), generator=gen,
+                               device="cuda").to(dtype)
+                   for n in (Sq, Skv, Skv))
+        o = fa.flash_attention(q, k, v, causal=False, window=0)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_ref(q, k, v, causal=False, window=0)
+        atol, rtol = FLASH_TOL[dtype]
+        diff = o.float() - want.float()
+        checks.append({"batch": b, "dtype": str(dtype),
+                       "max_abs_err": float(diff.abs().max()),
+                       "rel_l2": float(diff.norm() / want.float().norm()),
+                       "atol": atol, "rtol": rtol,
+                       "out_std": float(want.float().std())})
+        if not _within(o, want, atol, rtol) or not bool(
+                torch.isfinite(o).all()):
+            raise RuntimeError(f"flash_attention at the {layout} layout "
+                               f"{[b, Sq, Skv, H, D]} {dtype} disagrees with "
+                               f"its plain version: "
+                               f"max|d|={checks[-1]['max_abs_err']}")
+        if dtype == torch.bfloat16:
+            inputs = (q, k, v)
+        del o, want, diff
+    q, k, v = inputs
+
+    def run_kernel():
+        return fa.flash_attention(q, k, v, causal=False, window=0)
+
+    def run_plain():
+        return fa.flash_attention_ref(q, k, v, causal=False, window=0)
+
+    def run_library():
+        # a yardstick only: the port never calls it
+        return F.scaled_dot_product_attention(
+            q.view(B, H, Sq, D), k.view(B, H, Skv, D), v.view(B, H, Skv, D),
+            is_causal=False)
+    lib_err = float((run_library().reshape(q.shape).float()
+                     - run_plain().float()).abs().max())
+    times = time_in_turns(run_kernel, run_plain, run_library)
+    bound_ms, bound_by, nbytes, flops = flash_bound(
+        B, H, H, Sq, Skv, D, False, 0, q.element_size())
+    return {"launches": None,              # filled in by encdec_serve
+            "shape": [B, Sq, Skv, H, H, D, False, 0], "dtype": "bfloat16",
+            "max_abs_err": checks[0]["max_abs_err"], "checks": checks,
+            **times, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_call": "F.scaled_dot_product_attention(is_causal=False)",
+            "library_max_abs_err_vs_plain": lib_err,
+            "timed": f"one seamless-m4t-medium {layout} attention layer at "
+                     f"batch {B}, bf16; kernel and SDPA median of 5 x 2 "
+                     "calls, plain version of 3 x 1; best of 2",
+            "bytes": nbytes, "flops": flops}
+
+
+def phase_encdec_kernels() -> dict:
+    """The two attention kernels at the encoder-decoder's layouts, which
+    no earlier path runs at full width: flash non-causal over the
+    encoder's 1024 frames (Sq = Skv) and for cross-attention (the
+    64-token prompt against the 1024 frames), decode attention of one
+    token against the static cross cache (G = 1, every sequence at all
+    1024 rows); each held to its plain version and timed."""
+    from repro_torch.kernels import decode_attention as dec
+    _, H, D, S_enc = encdec_shapes()
+    B = LM_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    entries = {
+        "encoder": encdec_flash_entry(gen, B, S_enc, S_enc, H, D, "encoder"),
+        "cross": encdec_flash_entry(gen, B, ENCDEC_PROMPT, S_enc, H, D,
+                                    "cross-attention")}
+    checks, inputs = [], None
+    for dtype, b in ((torch.bfloat16, B), (torch.float32, 1)):
+        q = torch.randn((b, H, D), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, S_enc, H, D), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        lens = torch.full((b,), S_enc, dtype=torch.int32, device="cuda")
+        got = dec.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        want = dec.decode_attention_ref(q, k, v, lens)
+        atol, rtol = DECODE_TOL[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        checks.append({"batch": b, "dtype": str(dtype), "max_abs_err": err,
+                       "atol": atol, "rtol": rtol})
+        if not _within(got, want, atol, rtol):
+            raise RuntimeError(f"decode_attention at the cross-decode layout "
+                               f"{[b, S_enc, H, H, D]} {dtype} disagrees "
+                               f"with its plain version: max|d|={err}")
+        if dtype == torch.bfloat16:
+            inputs = (q, k, v, lens)
+    entries["cross_decode"] = {
+        "launches": None,                 # filled in by encdec_decode
+        "shape": [B, S_enc, H, H, D], "dtype": "bfloat16",
+        "max_abs_err": checks[0]["max_abs_err"], "checks": checks,
+        **time_decode(*inputs),
+        "timed": "one seamless-m4t-medium decode step's cross-attention at "
+                 "batch 4, bf16; wrapper, plain version and SDPA median of "
+                 f"10 x {DECODE_TIMING_CALLS} calls"}
+    emit("encdec_kernels", **entries)
+    return entries
+
+
+def encdec_layer_check(cfg, params, tokens, frames) -> list:
+    """The first ENCDEC_FP32_BLOCKS encoder blocks (non-causal) and
+    decoder blocks (causal, cross-attention to the fp32 encoder's output)
+    in fp32 on request 0, each run through the flash kernel and through
+    its plain version on the same input (the plain run's output of the
+    block before), held to MOE_LAYER_REL_L2."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.moe import LOCAL_CTX
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    enc32 = {"encoder": _tree_map(lambda t: t.float(), params["encoder"])}
+    x_enc = frames[:1].float()
+    with plain_versions("flash_attention"):
+        enc_out = tr.encode(enc32, x_enc, cfg32, LOCAL_CTX)
+    x_dec = tr.embed_tokens(params, tokens[:1], cfg).float()
+    layers = []
+    for stack, x, blocks, causal, memory in (
+            ("encoder", x_enc, enc32["encoder"]["blocks"], False, None),
+            ("decoder", x_dec, params["blocks"]["b0"], True, enc_out)):
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i in range(ENCDEC_FP32_BLOCKS):
+            p32 = _tree_map(lambda t: t[i].float(), blocks)
+            runs = {}
+            for name, plain in (("kernel", ()),
+                                ("plain", ("flash_attention",))):
+                counts = launch_counts()
+                with plain_versions(*plain):
+                    y, _, _ = tr.apply_attn_block_seq(
+                        p32, x, cfg32, LOCAL_CTX, positions=pos,
+                        causal=causal, enc_out=memory)
+                launched = launches_since(counts)["flash_attention"]
+                want = 0 if plain else (1 if memory is None else 2)
+                if launched != want:
+                    raise RuntimeError(f"{stack} block {i}, {name} run: "
+                                       f"flash launched {launched} times")
+                runs[name] = y
+            diff = runs["kernel"] - runs["plain"]
+            rel = float(diff.norm() / runs["plain"].norm())
+            layers.append({"stack": stack, "block": i,
+                           "tokens": int(x.shape[1]), "rel_l2": rel,
+                           "max_abs_err": float(diff.abs().max())})
+            if not rel <= MOE_LAYER_REL_L2:
+                raise RuntimeError(f"{stack} block {i}: fp32 kernels vs "
+                                   f"plain versions: relative L2 {rel} > "
+                                   f"{MOE_LAYER_REL_L2}")
+            x = runs["plain"]
+    return layers
+
+
+def phase_encdec_serve(entries: dict):
+    """seamless-m4t-medium at full width: 4 requests of 1024 frames and a
+    64-token prompt prefilled (the encoder, the decoder with
+    cross-attention, build_enc_kv), the encoder and the whole prefill
+    timed, the decoder split through the segmentation hook held to the
+    one-machine forward to the bit, and the first blocks held in fp32,
+    kernels against plain versions."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import pdtype
+    from repro_torch.models.moe import LOCAL_CTX
+    cfg, params, info = init_full_width(ENCDEC_ARCH, ENCDEC_PARAMETERS,
+                                        ENCDEC_PARAMETER_BYTES)
+    G, L, H = cfg.num_groups(), cfg.num_layers, cfg.num_heads
+    D, f = cfg.resolved_head_dim(), cfg.frontend
+    if (cfg.block_pattern != ("attn",) or cfg.tail_pattern()
+            or H != cfg.num_kv_heads or "frontend_proj" in params):
+        raise RuntimeError(f"{ENCDEC_ARCH}: expected {G} MHA decoder "
+                           "layers, no tail, frames of the model's width")
+    rows = ENCDEC_PROMPT + ENCDEC_DECODE_STEPS
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, rows)).astype(np.int32)
+    frames = torch.randn((LM_BATCH, f.num_positions, f.embed_dim),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(SEED + 3), device="cuda")
+    toks = torch.from_numpy(tokens).cuda()
+    batch = _lm_batch(toks[:, :ENCDEC_PROMPT], frames)
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    logits, cache = tr.prefill(params, batch, cfg, pad_to=rows)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != _prefill_launches(cfg):
+        raise RuntimeError(f"prefill launched {launches}, expected "
+                           f"{_prefill_launches(cfg)}")
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise RuntimeError("non-finite prefill logits")
+    enc_kv_bytes = _nbytes(cache["enc_kv"])
+    cache_bytes = _nbytes(cache) - enc_kv_bytes
+    want_enc = 2 * L * LM_BATCH * f.num_positions * H * D * 2
+    want_self = 2 * L * LM_BATCH * rows * H * D * 2
+    if (enc_kv_bytes, cache_bytes) != (want_enc, want_self):
+        raise RuntimeError(f"enc_kv {enc_kv_bytes} B and self cache "
+                           f"{cache_bytes} B, expected {want_enc} and "
+                           f"{want_self}")
+    for leaf in _leaves(cache["enc_kv"]):
+        if leaf.shape != (G, LM_BATCH, f.num_positions, H, D) or not (
+                leaf[0].is_contiguous()):
+            raise RuntimeError(f"enc_kv leaf {tuple(leaf.shape)} is not "
+                               "(G, B, S_enc, H, D) with contiguous groups")
+    del cache
+
+    # the encoder alone and the whole prefill, CUDA events
+    frames_p = frames.to(pdtype(cfg))
+    counts = launch_counts()
+    tr.encode(params, frames_p, cfg, LOCAL_CTX)
+    encoder_launches = launches_since(counts)
+    encoder_ms = time_ms(lambda: tr.encode(params, frames_p, cfg, LOCAL_CTX),
+                         inner=1, samples=5)
+    prefill_ms = time_ms(lambda: tr.prefill(params, batch, cfg, pad_to=rows),
+                         inner=1, samples=5)
+
+    # the segmentation hook: the decoder over [0, g) then [g, G) with the
+    # encoder's output, against forward_hidden's hidden state
+    hidden, _, _ = tr.forward_hidden(params, batch, cfg)
+    enc_out = tr.encode(params, frames_p, cfg, LOCAL_CTX)
+    pos = torch.arange(ENCDEC_PROMPT, device="cuda")
+    counts = launch_counts()
+    x = tr.embed_tokens(params, batch["tokens"], cfg)
+    for start, stop in ((0, ENCDEC_SPLIT), (ENCDEC_SPLIT, G)):
+        x = tr.run_layer_range(params, x, cfg, LOCAL_CTX, start_group=start,
+                               stop_group=stop, positions=pos,
+                               enc_out=enc_out)
+    split_launches = launches_since(counts)
+    x = tr.apply_norm(params["final_norm"], x)
+    torch.cuda.synchronize()
+    split = {"groups": [[0, ENCDEC_SPLIT], [ENCDEC_SPLIT, G]],
+             "launches": split_launches,
+             "max_abs_err_vs_forward": float((x.float() - hidden.float())
+                                             .abs().max()),
+             "equal_to_forward": bool(torch.equal(x, hidden))}
+    if split_launches != _layers_run(cfg, 0, G, cross=True):
+        raise RuntimeError(f"the split decoder launched {split_launches}")
+    if not split["equal_to_forward"]:
+        raise RuntimeError(f"the split decoder differs from forward_hidden "
+                           f"by {split['max_abs_err_vs_forward']}")
+    del hidden, enc_out, x
+    layer_check = encdec_layer_check(cfg, params, toks[:, :ENCDEC_PROMPT],
+                                     frames)
+    torch.cuda.empty_cache()
+    entries["encoder"]["launches"] = encoder_launches["flash_attention"]
+    entries["cross"]["launches"] = (launches["flash_attention"]
+                                    - encoder_launches["flash_attention"]) // 2
+    emit("encdec_serve", **info, batch=LM_BATCH, prompt=ENCDEC_PROMPT,
+         frames=[f.num_positions, f.embed_dim],
+         layers=[cfg.encoder_layers, L],
+         heads=[H, cfg.num_kv_heads, D], launches=launches,
+         encoder_launches=encoder_launches,
+         encoder_ms=encoder_ms, prefill_ms=prefill_ms,
+         encoder_share_of_prefill=encoder_ms / prefill_ms,
+         timed="CUDA events, median of 5 calls after one warm-up",
+         enc_kv_bytes=enc_kv_bytes, cache_bytes=cache_bytes,
+         cache_rows=rows, peak_memory_bytes=peak, split=split,
+         fp32_layer_check=layer_check, limit_layer_rel_l2=MOE_LAYER_REL_L2)
+    return cfg, params, tokens, frames
+
+
+def phase_encdec_decode(cfg, params, tokens, frames, entries: dict) -> None:
+    """The 4 requests prefilled and decoded ENCDEC_DECODE_STEPS
+    teacher-forced steps through the self-attention cache and the static
+    ``enc_kv`` (decode attention twice a layer), timed; the decode kernel
+    held to its plain version on the served ``enc_kv``; then request 0
+    through ``phase_model_decode`` (bf16 and fp32 decode against the
+    one-machine forward, the last steps profiled), which prints the
+    line."""
+    from repro_torch.kernels import decode_attention as dec
+    toks = torch.from_numpy(tokens).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache, record = prefill_decode(params, cfg, toks, ENCDEC_PROMPT,
+                                           ENCDEC_DECODE_STEPS, frames)
+    record["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise RuntimeError("non-finite decode logits")
+    record["enc_kv_bytes"] = _nbytes(cache["enc_kv"])
+    record["cache_bytes"] = _nbytes(cache) - record["enc_kv_bytes"]
+    entries["cross_decode"]["launches"] = record["launches"]["decode"][
+        "decode_attention"] // 2
+
+    # the decode kernel on layer 0's enc_kv as decode reads it (a view)
+    k = cache["enc_kv"]["groups"]["b0"]["k"][0]
+    v = cache["enc_kv"]["groups"]["b0"]["v"][0]
+    B, S_enc, H, D = k.shape
+    q = torch.randn((B, H, D), generator=torch.Generator(device="cuda")
+                    .manual_seed(SEED), device="cuda").to(k.dtype)
+    lens = torch.full((B,), S_enc, dtype=torch.int32, device="cuda")
+    got = dec.decode_attention(q, k, v, lens)
+    want = dec.decode_attention_ref(q, k, v, lens)
+    atol, rtol = DECODE_TOL[k.dtype]
+    err = float((got.float() - want.float()).abs().max())
+    if not _within(got, want, atol, rtol):
+        raise RuntimeError(f"decode_attention on the served enc_kv disagrees "
+                           f"with its plain version: max|d|={err}")
+    served_kernel = {"shape": [B, S_enc, H, H, D], "dtype": str(k.dtype),
+                     "max_abs_err": err, "atol": atol, "rtol": rtol}
+    del cache, k, v
+    torch.cuda.empty_cache()
+    layouts = {name: {k: e[k] for k in KERNEL_LINE_KEYS if k in e}
+               for name, e in entries.items()}
+    phase_model_decode("encdec_decode", cfg, params,
+                       tokens[:, :ENCDEC_PROMPT], frames=frames,
+                       served=record, decode_attention_on_enc_kv=served_kernel,
+                       kernel_layouts=layouts)
+
+
 def phase_replay(params, cfg) -> None:
     """The paper's scheduler end to end: the port's fleet simulator
     records the golden workload's decision trace, every plan is
@@ -2706,6 +3088,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_moe_decode(*phase_moe_serve())
         gc.collect()                 # OLMoE-1B-7B's 13.8 GB of weights
+        torch.cuda.empty_cache()
+        encdec_entries = phase_encdec_kernels()
+        phase_encdec_decode(*phase_encdec_serve(encdec_entries),
+                            encdec_entries)
+        gc.collect()                 # seamless-m4t-medium's 1.8 GB
         torch.cuda.empty_cache()
         phase_regnet()
     emit("total", seconds=time.perf_counter() - t_start)

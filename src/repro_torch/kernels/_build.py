@@ -24,6 +24,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
@@ -165,6 +167,22 @@ def load_library() -> ctypes.CDLL:
     lib.repro_decode_attention_occupancy.argtypes = [ll, ip, ip, ip]
     lib.repro_decode_attention_occupancy.restype = ctypes.c_int
     return lib
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would follow a kernel's inputs: the kernels
+    have no backward yet (ROADMAP A9), and a result filled through
+    ``ctypes`` carries no ``grad_fn``, so a loss taken through it would
+    get no gradient, without a word.  Called by each wrapper before it
+    launches on CUDA tensors; the plain versions on CPU tensors stay
+    differentiable."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward yet "
+                           "(ROADMAP A9); call it under torch.no_grad() or "
+                           "torch.inference_mode(), or on inputs that do "
+                           "not require grad")
 
 
 def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:

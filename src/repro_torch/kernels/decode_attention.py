@@ -136,7 +136,8 @@ def decode_attention(q, k, v, lengths, *, softmax_scale=None):
 
     CPU tensors go to the plain version.  CUDA tensors go to the kernel,
     on the current stream and without synchronising, or this raises: it
-    never falls back.
+    never falls back.  On CUDA tensors it also raises when autograd would
+    follow an input: the kernel has no backward yet (ROADMAP A9).
     """
     global launch_count
     if not q.is_cuda:
@@ -145,6 +146,7 @@ def decode_attention(q, k, v, lengths, *, softmax_scale=None):
                              f"{q.device}")
         return decode_attention_ref(q, k, v, lengths,
                                     softmax_scale=softmax_scale)
+    _build.refuse_grad("decode_attention", q, k, v)
     _check(q, k, v, lengths)
     B, Skv, Hkv, d = k.shape
     Hq = q.shape[1]

@@ -87,7 +87,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     CPU tensors go to the plain version.  CUDA tensors go to the kernel,
     on the current stream and without synchronising, or this raises: it
-    never falls back.
+    never falls back.  On CUDA tensors it also raises when autograd would
+    follow an input: the kernel has no backward yet (ROADMAP A9).
     """
     global launch_count
     if not q.is_cuda:
@@ -95,6 +96,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"flash_attention: unsupported device {q.device}")
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    kv_len=kv_len, softmax_scale=softmax_scale)
+    _build.refuse_grad("flash_attention", q, k, v)
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     _check(q, k, v, kv_len)
     BHq, Sq, d = q.shape

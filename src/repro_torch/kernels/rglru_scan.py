@@ -73,13 +73,15 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
 
     CPU tensors go to the plain version.  CUDA tensors go to the kernel,
     on the current stream and without synchronising, or this raises: it
-    never falls back.
+    never falls back.  On CUDA tensors it also raises when autograd would
+    follow an input: the kernel has no backward yet (ROADMAP A9).
     """
     global launch_count
     if not a.is_cuda:
         if a.device.type != "cpu":
             raise ValueError(f"rglru_scan: unsupported device {a.device}")
         return rglru_scan_ref(a, b, h0)
+    _build.refuse_grad("rglru_scan", a, b, h0)
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"rglru_scan: expected a, b (B,S,W) of one shape, "
                          f"got {tuple(a.shape)}, {tuple(b.shape)}")

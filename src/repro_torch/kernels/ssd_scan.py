@@ -108,7 +108,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CPU tensors go to the plain version.  CUDA tensors go to the kernel,
     on the current stream and without synchronising, or this raises: it
     never falls back.  Raises when S is not a multiple of
-    ``min(chunk_size, S)``.
+    ``min(chunk_size, S)``, and on CUDA tensors when autograd would follow
+    an input: the kernel has no backward yet (ROADMAP A9).
     """
     global launch_count, kernel_count
     if x.dim() != 4:
@@ -120,6 +121,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if x.device.type != "cpu":
             raise ValueError(f"ssd_scan: unsupported device {x.device}")
         return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk_size, init_state)
+    _build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm, init_state)
     if Bm.dim() != 4 or Cm.shape != Bm.shape or tuple(Bm.shape[:2]) != (b, S):
         raise ValueError(f"ssd_scan: expected Bm, Cm (b,S,G,N) of one shape, "
                          f"got {tuple(Bm.shape)}, {tuple(Cm.shape)}")

@@ -6,12 +6,13 @@ identical math:
   * ``attention_einsum`` — plain einsum; fine for short sequences.
   * ``attention_chunked`` — a loop over KV chunks with an online softmax;
     never materializes the (Sq, Skv) score matrix.
-  * on a CUDA tensor, ``self_attention`` runs the hand-written flash
-    kernel (``kernels/csrc/flash_attention.cu``) at every length.  The
-    reference's ``self_attention`` reaches only its ``lax.scan`` mirror,
-    never its Pallas kernel; on CPU tensors the port keeps the
-    reference's dispatch (einsum below ``flash_min_len``, the chunked
-    online softmax at and above it).
+  * on a CUDA tensor, ``self_attention`` and ``cross_attention`` run
+    the hand-written flash kernel (``kernels/csrc/flash_attention.cu``)
+    at every length.  The reference's ``self_attention`` reaches only its
+    ``lax.scan`` mirror, never its Pallas kernel, and its cross-attention
+    calls ``attend``; on CPU tensors the port keeps the reference's
+    dispatch (einsum below ``flash_min_len``, the chunked online softmax
+    at and above it; ``attend`` for cross-attention).
 
 Shapes: q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D) with Hq % Hkv == 0.
 """
@@ -151,6 +152,19 @@ def self_attention(q, k, v, *, causal=True, window=0, chunk_size=1024,
     pos = torch.arange(S, device=q.device)
     return attention_einsum(q, k, v, q_positions=pos, kv_positions=pos,
                             causal=causal, window=window)
+
+
+def cross_attention(q, k, v, *, q_positions):
+    """Encoder-decoder cross-attention: every query sees every key, no
+    RoPE.  q (B, Sq, Hq, D) from the decoder, k and v (B, Skv, Hkv, D)
+    from the encoder, Sq and Skv unrelated.  CUDA tensors: the flash
+    kernel, non-causal.  CPU tensors: ``attend`` as the reference calls
+    it, the keys at ``arange(Skv)``."""
+    if q.is_cuda:
+        return ops.flash_attention(q, k, v, causal=False, window=0)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    return attend(q, k, v, q_positions=q_positions, kv_positions=kv_pos,
+                  causal=False, window=0)
 
 
 # --------------------------------------------------------------------------

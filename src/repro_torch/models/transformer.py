@@ -22,10 +22,19 @@ here (linear, SWA ring, SWA over a longer linear cache) goes through
 tensor, its plain version on a CPU tensor.  The cache is updated in
 place (see ``models/attention.py``).
 
-Ported so far: attention (self-attention), RG-LRU and SSD (Mamba-2)
-blocks, dense MLPs and Mixture-of-Experts FFNs (``models/moe.py``, on
-one device), decode over all of them.  The encoder-decoder and the
-modality frontends raise ``NotImplementedError`` (ROADMAP A5).
+Encoder-decoder models (``cfg.encoder_layers``): ``encode`` runs the
+encoder over the frontend's frames (non-causal self-attention), and each
+decoder block attends to its output through a cross-attention branch.
+On a CUDA tensor that branch runs the flash kernel at prefill
+(``attention.cross_attention``) and the decode kernel against the
+static ``cache["enc_kv"]`` at decode; the reference computes both with
+its einsum attention.
+
+Ported so far: attention (self- and cross-attention), RG-LRU and SSD
+(Mamba-2) blocks, dense MLPs and Mixture-of-Experts FFNs
+(``models/moe.py``, on one device), the encoder, decode over all of
+them.  The modality frontends of decoder-only models raise
+``NotImplementedError`` (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -82,8 +91,6 @@ def init_attn_block(generator, cfg, cross: bool = False,
     d = cfg.d_model
     hd = cfg.resolved_head_dim()
     dt = pdtype(cfg)
-    if cross:
-        raise _not_ported("cross-attention (encoder-decoder)", "A5")
     p: Params = {
         "norm1": init_norm(cfg, d, device),
         "wq": dense_init(generator, (d, cfg.num_heads, hd), dt, fan_in=d,
@@ -100,6 +107,16 @@ def init_attn_block(generator, cfg, cross: bool = False,
         p["bq"] = torch.zeros((cfg.num_heads, hd), device=device)
         p["bk"] = torch.zeros((cfg.num_kv_heads, hd), device=device)
         p["bv"] = torch.zeros((cfg.num_kv_heads, hd), device=device)
+    if cross:
+        p["xnorm"] = init_norm(cfg, d, device)
+        p["xwq"] = dense_init(generator, (d, cfg.num_heads, hd), dt,
+                              fan_in=d, device=device)
+        p["xwk"] = dense_init(generator, (d, cfg.num_kv_heads, hd), dt,
+                              fan_in=d, device=device)
+        p["xwv"] = dense_init(generator, (d, cfg.num_kv_heads, hd), dt,
+                              fan_in=d, device=device)
+        p["xwo"] = dense_init(generator, (cfg.num_heads, hd, d), dt,
+                              fan_in=cfg.num_heads * hd, device=device)
     if cfg.moe is not None:
         p["moe"] = moe_lib.init_moe(generator, cfg, device)
     else:
@@ -134,15 +151,15 @@ def init_params(cfg, generator: torch.Generator,
     unstacked tail, padded-vocab embedding and head."""
     dev = resolve_device(device)
     G = cfg.num_groups()
-    if cfg.encoder_layers:
-        raise _not_ported("the encoder of encoder-decoder models", "A5")
+    cross = cfg.encoder_layers > 0
     blocks = {
-        f"b{i}": _tree_stack([init_block(kind, generator, cfg, device=dev)
+        f"b{i}": _tree_stack([init_block(kind, generator, cfg, cross=cross,
+                                         device=dev)
                               for _ in range(G)])
         for i, kind in enumerate(cfg.block_pattern)
     }
     tail = {
-        f"t{i}": init_block(kind, generator, cfg, device=dev)
+        f"t{i}": init_block(kind, generator, cfg, cross=cross, device=dev)
         for i, kind in enumerate(cfg.tail_pattern())
     }
     params: Params = {
@@ -157,11 +174,23 @@ def init_params(cfg, generator: torch.Generator,
         params["lm_head"] = dense_init(
             generator, (cfg.d_model, cfg.padded_vocab()), pdtype(cfg),
             device=dev)
+    if cfg.encoder_layers:
+        params["encoder"] = init_encoder(generator, cfg, dev)
     if cfg.frontend is not None and cfg.frontend.embed_dim != cfg.d_model:
         params["frontend_proj"] = dense_init(
             generator, (cfg.frontend.embed_dim, cfg.d_model), pdtype(cfg),
             device=dev)
     return params
+
+
+def init_encoder(generator, cfg, device: DeviceLike = None) -> Params:
+    """``cfg.encoder_layers`` stacked self-attention blocks and the
+    encoder's final norm, on ``device`` (``None`` = the GPU)."""
+    dev = resolve_device(device)
+    blocks = _tree_stack([init_attn_block(generator, cfg, cross=False,
+                                          device=dev)
+                          for _ in range(cfg.encoder_layers)])
+    return {"blocks": blocks, "final_norm": init_norm(cfg, cfg.d_model, dev)}
 
 
 # ==========================================================================
@@ -182,15 +211,22 @@ def _qkv(p, h, cfg, positions, ctx=None):
 
 def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
                          enc_out=None, return_kv=False):
-    """Full-sequence attention block.  Returns (x, aux, kv | None)."""
-    if enc_out is not None:
-        raise _not_ported("cross-attention (encoder-decoder)", "A5")
+    """Full-sequence attention block.  Returns (x, aux, kv | None).  A
+    block with cross-attention weights attends to ``enc_out`` when it is
+    given (no RoPE on that branch), and skips the branch when not."""
     h = apply_norm(p["norm1"], x)
     q, k, v = _qkv(p, h, cfg, positions, ctx)
     window = cfg.window if cfg.attention_kind == "swa" else 0
     # positions here are always arange(S)
     o = attn_lib.self_attention(q, k, v, causal=causal, window=window)
     x = x + torch.einsum("bshe,hed->bsd", o, p["wo"])
+    if "xwq" in p and enc_out is not None:
+        hx = apply_norm(p["xnorm"], x)
+        xq = torch.einsum("bsd,dhe->bshe", hx, p["xwq"])
+        xk = torch.einsum("bsd,dhe->bshe", enc_out, p["xwk"])
+        xv = torch.einsum("bsd,dhe->bshe", enc_out, p["xwv"])
+        xo = attn_lib.cross_attention(xq, xk, xv, q_positions=positions)
+        x = x + torch.einsum("bshe,hed->bsd", xo, p["xwo"])
     h2 = apply_norm(p["norm2"], x)
     aux = None
     if "moe" in p:
@@ -235,7 +271,9 @@ def embed_tokens(params, tokens, cfg):
 
 
 def embed_inputs(params, batch, cfg):
-    """batch: {"tokens": (B,S)}.  Modality frontends are not ported."""
+    """batch: {"tokens": (B,S)}.  The frontend prefix of decoder-only
+    models (``batch["frontend"]``) is not ported; an encoder-decoder
+    model's frames go to ``forward_hidden``'s encoder instead."""
     if cfg.frontend is not None and "frontend" in batch:
         raise _not_ported("modality frontends", "A5")
     return embed_tokens(params, batch["tokens"], cfg)
@@ -291,18 +329,46 @@ def _scan_groups(params, x, cfg, ctx, *, positions, enc_out=None,
     return x, aux, caches
 
 
+def encode(params, frames, cfg, ctx):
+    """Encoder stack over frontend frames (B, S_enc, d): non-causal
+    self-attention blocks at positions ``arange(S_enc)``, then the
+    encoder's final norm."""
+    enc = params["encoder"]
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    x = frames
+    for e in range(cfg.encoder_layers):
+        x, _, _ = apply_attn_block_seq(_tree_index(enc["blocks"], e), x, cfg,
+                                       ctx, positions=positions,
+                                       causal=False)
+    return apply_norm(enc["final_norm"], x)
+
+
 def forward_hidden(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *,
                    return_cache=False, remat=True, kernels=None):
     """Embed + all blocks + final norm.  Returns (hidden (B,S,d), aux (2,),
-    caches)."""
+    caches).  An encoder-decoder model encodes ``batch["frontend"]``
+    first, and its decoder blocks attend to the encoder's output, which
+    ``caches["enc_out"]`` carries under ``return_cache``."""
+    enc_out = None
     if cfg.encoder_layers:
-        raise _not_ported("the encoder of encoder-decoder models", "A5")
-    x = embed_inputs(params, batch, cfg)
+        frames = batch["frontend"]
+        if "frontend_proj" in params:
+            # the reference's einsum promotes fp32 frames against bf16
+            # weights; torch.einsum takes one dtype, so promote here
+            w = params["frontend_proj"]
+            dt = torch.promote_types(frames.dtype, w.dtype)
+            frames = torch.einsum("bpe,ed->bpd", frames.to(dt), w.to(dt))
+        enc_out = encode(params, frames.to(pdtype(cfg)), cfg, ctx)
+        x = embed_tokens(params, batch["tokens"], cfg)
+    else:
+        x = embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux, caches = _scan_groups(
-        params, x, cfg, ctx, positions=positions,
+        params, x, cfg, ctx, positions=positions, enc_out=enc_out,
         return_cache=return_cache, remat=remat, kernels=kernels)
     x = apply_norm(params["final_norm"], x)
+    if return_cache and enc_out is not None:
+        caches["enc_out"] = enc_out
     return x, aux, caches
 
 
@@ -343,11 +409,17 @@ def prefill(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *, kernels=None,
             pad_to: int = 0):
     """Full-sequence prefill.  Returns (last-token logits, decode cache).
     Like the reference's, the attention caches are the prompt's k and v
-    in the compute dtype, whatever ``cfg.kv_cache_dtype`` says."""
+    in the compute dtype, whatever ``cfg.kv_cache_dtype`` says.  An
+    encoder-decoder model's cache also holds ``enc_kv``, the decoder
+    layers' cross-attention K/V, which decode reads and never grows;
+    like the reference, it projects them again from the encoder's output
+    after the blocks have done so."""
     hidden, _, caches = forward_hidden(
         params, batch, cfg, ctx, return_cache=True, remat=False,
         kernels=kernels)
     logits = unembed(params, hidden[:, -1:], cfg)
+    if cfg.encoder_layers:
+        caches["enc_kv"] = build_enc_kv(params, caches.pop("enc_out"), cfg)
     if pad_to:
         caches = pad_kv_caches(caches, pad_to)
     return logits, caches
@@ -380,9 +452,9 @@ def pad_kv_caches(caches, pad_to: int):
 def _decode_attn(p, x, cfg, cache, position: int, enc_kv=None):
     """One-token attention block.  x (B,1,d); ``cache`` is updated in
     place and returned.  The reference's position masks become the rows
-    [lo, lo + n) of the cache every sequence attends to."""
-    if enc_kv is not None:
-        raise _not_ported("cross-attention decode (encoder-decoder)", "A5")
+    [lo, lo + n) of the cache every sequence attends to.  ``enc_kv``
+    ({"k", "v"}, (B, S_enc, Hkv, D) views) feeds the cross-attention
+    branch: every sequence attends to all S_enc rows."""
     h = apply_norm(p["norm1"], x)
     pos1 = torch.full((1,), position, device=x.device)
     q, k, v = _qkv(p, h, cfg, pos1)
@@ -406,6 +478,13 @@ def _decode_attn(p, x, cfg, cache, position: int, enc_kv=None):
                          device=x.device)
     o = ops.decode_attention(q, ck, cv, lengths)
     x = x + torch.einsum("bshe,hed->bsd", o, p["wo"])
+    if "xwq" in p and enc_kv is not None:
+        hx = apply_norm(p["xnorm"], x)
+        xq = torch.einsum("bsd,dhe->bshe", hx, p["xwq"])
+        enc_len = torch.full((x.shape[0],), enc_kv["k"].shape[1],
+                             dtype=torch.int32, device=x.device)
+        xo = ops.decode_attention(xq, enc_kv["k"], enc_kv["v"], enc_len)
+        x = x + torch.einsum("bshe,hed->bsd", xo, p["xwo"])
     h2 = apply_norm(p["norm2"], x)
     if "moe" in p:
         y, _ = moe_lib.apply_moe(p["moe"], h2, cfg, LOCAL_CTX)
@@ -439,8 +518,22 @@ def _decode_block(kind, p, x, cfg, cache, position: int, enc_kv=None):
 
 
 def build_enc_kv(params, enc_out, cfg):
-    """Cross-attention K/V of encoder-decoder models: not ported."""
-    raise _not_ported("encoder-decoder decode (build_enc_kv)", "A5")
+    """Per-decoder-layer cross-attention K/V from the encoder's output:
+    {"groups": {"b<i>": {"k", "v"} of (G, B, S_enc, Hkv, D)}, "tail":
+    {"t<i>": {"k", "v"} of (B, S_enc, Hkv, D)}}.  Each group's K/V is a
+    contiguous slice, so ``_tree_index`` hands decode views, not
+    copies."""
+    def one(bp):
+        return {"k": torch.einsum("bsd,dhe->bshe", enc_out, bp["xwk"]),
+                "v": torch.einsum("bsd,dhe->bshe", enc_out, bp["xwv"])}
+
+    groups = {
+        name: _tree_stack([one(_tree_index(stack, g))
+                           for g in range(cfg.num_groups())])
+        for name, stack in params["blocks"].items()
+    }
+    tail = {name: one(bp) for name, bp in params.get("tail", {}).items()}
+    return {"groups": groups, "tail": tail}
 
 
 def decode_step(params, token, cache, position, cfg,
@@ -448,20 +541,22 @@ def decode_step(params, token, cache, position, cfg,
     """token (B,1) int; position: the new token's position, a Python int
     or a 0-d tensor (read once, here, so every layer's key range is known
     on the host).  Returns (logits (B,1,V), cache); the cache is the one
-    passed in, updated in place."""
-    if cache.get("enc_kv") is not None:
-        raise _not_ported("encoder-decoder decode (enc_kv)", "A5")
+    passed in, updated in place.  An encoder-decoder model's
+    ``cache["enc_kv"]`` (built by ``prefill``) is read, never written."""
     position = int(position)
+    enc_kv = cache.get("enc_kv") or {"groups": {}, "tail": {}}
     x = embed_tokens(params, token, cfg)
     for g in range(cfg.num_groups()):
         gp = _tree_index(params["blocks"], g)
         gc = _tree_index(cache["groups"], g)
+        genc = _tree_index(enc_kv["groups"], g)
         for i, kind in enumerate(cfg.block_pattern):
             x, _ = _decode_block(kind, gp[f"b{i}"], x, cfg, gc[f"b{i}"],
-                                 position)
+                                 position, genc.get(f"b{i}"))
     for i, kind in enumerate(cfg.tail_pattern()):
         x, _ = _decode_block(kind, params["tail"][f"t{i}"], x, cfg,
-                             cache["tail"][f"t{i}"], position)
+                             cache["tail"][f"t{i}"], position,
+                             enc_kv["tail"].get(f"t{i}"))
     x = apply_norm(params["final_norm"], x)
     return unembed(params, x, cfg), cache
 

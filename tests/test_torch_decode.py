@@ -521,8 +521,40 @@ def test_prefill_ignores_an_int8_cache_dtype(models):
 
 
 def test_encoder_decoder_decode_says_so():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tr.build_enc_kv({}, None, reduced_config("seamless-m4t-medium"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tr.decode_step({}, None, {"enc_kv": {}}, 0,
-                       reduced_config("seamless-m4t-medium"))
+    """Ported now (tests/test_torch_encdec.py holds it whole): on reduced
+    seamless-m4t-medium in fp32, ``build_enc_kv`` and two decode steps
+    through ``cache["enc_kv"]`` match the reference's."""
+    arch = "seamless-m4t-medium"
+    ref_cfg = dataclasses.replace(ref_reduced_config(arch),
+                                  param_dtype="float32")
+    cfg = dataclasses.replace(reduced_config(arch), param_dtype="float32")
+    ref_params = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float32),
+        ref_tr.init_params(ref_cfg, jax.random.PRNGKey(0)))
+    params = from_jax_params(
+        jax.tree_util.tree_map(np.asarray, ref_params), "cpu")
+    rng = np.random.default_rng(3)
+    toks = _tokens(cfg, 6, seed=3)
+    frames = rng.standard_normal(
+        (B, cfg.frontend.num_positions, cfg.frontend.embed_dim)).astype(
+            np.float32)
+    enc = rng.standard_normal((B, 8, cfg.d_model)).astype(np.float32)
+    want = _flat(ref_tr.build_enc_kv(ref_params, jnp.asarray(enc), ref_cfg))
+    got = _flat(tr.build_enc_kv(params, torch.from_numpy(enc), cfg))
+    assert got.keys() == want.keys()
+    for path, leaf in want.items():
+        _assert_close(got[path], leaf, "float32")
+    _, ref_cache = ref_tr.prefill(
+        ref_params, {"tokens": jnp.asarray(toks[:, :4]),
+                     "frontend": jnp.asarray(frames)}, ref_cfg, pad_to=6)
+    _, cache = tr.prefill(params, {"tokens": torch.from_numpy(toks[:, :4]),
+                                   "frontend": torch.from_numpy(frames)},
+                          cfg, pad_to=6)
+    ref_step = _ref_step(ref_cfg)
+    for t in (4, 5):
+        want, ref_cache = ref_step(ref_params, jnp.asarray(toks[:, t:t + 1]),
+                                   ref_cache, jnp.int32(t))
+        got, cache = tr.decode_step(params, torch.from_numpy(
+            toks[:, t:t + 1]), cache, t, cfg)
+        _assert_close(got[..., :cfg.vocab_size], _valid(want, cfg),
+                      "float32")

@@ -245,17 +245,27 @@ def test_run_layer_range_matches(models, arch, dtype):
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "seamless-m4t-medium"])
 def test_unported_blocks_say_so(arch):
-    """The encoder-decoder still raises; Mixture-of-Experts is ported
-    (tests/test_torch_moe.py) and initialises on the CPU."""
+    """Both are ported now and initialise on the CPU: Mixture-of-Experts
+    (tests/test_torch_moe.py) and the encoder-decoder
+    (tests/test_torch_encdec.py), whose tree has the reference's paths,
+    shapes and dtypes (``jax.eval_shape`` of its ``init_params``)."""
     cfg = reduced_config(arch)
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert all(t.device.type == "cpu" for t in _flat(params).values())
     if cfg.moe is not None:
-        params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         assert set(params["blocks"]["b0"]["moe"]) == {
             "router", "w_gate", "w_up", "w_down"}
-        assert all(t.device.type == "cpu" for t in _flat(params).values())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ref_cfg = ref_reduced_config(arch)
+    want = _flat(jax.eval_shape(lambda key: ref_tr.init_params(ref_cfg, key),
+                                jax.random.PRNGKey(0)))
+    got = _flat(params)
+    assert got.keys() == want.keys()
+    for path, leaf in want.items():
+        assert tuple(got[path].shape) == leaf.shape, path
+        assert got[path].dtype == getattr(torch, str(leaf.dtype)), path
+    assert ("encoder", "final_norm", "scale") in got
+    assert ("blocks", "b0", "xwq") in got
 
 
 # --------------------------------------------------------------------------
