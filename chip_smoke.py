@@ -76,11 +76,36 @@ drives the port's serving paths, each at full published width:
     ``enc_kv``, the decode kernel held to its plain version on the served
     ``enc_kv``, and request 0 decoded in bf16 and fp32 against the
     one-machine forward, its last steps profiled (``encdec_decode``).
-  * RegNet-Y-128GF, the paper's classifier (phase ``regnet``), after
-    the encoder-decoder's weights are freed: one 384 x 384 image through
-    the forward and split at each point of paper Table 1, the activation
-    through the host, held to the forward; its segments and forward
-    timed at batch 1 and 8.
+  * the modality frontend of a decoder-only model (internvl2-1b, 24
+    attention layers, 14 query heads on 2 kv heads of 64, qkv biases,
+    bf16; the vision tower a stub whose 256 patch embeddings are drawn at
+    random), after the encoder-decoder's weights are freed: the flash
+    kernel held to its plain version and timed at its prefill layout,
+    then 4 requests of 256 patches and 1792 text tokens split at g = 12,
+    the patches prepended at the cloud's embedding, held to a one-machine
+    forward of the same batch, and request 0 prefilled and decoded 8
+    steps in bf16 and fp32, the fp32 decode held to the fp32 forward
+    (phase ``frontend_serve``);
+  * RegNet-Y-128GF, the paper's classifier (phase ``regnet``): one 384 x
+    384 image through the forward and split at each point of paper Table
+    1, the activation through the host, held to the forward; its
+    segments and forward timed at batch 1 and 8;
+  * training, outside inference mode (an inference tensor cannot be
+    saved for backward): the backwards of flash attention (at
+    h2o-danube-1.8b's training layout, d = 80, after its forward and
+    row log-sum-exp are held to the plain version's, and at the layout
+    of the reference's flash VJP test), the RG-LRU scan (RecurrentGemma-9B's
+    scan shape) and the SSD scan (Mamba-2-780M's, batch 2), each held
+    against autograd through the plain version in fp32 and bf16 and
+    timed beside it, flash beside SDPA's backward (phase
+    ``train_kernels``); then h2o-danube-1.8b (24 layers, d 2560, window
+    4096) and Mamba-2-780M (48 SSD layers) at full width, each trained 4
+    steps of 2 x 4096 tokens from ``data.pipeline`` through the port's
+    ``make_train_step`` (bf16 parameters, fp32 AdamW state, each group's
+    blocks recomputed in the backward pass), step 0's loss held to a
+    no-grad forward, the first two layers' fp32 gradients through the
+    kernels held leaf by leaf to the plain versions', one more step
+    profiled (``train_danube``, ``train_mamba``).
 
 Each phase prints one JSON line (``total``: the script's own time, the
 kernels' build included).  The line before the last two is
@@ -325,6 +350,57 @@ ENCDEC_PARAMETER_BYTES = 1_762_115_584
 ENCDEC_FP32_BLOCKS = 2
 
 
+# The modality frontend of a decoder-only model (phase frontend_serve):
+# full-width internvl2-1b, uncut (24 attention layers, 14 query heads on 2
+# kv heads of 64, qkv biases, vocabulary 151,655; the vision tower a stub
+# whose 256 patch embeddings of 896 are drawn at random and prepended to
+# the text), 4 requests of 1792 text tokens (2048 positions with the
+# patches) split at group 12 of 24, then request 0 prefilled and decoded
+# FRONTEND_DECODE_STEPS steps after its patches and text.
+FRONTEND_ARCH = "internvl2-1b"
+FRONTEND_SPLIT = 12
+FRONTEND_TEXT = 1792
+FRONTEND_DECODE_STEPS = 8
+# jax.eval_shape of the reference's init_params for this config
+FRONTEND_PARAMETERS = 633_149_312
+FRONTEND_PARAMETER_BYTES = 1_266_441_728
+
+# Training on the card (phases train_kernels, train_danube, train_mamba),
+# outside inference mode: TRAIN_STEPS steps of the port's make_train_step
+# (train_forward with each group's blocks recomputed in the backward pass,
+# the backward, AdamW with fp32 masters) on TRAIN_BATCH x TRAIN_SEQ tokens
+# of data.pipeline.batch_for_config, at full width, bf16 parameters; one
+# more step profiled.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 4
+DANUBE_ARCH = "h2o-danube-1.8b"
+TRAIN_SSD_ARCH = SSD_ARCH
+# jax.eval_shape of the reference's init_params for h2o-danube-1.8b
+DANUBE_PARAMETERS = 1_835_133_440
+DANUBE_PARAMETER_BYTES = 3_670_517_760
+# the backwards against autograd through the plain versions, as the
+# relative L2 error of each gradient (written before the first run on
+# the card).  fp32: the kernels' forwards sit within a few 1e-6 of the
+# plain versions and both backwards are fp32 arithmetic (a CPU run of the
+# flash backward: 3e-7).  bf16 flash: the output is rounded to bf16 and
+# the backward's delta = sum(do * o) is taken from that o where autograd
+# of the plain version uses its exact softmax (a CPU run: 1.4e-3)
+FLASH_BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the forward's row log-sum-exp against the plain version's, absolute
+FLASH_LSE_ATOL = {torch.float32: 2e-5, torch.bfloat16: 5e-4}
+RGLRU_BWD_REL_L2 = 1e-5
+SSD_BWD_REL_L2 = 1e-4
+# the flash backward at h2o-danube-1.8b's training layout and at the
+# layout of tests/test_kernels.py::test_flash_custom_vjp_grads:
+# (B, Sq, Skv, Hq, Hkv, D, causal, window)
+FLASH_REF_TEST_LAYOUT = (2, 256, 256, 4, 2, 64, True, 0)
+# step 0's loss against a no_grad train_forward of the same batch, and
+# the fp32 copy of the first TRAIN_FP32_LAYERS layers at full width:
+# every leaf's gradient through the kernels against the same through
+# the plain versions (request 0), relative L2
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_FP32_LAYERS = 2
+TRAIN_FP32_GRAD_REL_L2 = 2e-4
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -398,7 +474,9 @@ def phase_build() -> None:
          decode_occupancy=decode_occ, ssd_ptxas=ssd, int8_ptxas=int8)
     if not info.compiled:
         raise RuntimeError("the kernel library was not built in this run")
-    for name, report, count in (("flash", flash, 6), ("decode", decode, 7),
+    # flash: bf16 at d <= 64, 128, 256 and, writing the lse, at d <= 64,
+    # 128; fp32 at the three classes
+    for name, report, count in (("flash", flash, 8), ("decode", decode, 7),
                                 ("ssd", ssd, 4), ("int8", int8, 2)):
         if len(report) != count or any(f.get("spill_store_bytes", 1)
                                        or f.get("spill_load_bytes", 1)
@@ -1146,6 +1224,21 @@ def _layers_run(cfg, start: int, stop: int, cross: bool = False) -> dict:
     return {"flash_attention": kinds.count("attn") * (2 if cross else 1),
             "decode_attention": 0, "rglru_scan": kinds.count("rec"),
             "ssd_scan": kinds.count("ssd")}
+
+
+def _train_launches(cfg) -> dict:
+    """Kernel launches one train step makes: each group's layers twice
+    (the forward, and again where the backward recomputes the group), the
+    tail's once (it is not recomputed); of the backwards, torch code, only
+    the RG-LRU's launches its scan, once a layer."""
+    groups = list(cfg.block_pattern) * cfg.num_groups()
+    tail = list(cfg.tail_pattern())
+
+    def runs(kind):
+        return 2 * groups.count(kind) + tail.count(kind)
+    return {"flash_attention": runs("attn"), "decode_attention": 0,
+            "rglru_scan": runs("rec") + (groups + tail).count("rec"),
+            "ssd_scan": runs("ssd")}
 
 
 def _prefill_launches(cfg) -> dict:
@@ -2821,6 +2914,582 @@ def phase_encdec_decode(cfg, params, tokens, frames, entries: dict) -> None:
                        kernel_layouts=layouts)
 
 
+# --------------------------------------------------------------------------
+# The modality frontend of a decoder-only model: internvl2-1b
+# --------------------------------------------------------------------------
+def flash_layout_check(gen, shape, layout: str, lse: bool = False) -> dict:
+    """The flash kernel at a model's attention layout (B, Sq, Skv, Hq,
+    Hkv, D, causal, window): held to its plain version in bf16 at batch B
+    and in fp32 at batch 1 (with ``lse``, the row log-sum-exp the
+    backward needs too), then timed in bf16 beside the plain version and
+    SDPA, with its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, Hq, Hkv, D, causal, window = shape
+    checks, inputs = [], None
+    for dtype, b in ((torch.bfloat16, B), (torch.float32, 1)):
+        q = torch.randn((b * Hq, Sq, D), generator=gen,
+                        device="cuda").to(dtype)
+        k, v = (torch.randn((b * Hkv, Skv, D), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        o, got_lse = fa._forward(q, k, v, causal=causal, window=window,
+                                 kv_len=Skv, scale=D ** -0.5, want_lse=lse)
+        torch.cuda.synchronize()
+        want, want_lse = fa.flash_attention_ref(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        atol, rtol = FLASH_TOL[dtype]
+        diff = o.float() - want.float()
+        check = {"batch": b, "dtype": str(dtype),
+                 "max_abs_err": float(diff.abs().max()),
+                 "rel_l2": float(diff.norm() / want.float().norm()),
+                 "atol": atol, "rtol": rtol,
+                 "out_std": float(want.float().std())}
+        ok = _within(o, want, atol, rtol) and bool(torch.isfinite(o).all())
+        if lse:
+            check["lse_max_abs_err"] = float((got_lse - want_lse).abs().max())
+            check["lse_atol"] = FLASH_LSE_ATOL[dtype]
+            ok = ok and check["lse_max_abs_err"] <= FLASH_LSE_ATOL[dtype]
+        checks.append(check)
+        if not ok:
+            raise RuntimeError(f"flash_attention at the {layout} layout "
+                               f"{list(shape)} {dtype} disagrees with its "
+                               f"plain version: {check}")
+        if dtype == torch.bfloat16:
+            inputs = (q, k, v)
+        del o, want, diff, got_lse, want_lse
+    q, k, v = inputs
+
+    def run_kernel():
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+    def run_plain():
+        return fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    def run_library():
+        # a yardstick only: the port never calls it (the window, where
+        # there is one, spans the whole sequence)
+        return F.scaled_dot_product_attention(
+            q.view(B, Hq, Sq, D), k.view(B, Hkv, Skv, D),
+            v.view(B, Hkv, Skv, D), is_causal=causal, enable_gqa=True)
+    if window and window < Sq:
+        raise RuntimeError(f"{layout}: SDPA's causal mask is not the window")
+    times = time_in_turns(run_kernel, run_plain, run_library)
+    bound_ms, bound_by, nbytes, flops = flash_bound(
+        B, Hq, Hkv, Sq, Skv, D, causal, window, q.element_size())
+    return {"layout": layout, "shape": list(shape), "dtype": "bfloat16",
+            "checks": checks, **times, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_call": "F.scaled_dot_product_attention(is_causal, "
+                            "enable_gqa=True)",
+            "timed": f"one {layout} attention layer, bf16; kernel and SDPA "
+                     "median of 5 x 2 calls, plain version of 3 x 1; best "
+                     "of 2", "bytes": nbytes, "flops": flops}
+
+
+def frontend_decode(params, cfg, tokens, frames, prompt: int, steps: int):
+    """Request 0's patches and ``prompt`` text tokens prefilled into a
+    cache of P + prompt + steps rows, then ``steps`` teacher-forced
+    decode steps at positions after the patches; the launch counts set to
+    0 just before and read after each part.  Returns (last logits,
+    record)."""
+    from repro_torch.models import transformer as tr
+    P = frames.shape[1]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = tr.prefill(params, {"tokens": tokens[:, :prompt],
+                                   "frontend": frames}, cfg,
+                          pad_to=P + prompt + steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prefill_launches = launch_counts()
+    marks, logits = [], None
+    for t in range(prompt, prompt + steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = tr.decode_step(params, tokens[:, t:t + 1], cache,
+                                       P + t, cfg)
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    record = {"prompt": [P, prompt], "steps": steps,
+              "prefill_seconds": t1 - t0, "decode_seconds": decode_s,
+              "step_ms_median": statistics.median(step_ms),
+              "step_ms": step_ms,
+              "launches": {"prefill": prefill_launches,
+                           "decode": launches_since(prefill_launches)}}
+    want = {"prefill": _prefill_launches(cfg),
+            "decode": _decode_step_launches(cfg, steps)}
+    if record["launches"] != want:
+        raise RuntimeError(f"frontend prefill + decode launched "
+                           f"{record['launches']}, expected {want}")
+    return logits, record
+
+
+def phase_frontend_serve() -> None:
+    """internvl2-1b at full width: the flash kernel at its prefill layout
+    (GQA 7, d = 64) held to its plain version first; 4 requests of 256
+    patch embeddings and 1792 text tokens through the layer split at g =
+    12, the patches entering at the cloud's embedding, held to a
+    one-machine forward_hidden of the same batch; request 0 prefilled and
+    decoded FRONTEND_DECODE_STEPS steps in bf16 and fp32, the fp32 decode
+    held to the fp32 forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.segmentation import hidden_payload_bytes
+    from repro_torch.core.transport import WAN_LINK
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import LayerSplitDevice, LayerSplitEngine
+    c = get_config(FRONTEND_ARCH)
+    P, E = c.frontend.num_positions, c.frontend.embed_dim
+    S = P + FRONTEND_TEXT
+    flash = flash_layout_check(
+        torch.Generator(device="cuda").manual_seed(SEED),
+        (LM_BATCH, S, S, c.num_heads, c.num_kv_heads, c.resolved_head_dim(),
+         True, 0), "internvl2-1b prefill")
+    cfg, params, info = init_full_width(FRONTEND_ARCH, FRONTEND_PARAMETERS,
+                                        FRONTEND_PARAMETER_BYTES)
+    G, V = cfg.num_groups(), cfg.vocab_size
+    if (cfg.block_pattern != ("attn",) or cfg.tail_pattern()
+            or "frontend_proj" in params
+            or "bq" not in params["blocks"]["b0"]):
+        raise RuntimeError(f"{FRONTEND_ARCH}: expected {G} attention layers "
+                           "with qkv biases, no tail, patches of the model's "
+                           "width")
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, V, (LM_BATCH, FRONTEND_TEXT +
+                                 FRONTEND_DECODE_STEPS)).astype(np.int32)
+    frames = rng.standard_normal((LM_BATCH, P, E)).astype(np.float32)
+    batch = {"tokens": tokens[:, :FRONTEND_TEXT], "frontend": frames}
+
+    # the main path, the layer split: counts set to 0 just before, read
+    # just after; each side warms up once, then runs timed
+    cloud = LayerSplitEngine(params, cfg, link=WAN_LINK, device="cuda")
+    device = LayerSplitDevice(params, cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    payload, t_net = cloud.process(batch, FRONTEND_SPLIT)
+    logits = device.complete(payload, FRONTEND_SPLIT)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    expected = {k: 2 * n for k, n in _layers_run(cfg, 0, G).items()}
+    if launches != expected:
+        raise RuntimeError(f"frontend split launched {launches}, expected "
+                           f"{expected}")
+    want_bytes = hidden_payload_bytes(cfg, LM_BATCH, S, 2)
+    if payload.nbytes != want_bytes or payload.shape[1] != S:
+        raise RuntimeError(f"frontend split shipped {payload.shape} "
+                           f"({payload.nbytes} B), expected {S} positions "
+                           f"in {want_bytes} B")
+    sides = {name: {k: side.stats[k] for k in ("gpu_seconds",
+                                               "compile_seconds")}
+             for name, side in (("cloud", cloud), ("device", device))}
+    peak = torch.cuda.max_memory_allocated()
+    del cloud, device
+
+    # one machine, the same batch
+    tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    hidden, _, _ = tr.forward_hidden(params, tb, cfg,
+                                     kernels=ops.kernel_registry())
+    want = tr.unembed(params, hidden[:, -1:], cfg)
+    del hidden
+    err = float((logits.float() - want.float()).abs().max())
+    if not bool(torch.isfinite(logits).all()) or not _within(
+            logits, want, LM_SPLIT_ATOL, LM_SPLIT_RTOL):
+        raise RuntimeError(f"frontend split logits differ from the "
+                           f"one-machine forward by {err}")
+
+    # request 0: prefill + decode after its patches, bf16 and fp32
+    steps = np.random.default_rng(SEED + 1).integers(
+        0, V, (1, FRONTEND_DECODE_STEPS)).astype(np.int32)
+    toks0 = torch.from_numpy(np.concatenate(
+        [tokens[:1, :FRONTEND_TEXT], steps], axis=1)).cuda()
+    frames0 = tb["frontend"][:1]
+    decoded, record = frontend_decode(params, cfg, toks0, frames0,
+                                      FRONTEND_TEXT, FRONTEND_DECODE_STEPS)
+    whole = {"tokens": toks0, "frontend": frames0}
+    hidden, _, _ = tr.forward_hidden(params, whole, cfg)
+    want_dec = tr.unembed(params, hidden[:, -1:], cfg)
+    params32 = _tree_map(lambda t: t.float(), params)
+    decoded32, record32 = frontend_decode(params32, cfg, toks0, frames0,
+                                          FRONTEND_TEXT,
+                                          FRONTEND_DECODE_STEPS)
+    hidden, _, _ = tr.forward_hidden(params32, whole, cfg)
+    want32 = tr.unembed(params32, hidden[:, -1:], cfg)
+    del hidden, params32
+    torch.cuda.empty_cache()
+    for t in (decoded, want_dec, decoded32, want32):
+        if not bool(torch.isfinite(t[..., :V]).all()):
+            raise RuntimeError("frontend_serve: non-finite logits")
+    held = _rel_l2(decoded32, want32, V)
+    emit("frontend_serve", **info, batch=LM_BATCH, patches=[P, E],
+         text=FRONTEND_TEXT, positions=S, groups=G, group=FRONTEND_SPLIT,
+         heads=[cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()],
+         flash=flash, serve_seconds=serve_s, sides=sides,
+         payload_bytes=payload.nbytes, t_net_seconds=t_net,
+         launches=launches, launches_expected=expected,
+         peak_memory_bytes=peak, split_logit_max_abs_err=err,
+         split_atol=LM_SPLIT_ATOL, split_rtol=LM_SPLIT_RTOL,
+         decode=record, fp32={k: record32[k] for k in (
+             "prefill_seconds", "step_ms_median", "launches")},
+         fp32_decode_vs_forward_rel_l2=held,
+         limit_fp32_rel_l2=DECODE_FP32_REL_L2,
+         bf16_decode_vs_forward_rel_l2=_rel_l2(decoded, want_dec, V),
+         bf16_decode_vs_fp32_forward_rel_l2=_rel_l2(decoded, want32, V))
+    if not held <= DECODE_FP32_REL_L2:
+        raise RuntimeError(f"frontend_serve: fp32 decode against the fp32 "
+                           f"forward: relative L2 error {held} > "
+                           f"{DECODE_FP32_REL_L2}")
+
+
+# --------------------------------------------------------------------------
+# Training: the kernels' backwards, then h2o-danube-1.8b and Mamba-2-780M
+# --------------------------------------------------------------------------
+def _grads_of(fn, inputs, cot):
+    """Gradients of ``fn(*inputs)`` (a tensor or tuple) for the
+    cotangent(s) ``cot``, and a closure that reruns only the backward."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    cots = cot if isinstance(cot, tuple) else (cot,)
+
+    def backward():
+        return torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+    return backward(), backward
+
+
+def _rel_errs(got, want) -> list:
+    return [float((g.float() - w.float()).norm() / w.float().norm())
+            for g, w in zip(got, want)]
+
+
+def _time_backwards(kernel_bwd, plain_bwd, library_bwd=None) -> dict:
+    """CUDA-event medians of the backwards alone (their graphs built
+    once): plain, kernel, kernel, plain, the best of each pair; then the
+    library's."""
+    plain_a = time_ms(plain_bwd, inner=1, samples=3)
+    kern_a = time_ms(kernel_bwd, inner=1, samples=5)
+    kern_b = time_ms(kernel_bwd, inner=1, samples=5)
+    plain_b = time_ms(plain_bwd, inner=1, samples=3)
+    return {"ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+            "library_ms": (None if library_bwd is None else
+                           time_ms(library_bwd, inner=1, samples=5))}
+
+
+def flash_bwd_bound(B, Hq, Hkv, Sq, Skv, d, causal, window, itemsize):
+    """Least time for the backward: q, k, v, o, do and lse read, dq, dk,
+    dv written once; 10 d operations (the five products: scores again,
+    dv, dp, dq, dk) for each unmasked (query, key) pair at the inputs'
+    tensor-core rate."""
+    _, _, _, flops = flash_bound(B, Hq, Hkv, Sq, Skv, d, causal, window,
+                                 itemsize)
+    flops *= 2.5
+    nbytes = ((4 * B * Hq * Sq * d + 4 * B * Hkv * Skv * d) * itemsize
+              + 4 * B * Hq * Sq)
+    rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def flash_backward_entry(gen, shape, layout: str) -> dict:
+    """The flash backward (``FlashAttention``: the kernel's forward with
+    its lse, the torch backward) against autograd through the plain
+    version, fp32 at batch 1 and bf16 at batch B, each gradient's
+    relative L2 error within FLASH_BWD_REL_L2; the bf16 backward timed
+    beside the plain version's and SDPA's backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, Hq, Hkv, D, causal, window = shape
+    checks, timed = [], None
+    for dtype, b in ((torch.float32, 1), (torch.bfloat16, B)):
+        def n(rows, heads):
+            return torch.randn((b * heads, rows, D), generator=gen,
+                               device="cuda").to(dtype)
+        q, k, v, do = n(Sq, Hq), n(Skv, Hkv), n(Skv, Hkv), n(Sq, Hq)
+
+        def kernel(q, k, v):
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain(q, k, v):
+            return fa.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window)
+        got, kernel_bwd = _grads_of(kernel, (q, k, v), do)
+        want, plain_bwd = _grads_of(plain, (q, k, v), do)
+        errs = _rel_errs(got, want)
+        checks.append({"batch": b, "dtype": str(dtype),
+                       "rel_l2": dict(zip("qkv", errs)),
+                       "limit": FLASH_BWD_REL_L2[dtype]})
+        if not max(errs) <= FLASH_BWD_REL_L2[dtype] or not all(
+                bool(torch.isfinite(g).all()) for g in got):
+            raise RuntimeError(f"flash backward at the {layout} layout "
+                               f"{dtype}: {checks[-1]}")
+        if dtype == torch.bfloat16:
+            sq = q.view(B, Hq, Sq, D)
+            sk, sv = k.view(B, Hkv, Skv, D), v.view(B, Hkv, Skv, D)
+            _, sdpa_bwd = _grads_of(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True),
+                (sq, sk, sv), do.view(B, Hq, Sq, D))
+            timed = _time_backwards(kernel_bwd, plain_bwd, sdpa_bwd)
+        del got, want, kernel_bwd, plain_bwd
+    if window and window < Sq:
+        raise RuntimeError(f"{layout}: SDPA's causal mask is not the window")
+    bound_ms, bound_by, nbytes, flops = flash_bwd_bound(
+        B, Hq, Hkv, Sq, Skv, D, causal, window, 2)
+    return {"layout": layout, "shape": list(shape), "checks": checks,
+            **timed, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_call": "backward of F.scaled_dot_product_attention("
+                            "is_causal, enable_gqa=True)",
+            "timed": "the backward alone (its graph built once), bf16; "
+                     "median of 5 calls (plain 3); best of 2",
+            "bytes": nbytes, "flops": flops}
+
+
+def rglru_backward_entry(gen) -> dict:
+    """The RG-LRU backward (the same kernel on the reversed, one-shifted
+    a and the reversed dh) at RecurrentGemma-9B's scan shape, with h0,
+    against autograd through the plain associative scan; timed."""
+    from repro_torch.kernels import rglru_scan as lru
+    B, S, W = lm_path_shapes()[2]
+    a = torch.rand((B, S, W), generator=gen, device="cuda") * 0.5 + 0.5
+    b, h0 = (torch.randn(s, generator=gen, device="cuda")
+             for s in ((B, S, W), (B, W)))
+    dh = torch.randn((B, S, W), generator=gen, device="cuda")
+    got, kernel_bwd = _grads_of(lru.rglru_scan, (a, b, h0), dh)
+    want, plain_bwd = _grads_of(lru.rglru_scan_ref, (a, b, h0), dh)
+    errs = _rel_errs(got, want)
+    if not max(errs) <= RGLRU_BWD_REL_L2:
+        raise RuntimeError(f"rglru backward: relative L2 errors {errs}")
+    times = _time_backwards(kernel_bwd, plain_bwd)
+    # a, h, dh read, da, db written (h0 and dh0 are one step); the
+    # reverse scan's two operations and two products an element
+    nbytes = 5 * B * S * W * 4
+    t_bytes, t_ops = (nbytes / HBM_BYTES_PER_S,
+                      4 * B * S * W / FP32_FLOP_PER_S)
+    return {"shape": [B, S, W], "rel_l2": dict(zip(("a", "b", "h0"), errs)),
+            "limit": RGLRU_BWD_REL_L2, **times,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "timed": "the backward alone, fp32; median of 5 calls (plain "
+                     "3); best of 2"}
+
+
+def ssd_backward_entry(gen) -> dict:
+    """The SSD backward (the kernel's forward, the vjp of the plain
+    chunked scan recomputed from its inputs) at Mamba-2-780M's training
+    shape (batch 2), with init_state, against autograd through the plain
+    chunked scan; timed."""
+    from repro_torch.kernels import ssd_scan as ssd
+    b, S, H, P, G, N, Q = ssd_path_shape()
+    b = TRAIN_BATCH
+
+    def normal(*s, scale=1.0):
+        return torch.randn(s, generator=gen, device="cuda") * scale
+    x, Bm, Cm = normal(b, S, H, P), normal(b, S, G, N), normal(b, S, G, N)
+    dt = torch.rand((b, S, H), generator=gen, device="cuda") * 0.1 + 0.01
+    A = -(torch.rand((H,), generator=gen, device="cuda") + 0.5)
+    st = normal(b, H, P, N)
+    cots = (normal(b, S, H, P), normal(b, H, P, N))
+    inputs = (x, dt, A, Bm, Cm, st)
+    got, kernel_bwd = _grads_of(
+        lambda *t: ssd.ssd_scan(*t[:5], chunk_size=Q, init_state=t[5]),
+        inputs, cots)
+    want, plain_bwd = _grads_of(
+        lambda *t: ssd.ssd_chunked_ref(*t[:5], Q, t[5]), inputs, cots)
+    errs = _rel_errs(got, want)
+    names = ("x", "dt", "A", "Bm", "Cm", "init_state")
+    if not max(errs) <= SSD_BWD_REL_L2:
+        raise RuntimeError(f"ssd backward: relative L2 errors "
+                           f"{dict(zip(names, errs))}")
+    times = _time_backwards(kernel_bwd, plain_bwd)
+    _, _, nbytes, flops, _ = ssd_bound(b, S, H, P, G, N, Q, with_init=True)
+    # the vjp of each product is two products: twice the forward's
+    # operations, over inputs, cotangents and gradients of the forward's
+    # bytes twice over
+    t_bytes, t_ops = 2 * nbytes / HBM_BYTES_PER_S, 2 * flops / FP32_FLOP_PER_S
+    return {"shape": [b, S, H, P, G, N, Q],
+            "rel_l2": dict(zip(names, errs)), "limit": SSD_BWD_REL_L2,
+            **times, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "timed": "the backward alone, fp32; median of 5 calls (plain "
+                     "3); best of 2"}
+
+
+def phase_train_kernels() -> dict:
+    """Each backward the training phases run, against autograd through
+    the plain version on the card: flash at h2o-danube-1.8b's training
+    layout (its forward and lse first: the kernel never ran d = 80
+    before) and at the reference test's layout, the RG-LRU scan, the SSD
+    scan.  Returns the entries."""
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    c = get_config(DANUBE_ARCH)
+    danube = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, c.num_heads,
+              c.num_kv_heads, c.resolved_head_dim(), True, c.window)
+    t0 = time.perf_counter()
+    forward = flash_layout_check(gen, danube, "h2o-danube-1.8b training",
+                                 lse=True)
+    entries = {
+        "flash_forward": forward,
+        "flash": flash_backward_entry(gen, danube, "h2o-danube-1.8b "
+                                      "training"),
+        "flash_ref_test": flash_backward_entry(
+            gen, FLASH_REF_TEST_LAYOUT, "tests/test_kernels.py flash vjp"),
+        "rglru_scan": rglru_backward_entry(gen),
+        "ssd_scan": ssd_backward_entry(gen)}
+    torch.cuda.empty_cache()
+    emit("train_kernels", seconds=time.perf_counter() - t0, **entries)
+    return entries
+
+
+def _first_layers(cfg, params, n: int):
+    """The config and an fp32 copy of the tree cut to the first ``n``
+    layers (groups of a one-kind pattern), at full width."""
+    cfg_n = dataclasses.replace(cfg, num_layers=n, param_dtype="float32")
+    tree = {k: v for k, v in params.items() if k != "blocks"}
+    tree["blocks"] = _tree_map(lambda t: t[:n], params["blocks"])
+    return cfg_n, _tree_map(lambda t: t.float(), tree)
+
+
+def train_fp32_check(cfg, params, batch, kernel: str) -> dict:
+    """The first TRAIN_FP32_LAYERS layers in fp32 on request 0: every
+    leaf's gradient through the kernels against the same through the
+    plain versions, relative L2."""
+    from repro_torch.train.train_loop import value_and_grad
+    cfg_n, tree = _first_layers(cfg, params, TRAIN_FP32_LAYERS)
+    b0 = {k: v[:1] for k, v in batch.items()}
+    (loss, _), got = value_and_grad(cfg_n, tree, b0)
+    with plain_versions(kernel):
+        (loss_p, _), want = value_and_grad(cfg_n, tree, b0)
+    errs = {}
+    for (path, g), w in zip(_paths(got), _leaves(want)):
+        errs[path] = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    worst = max(errs, key=errs.get)
+    out = {"layers": TRAIN_FP32_LAYERS, "loss": float(loss),
+           "loss_plain": float(loss_p), "worst_leaf": worst,
+           "worst_rel_l2": errs[worst], "limit": TRAIN_FP32_GRAD_REL_L2,
+           "leaves": len(errs)}
+    if not errs[worst] <= TRAIN_FP32_GRAD_REL_L2:
+        raise RuntimeError(f"fp32 gradients through {kernel} against its "
+                           f"plain version: {out}")
+    return out
+
+
+def _paths(tree: dict, prefix: str = "") -> list:
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += _paths(v, f"{prefix}{k}/")
+        else:
+            out.append((prefix + k, v))
+    return out
+
+
+def profile_train_step(step_fn, params, opt_state, batch) -> dict:
+    """One more train step under ``torch.profiler``: device time by
+    class, the idle share over the step, the trace held to the kernels
+    the wrappers enqueued."""
+    from repro_torch.serving import profile_split as ps
+    counts, kernels = ps.wrapper_counts(), ps.kernel_counts()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = ps._check_trace({
+        "wall_seconds": wall, "loss": float(metrics["loss"]),
+        "wrapper_launches": ps._since(counts, ps.wrapper_counts()),
+        "wrapper_kernels": ps._since(kernels, ps.kernel_counts()),
+        **ps.summarize_trace(ps._trace_events(prof), wall)})
+    if out["device_seconds"] is None:
+        raise RuntimeError("the profiled train step shows no device time")
+    return out
+
+
+def phase_train(phase: str, arch: str, want_params: int,
+                want_bytes: int, kernel: str) -> None:
+    """``arch`` at full width in bf16 with fp32 AdamW state: the fp32
+    gradient check of its first layers, then TRAIN_STEPS steps of
+    make_train_step on batch_for_config's batches (launch counts set to 0
+    just before, read after each step), step 0's loss held to a no_grad
+    train_forward of the same batch, and one more step profiled."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+    cfg, params, info = init_full_width(arch, want_params, want_bytes)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, seed=SEED)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                batch_for_config(cfg, dc, s).items()}
+               for s in range(TRAIN_STEPS + 1)]
+    fp32 = train_fp32_check(cfg, params, batches[0], kernel)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        loss0, _ = tr.train_forward(params, batches[0], cfg)
+    loss0 = float(loss0)
+    opt_state = init_opt_state(params)
+    step_fn = make_train_step(cfg, TrainConfig(optimizer=AdamWConfig(
+        warmup_steps=2, total_steps=100)))
+    expected = _train_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for s in range(TRAIN_STEPS):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batches[s])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        steps.append({"step": s, "seconds": seconds,
+                      "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "lr": float(metrics["lr"]), "launches": launches})
+        if launches != expected:
+            raise RuntimeError(f"{phase}: step {s} launched {launches}, "
+                               f"expected {expected}")
+        if not (math.isfinite(steps[-1]["loss"])
+                and math.isfinite(steps[-1]["grad_norm"])):
+            raise RuntimeError(f"{phase}: step {s}: {steps[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    held = abs(steps[0]["loss"] - loss0) / abs(loss0)
+    prof = profile_train_step(step_fn, params, opt_state,
+                              batches[TRAIN_STEPS])
+    if prof["wrapper_launches"] != expected:
+        raise RuntimeError(f"{phase}: the profiled step launched "
+                           f"{prof['wrapper_launches']}, expected {expected}")
+    state_bytes = _nbytes({k: v for k, v in opt_state.items()
+                           if k != "step"})
+    del params, opt_state, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    warm = [st["seconds"] for st in steps[1:]]
+    emit(phase, **info, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         layers=cfg.num_layers, steps=steps,
+         step_seconds_median_warm=statistics.median(warm),
+         tokens_per_second=TRAIN_BATCH * TRAIN_SEQ / statistics.median(warm),
+         launches_per_step=expected, peak_memory_bytes=peak,
+         optimizer_state_bytes=state_bytes,
+         loss0_no_grad=loss0, loss0_rel_diff=held,
+         limit_loss0_rtol=TRAIN_LOSS_RTOL, fp32_gradients=fp32,
+         profile=prof)
+    if not held <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"{phase}: step 0's loss {steps[0]['loss']} "
+                           f"against the no_grad forward's {loss0}")
+
+
 def phase_replay(params, cfg) -> None:
     """The paper's scheduler end to end: the port's fleet simulator
     records the golden workload's decision trace, every plan is
@@ -3094,7 +3763,19 @@ def main() -> int:
                             encdec_entries)
         gc.collect()                 # seamless-m4t-medium's 1.8 GB
         torch.cuda.empty_cache()
+        phase_frontend_serve()
+        gc.collect()                 # internvl2-1b's 1.3 GB
+        torch.cuda.empty_cache()
         phase_regnet()
+    # training saves tensors for backward, which inference tensors cannot
+    # be: these phases build everything outside inference mode
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_kernels()
+    phase_train("train_danube", DANUBE_ARCH, DANUBE_PARAMETERS,
+                DANUBE_PARAMETER_BYTES, "flash_attention")
+    phase_train("train_mamba", TRAIN_SSD_ARCH, SSD_PARAMETERS,
+                SSD_PARAMETER_BYTES, "ssd_scan")
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels_line(
         kernel_entry, lm_entries["flash_attention"], lm_entries["rglru_scan"],

@@ -9,7 +9,7 @@ weights OIHW on both sides.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,52 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves_with_path(tree: Any) -> List[Tuple[tuple, Any]]:
+    """(path, leaf) pairs in ``jax.tree_util``'s order: dict keys sorted,
+    list and tuple items in order, ``None`` an empty subtree.  A path is
+    the tuple of keys and indices from the root."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [((k,) + path, leaf) for k in sorted(tree)
+                for path, leaf in tree_leaves_with_path(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [((i,) + path, leaf) for i, v in enumerate(tree)
+                for path, leaf in tree_leaves_with_path(v)]
+    return [((), tree)]
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves in ``jax.tree_util``'s order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
+    """``template``'s nesting with its leaves replaced, in
+    ``tree_leaves``' order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def keystr(path: tuple) -> str:
+    """A path as ``jax.tree_util.keystr`` writes it: ``['params']['blocks']
+    ['b0']['wq']`` for dict keys, ``[0]`` for sequence indices."""
+    return "".join(f"[{k!r}]" for k in path)
 
 
 def _leaf_to_torch(a, device: torch.device,
@@ -51,14 +97,17 @@ def from_jax_params(tree: Any, device: DeviceLike = None,
     return tree_map(lambda a: _leaf_to_torch(a, dev, dtype), tree)
 
 
-def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+def _leaf_to_numpy(t: torch.Tensor, bf16) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        # numpy has no bf16 of its own: the bits travel as uint16
+        return t.view(torch.uint16).numpy().view(bf16)
     return t.numpy()
 
 
-def to_numpy_params(tree: Any) -> Any:
-    """The way back: torch leaves -> numpy arrays, same nesting."""
-    return tree_map(_leaf_to_numpy, tree)
+def to_numpy_params(tree: Any, bf16=np.uint16) -> Any:
+    """The way back: torch leaves -> numpy arrays, same nesting.  A bf16
+    leaf comes back as its uint16 bits viewed as ``bf16``: the bits
+    themselves by default, or a caller's bf16 dtype such as
+    ``ml_dtypes.bfloat16`` (which the port does not import)."""
+    return tree_map(lambda t: _leaf_to_numpy(t, bf16), tree)

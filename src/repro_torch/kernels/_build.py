@@ -140,10 +140,10 @@ def load_library() -> ctypes.CDLL:
     # rows, widest row, stream
     lib.repro_int8_empty_launch.argtypes = [ll, ll, vp]
     lib.repro_int8_empty_launch.restype = ctypes.c_int
-    # q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal, window, scale,
-    # dtype, stream
+    # q, k, v, o, lse (or None), BHq, BHkv, Sq, Skv, d, kv_len, causal,
+    # window, scale, dtype, stream
     lib.repro_flash_attention.argtypes = [
-        vp, vp, vp, vp, ll, ll, ll, ll, ll, ll, ctypes.c_int, ll,
+        vp, vp, vp, vp, vp, ll, ll, ll, ll, ll, ll, ctypes.c_int, ll,
         ctypes.c_float, ctypes.c_int, vp]
     lib.repro_flash_attention.restype = ctypes.c_int
     # d, dtype -> smem bytes, blocks an SM, threads a block (out)
@@ -170,17 +170,19 @@ def load_library() -> ctypes.CDLL:
 
 
 def refuse_grad(what: str, *tensors) -> None:
-    """Raise where autograd would follow a kernel's inputs: the kernels
-    have no backward yet (ROADMAP A9), and a result filled through
-    ``ctypes`` carries no ``grad_fn``, so a loss taken through it would
-    get no gradient, without a word.  Called by each wrapper before it
-    launches on CUDA tensors; the plain versions on CPU tensors stay
-    differentiable."""
+    """Raise where autograd would follow the inputs of a kernel that has
+    no backward: a result filled through ``ctypes`` carries no
+    ``grad_fn``, so a loss taken through it would get no gradient,
+    without a word.  Decode attention and the int8 quantiser are never
+    differentiated (training runs flash attention and the scans, whose
+    wrappers are ``torch.autograd.Function``s); the decode wrapper calls
+    this before it launches on CUDA tensors."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in tensors):
-        raise RuntimeError(f"{what}: the CUDA kernel has no backward yet "
-                           "(ROADMAP A9); call it under torch.no_grad() or "
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward (it "
+                           "serves decode, which is never differentiated); "
+                           "call it under torch.no_grad() or "
                            "torch.inference_mode(), or on inputs that do "
                            "not require grad")
 

@@ -8,7 +8,15 @@
 //     s = (q . k) * scale, masked where k_pos >= kv_len, or (causal)
 //         k_pos > q_pos, or (window) k_pos <= q_pos - window
 //     o = sum_k softmax(s)_k v_k, with running max m, sum l and
-//         accumulator acc in fp32, o = acc / max(l, 1e-30).
+//         accumulator acc in fp32, o = acc / max(l, 1e-30);
+//     on request (a non-null lse), the row log-sum-exp
+//         lse (BHq, Sq) fp32 = m + log(max(l, 1e-30)),
+//     the residual of the backward pass, which recomputes p as
+//     exp(s - lse) (kernels/flash_attention.py::flash_attention_bwd).
+//     The bf16 kernel writes it from separate instantiations (kLse), at
+//     d <= 128 only: at d = 256 the kernel holds 255 registers, and the
+//     lse's epilogue made it spill 16 bytes (NVIDIA H100, nvcc 12.9), so
+//     the entry refuses an lse there and the wrapper refuses autograd.
 //
 // Bound: operations.  At the serving path's shape (64 q heads x 4096
 // rows, d = 256, causal, window 2048) the work is 4 * d * sum_q min(q+1,
@@ -139,12 +147,13 @@ __device__ __forceinline__ void load_rows(const uint32_t (&dst)[N],
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o, int BHq,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int BHq,
                             int n_qtiles, int group, int Sq, int Skv, int d,
                             int kv_len, int causal, int window,
                             float scale_log2) {
@@ -349,6 +358,16 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = __frcp_rn(fmaxf(l[i], 1e-30f));
+    // lse in natural units: m counts in units of log2(e) * scale * s; a
+    // row no key may see (m = -inf, o = 0) gets log(1e-30), so that the
+    // backward's exp(s - lse) is 0 on its masked scores
+    if constexpr (kLse) {
+      if ((lane & 3) == 0 && row + 8 * i < Sq) {
+        const float mb = m[i] == -INFINITY ? 0.f : m[i];
+        lse[static_cast<long long>(bh) * Sq + row + 8 * i] =
+            (mb + log2f(fmaxf(l[i], 1e-30f))) * 0.6931471805599453f;
+      }
+    }
   }
   const int r_lo = wrow + (lane >> 2);
 #pragma unroll
@@ -386,41 +405,41 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // Raise the instantiation's dynamic shared-memory limit, once a device.
-template <int D>
+template <int D, bool kLse>
 cudaError_t opt_in() {
   static unsigned long long done = 0;          // bit i: device i
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && (done >> dev & 1ULL)) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_attention_kernel<D>,
+  err = cudaFuncSetAttribute(flash_attention_kernel<D, kLse>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_bytes<D>()));
   if (err == cudaSuccess && dev < 64) done |= 1ULL << dev;
   return err;
 }
 
-template <int D>
+template <int D, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   long long BHq, long long BHkv, long long Sq, long long Skv,
-                   long long d, long long kv_len, int causal,
+                   float* lse, long long BHq, long long BHkv, long long Sq,
+                   long long Skv, long long d, long long kv_len, int causal,
                    long long window, float scale, cudaStream_t stream) {
   const long long n_qtiles = (Sq + kRows - 1) / kRows;
   const long long blocks = BHq * n_qtiles;
   if (blocks > 2147483647LL || BHq > 2147483647LL)
     return cudaErrorInvalidValue;
-  const cudaError_t err = opt_in<D>();
+  const cudaError_t err = opt_in<D, kLse>();
   if (err != cudaSuccess) return err;
   // a window of Sq or more masks nothing, as no window does; the clamp
   // keeps the kernel's mask arithmetic inside int
   if (window > Sq) window = Sq;
-  flash_attention_kernel<D>
+  flash_attention_kernel<D, kLse>
       <<<static_cast<unsigned int>(blocks), kThreads, smem_bytes<D>(),
          stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
-          static_cast<__nv_bfloat16*>(o), static_cast<int>(BHq),
+          static_cast<__nv_bfloat16*>(o), lse, static_cast<int>(BHq),
           static_cast<int>(n_qtiles), static_cast<int>(BHq / BHkv),
           static_cast<int>(Sq), static_cast<int>(Skv), static_cast<int>(d),
           static_cast<int>(kv_len), causal, static_cast<int>(window),
@@ -429,28 +448,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     long long BHq, long long BHkv, long long Sq,
+                     float* lse, long long BHq, long long BHkv, long long Sq,
                      long long Skv, long long d, long long kv_len,
                      int causal, long long window, float scale,
                      cudaStream_t stream) {
+  if (lse != nullptr) {            // d > 128 has no lse instantiation
+    if (d <= 64)
+      return launch<64, true>(q, k, v, o, lse, BHq, BHkv, Sq, Skv, d, kv_len,
+                              causal, window, scale, stream);
+    if (d <= 128)
+      return launch<128, true>(q, k, v, o, lse, BHq, BHkv, Sq, Skv, d,
+                               kv_len, causal, window, scale, stream);
+    return cudaErrorInvalidValue;
+  }
   if (d <= 64)
-    return launch<64>(q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal,
-                      window, scale, stream);
+    return launch<64, false>(q, k, v, o, lse, BHq, BHkv, Sq, Skv, d, kv_len,
+                             causal, window, scale, stream);
   if (d <= 128)
-    return launch<128>(q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal,
-                       window, scale, stream);
-  return launch<256>(q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal,
-                     window, scale, stream);
+    return launch<128, false>(q, k, v, o, lse, BHq, BHkv, Sq, Skv, d, kv_len,
+                              causal, window, scale, stream);
+  return launch<256, false>(q, k, v, o, lse, BHq, BHkv, Sq, Skv, d, kv_len,
+                            causal, window, scale, stream);
 }
 
 template <int D>
 cudaError_t occupancy(int* smem, int* blocks_per_sm, int* threads) {
-  cudaError_t err = opt_in<D>();
+  cudaError_t err = opt_in<D, false>();
   if (err != cudaSuccess) return err;
   *smem = static_cast<int>(smem_bytes<D>());
   *threads = kThreads;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_attention_kernel<D>, kThreads,
+      blocks_per_sm, flash_attention_kernel<D, false>, kThreads,
       smem_bytes<D>());
 }
 
@@ -483,7 +511,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
-                            float* __restrict__ o, int n_qblocks, int group,
+                            float* __restrict__ o, float* __restrict__ lse,
+                            int n_qblocks, int group,
                             int Sq, int Skv, int d, int kv_len, int causal,
                             int window, float scale) {
   extern __shared__ float4 smem[];
@@ -589,6 +618,9 @@ flash_attention_kernel(const float* __restrict__ q,
 
   if (!row_ok) return;
   const float denom = fmaxf(l, 1e-30f);
+  // the four threads of a row hold the same m and l
+  if (lse != nullptr && lane == 0)
+    lse[static_cast<long long>(bh) * Sq + qi] = m + logf(denom);
   float* orow = o + (static_cast<long long>(bh) * Sq + qi) * d;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
@@ -608,8 +640,8 @@ size_t smem_bytes(long long d) {
 
 template <int NJ, int kKeys>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   long long BHq, long long BHkv, long long Sq, long long Skv,
-                   long long d, long long kv_len, int causal,
+                   float* lse, long long BHq, long long BHkv, long long Sq,
+                   long long Skv, long long d, long long kv_len, int causal,
                    long long window, float scale, cudaStream_t stream) {
   const long long n_qblocks = (Sq + kRows - 1) / kRows;
   const long long blocks = BHq * n_qblocks;
@@ -618,7 +650,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       <<<static_cast<unsigned int>(blocks), kThreads,
          smem_bytes<NJ, kKeys>(d), stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<float*>(o),
+          static_cast<const float*>(v), static_cast<float*>(o), lse,
           static_cast<int>(n_qblocks), static_cast<int>(BHq / BHkv),
           static_cast<int>(Sq), static_cast<int>(Skv), static_cast<int>(d),
           static_cast<int>(kv_len), causal, static_cast<int>(window), scale);
@@ -626,17 +658,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     long long BHq, long long BHkv, long long Sq,
+                     float* lse, long long BHq, long long BHkv, long long Sq,
                      long long Skv, long long d, long long kv_len,
                      int causal, long long window, float scale,
                      cudaStream_t stream) {
   if (d <= 64)
-    return launch<4, 32>(q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal,
+    return launch<4, 32>(q, k, v, o, lse, BHq, BHkv, Sq, Skv, d, kv_len, causal,
                          window, scale, stream);
   if (d <= 128)
-    return launch<8, 32>(q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal,
+    return launch<8, 32>(q, k, v, o, lse, BHq, BHkv, Sq, Skv, d, kv_len, causal,
                          window, scale, stream);
-  return launch<16, 16>(q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal,
+  return launch<16, 16>(q, k, v, o, lse, BHq, BHkv, Sq, Skv, d, kv_len, causal,
                         window, scale, stream);
 }
 
@@ -663,13 +695,15 @@ bool shape_ok(long long BHq, long long BHkv, long long Sq, long long Skv,
 }  // namespace
 
 // q (BHq, Sq, d), k and v (BHkv, Skv, d) contiguous and 16-byte aligned,
-// o (BHq, Sq, d) of the same type; dtype 0 = fp32 (CUDA cores), 1 = bf16
+// o (BHq, Sq, d) of the same type, lse (BHq, Sq) fp32 or null (not
+// written; bf16 takes one at d <= 128 only); dtype 0 = fp32 (CUDA cores), 1 = bf16
 // (tensor cores).  d is a multiple of 4 up to 256, BHq a multiple of
 // BHkv, 0 < kv_len <= Skv, window 0 = none.  Enqueues one launch on
 // `stream` and returns its cudaError_t (0 = success); does not
 // synchronise.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, long long BHq,
+                                     const void* v, void* o, void* lse,
+                                     long long BHq,
                                      long long BHkv, long long Sq,
                                      long long Skv, long long d,
                                      long long kv_len, int causal,
@@ -680,11 +714,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = cc::dispatch(q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal,
-                       window, scale, s);
+    err = cc::dispatch(q, k, v, o, static_cast<float*>(lse), BHq, BHkv,
+                       Sq, Skv, d, kv_len, causal, window, scale, s);
   } else if (dtype == 1) {
-    err = tc::dispatch(q, k, v, o, BHq, BHkv, Sq, Skv, d, kv_len, causal,
-                       window, scale, s);
+    err = tc::dispatch(q, k, v, o, static_cast<float*>(lse), BHq, BHkv,
+                       Sq, Skv, d, kv_len, causal, window, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

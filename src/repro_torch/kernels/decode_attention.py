@@ -137,7 +137,8 @@ def decode_attention(q, k, v, lengths, *, softmax_scale=None):
     CPU tensors go to the plain version.  CUDA tensors go to the kernel,
     on the current stream and without synchronising, or this raises: it
     never falls back.  On CUDA tensors it also raises when autograd would
-    follow an input: the kernel has no backward yet (ROADMAP A9).
+    follow an input: the kernel has no backward (decode is never
+    differentiated).
     """
     global launch_count
     if not q.is_cuda:

@@ -8,6 +8,10 @@ reference's oracle ``repro/models/rglru.py::lru_scan_ref``, an
 associative scan with ``h0`` folded into the first step.
 
   a, b (B, S, W) fp32; h0 (B, W) fp32 or None -> h (B, S, W) fp32
+
+Under autograd it runs as ``RGLRUScan``, whose backward is the same
+recurrence run backwards in time (``rglru_scan_bwd``): through the same
+dispatch, so on a CUDA tensor the same hand kernel carries it.
 """
 from __future__ import annotations
 
@@ -67,21 +71,7 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
     return h
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor,
-               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """a, b (B, S, W) fp32; h0 (B, W) fp32 or None -> h (B, S, W) fp32.
-
-    CPU tensors go to the plain version.  CUDA tensors go to the kernel,
-    on the current stream and without synchronising, or this raises: it
-    never falls back.  On CUDA tensors it also raises when autograd would
-    follow an input: the kernel has no backward yet (ROADMAP A9).
-    """
-    global launch_count
-    if not a.is_cuda:
-        if a.device.type != "cpu":
-            raise ValueError(f"rglru_scan: unsupported device {a.device}")
-        return rglru_scan_ref(a, b, h0)
-    _build.refuse_grad("rglru_scan", a, b, h0)
+def _check(a, b, h0) -> None:
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"rglru_scan: expected a, b (B,S,W) of one shape, "
                          f"got {tuple(a.shape)}, {tuple(b.shape)}")
@@ -98,6 +88,13 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
         if t.device != a.device or not t.is_contiguous():
             raise ValueError(f"rglru_scan: {name} must be contiguous and on "
                              f"{a.device}")
+
+
+def _launch(a, b, h0):
+    """One launch of the kernel on checked CUDA tensors -> h, on the
+    current stream, without synchronising."""
+    global launch_count
+    B, S, W = a.shape
     lib = _build.load_library()
     h = torch.empty_like(a)
     if h.numel() == 0:
@@ -111,3 +108,61 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     _build.check_launch(lib, code, "rglru_scan")
     launch_count += 1
     return h
+
+
+def _forward(a, b, h0):
+    """The dispatch: the plain version on CPU tensors, the kernel on CUDA
+    tensors (or a raise)."""
+    if not a.is_cuda:
+        if a.device.type != "cpu":
+            raise ValueError(f"rglru_scan: unsupported device {a.device}")
+        return rglru_scan_ref(a, b, h0)
+    _check(a, b, h0)
+    return _launch(a, b, h0)
+
+
+def rglru_scan_bwd(a, h, h0, dh):
+    """(da, db, dh0) of h = rglru_scan(a, b, h0) for the cotangent dh.
+    The cotangent g of each h_t obeys g_t = dh_t + a_{t+1} g_{t+1}, the
+    forward's recurrence run backwards: so g is the scan of the
+    time-reversed, one-shifted a (a_{t+1}, and 0 past the end) and the
+    reversed dh, reversed back.  Then db = g, da_t = g_t h_{t-1} (h_{-1}
+    = h0, or 0) and dh0 = a_0 g_0."""
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    g = _forward(a_next.flip(1).contiguous(), dh.flip(1).contiguous(),
+                 None).flip(1)
+    h_prev = torch.cat([h0[:, None] if h0 is not None
+                        else torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    dh0 = a[:, 0] * g[:, 0] if h0 is not None else None
+    return g * h_prev, g, dh0
+
+
+class RGLRUScan(torch.autograd.Function):
+    """``rglru_scan`` under autograd: the forward keeps a, h0 and h, the
+    backward is ``rglru_scan_bwd``."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _forward(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h0, h = ctx.saved_tensors
+        return rglru_scan_bwd(a, h, h0, dh.contiguous())
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a, b (B, S, W) fp32; h0 (B, W) fp32 or None -> h (B, S, W) fp32.
+
+    CPU tensors go to the plain version.  CUDA tensors go to the kernel,
+    on the current stream and without synchronising, or this raises: it
+    never falls back.  When grad is enabled and an input requires it,
+    the call runs as ``RGLRUScan``.
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        return RGLRUScan.apply(a, b, h0)
+    return _forward(a, b, h0)

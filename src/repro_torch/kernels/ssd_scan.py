@@ -12,6 +12,15 @@ each chunk for the inter-chunk term.
   x (b, S, H, P), dt (b, S, H) (already softplus'ed), A (H,) negative,
   Bm, Cm (b, S, G, N), init_state (b, H, P, N) or None, all fp32
   -> y (b, S, H, P), final_state (b, H, P, N) fp32;  S % Q == 0
+
+Under autograd it runs as ``SSDScan``: the kernel (or, on the CPU, the
+plain version) in the forward, and in the backward one vjp of the plain
+``ssd_chunked_ref`` over the whole sequence, seeded with (dy, dstate),
+device-agnostic torch code.  The reference's backward
+(``repro/models/ssd.py::_ssd_bwd_rule_impl``) replays chunk by chunk from
+saved entry states to hold one chunk's intermediates at a time; here the
+training step recomputes one group at a time, so the whole-sequence vjp
+fits and is one graph instead of one a chunk.
 """
 from __future__ import annotations
 
@@ -98,30 +107,8 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, chunk_size: int, init_state=None
     return y.reshape(b, S, H, Pd), carry
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk_size: int,
-             init_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (b,S,H,P), dt (b,S,H), A (H,), Bm/Cm (b,S,G,N), init_state
-    (b,H,P,N) or None, fp32 -> (y (b,S,H,P), final (b,H,P,N)) fp32.
-
-    CPU tensors go to the plain version.  CUDA tensors go to the kernel,
-    on the current stream and without synchronising, or this raises: it
-    never falls back.  Raises when S is not a multiple of
-    ``min(chunk_size, S)``, and on CUDA tensors when autograd would follow
-    an input: the kernel has no backward yet (ROADMAP A9).
-    """
-    global launch_count, kernel_count
-    if x.dim() != 4:
-        raise ValueError(f"ssd_scan: expected x (b,S,H,P), got "
-                         f"{tuple(x.shape)}")
+def _check(x, dt, A, Bm, Cm, init_state) -> None:
     b, S, H, P = x.shape
-    Q = _chunk_length(S, chunk_size)
-    if not x.is_cuda:
-        if x.device.type != "cpu":
-            raise ValueError(f"ssd_scan: unsupported device {x.device}")
-        return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk_size, init_state)
-    _build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm, init_state)
     if Bm.dim() != 4 or Cm.shape != Bm.shape or tuple(Bm.shape[:2]) != (b, S):
         raise ValueError(f"ssd_scan: expected Bm, Cm (b,S,G,N) of one shape, "
                          f"got {tuple(Bm.shape)}, {tuple(Cm.shape)}")
@@ -143,6 +130,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous and on "
                              f"{x.device}")
+
+
+def _launch(x, dt, A, Bm, Cm, Q: int, init_state):
+    """One launch of the kernel on checked CUDA tensors -> (y, final), on
+    the current stream, without synchronising."""
+    global launch_count, kernel_count
+    b, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     lib = _build.load_library()
     y = torch.empty_like(x)
     final = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
@@ -170,3 +165,64 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     launch_count += 1
     kernel_count += 1 if states is None else 3
     return y, final
+
+
+def _forward(x, dt, A, Bm, Cm, chunk_size: int, init_state):
+    """The dispatch: the plain version on CPU tensors, the kernel on CUDA
+    tensors (or a raise)."""
+    Q = _chunk_length(x.shape[1], chunk_size)
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"ssd_scan: unsupported device {x.device}")
+        return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk_size, init_state)
+    _check(x, dt, A, Bm, Cm, init_state)
+    return _launch(x, dt, A, Bm, Cm, Q, init_state)
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` under autograd: the forward keeps its inputs, the
+    backward is the vjp of the plain ``ssd_chunked_ref`` recomputed from
+    them."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk_size, init_state):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        ctx.chunk_size = chunk_size
+        return _forward(x, dt, A, Bm, Cm, chunk_size, init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        saved = ctx.saved_tensors
+        ins = [t if t is None else t.detach().requires_grad_()
+               for t in saved]
+        wrt = [t for t in ins if t is not None]
+        with torch.enable_grad():
+            outs = ssd_chunked_ref(*ins[:5], ctx.chunk_size, ins[5])
+            grads = iter(torch.autograd.grad(outs, wrt, (dy, dfinal)))
+        dx, ddt, dA, dBm, dCm, dinit = (
+            None if t is None else next(grads) for t in ins)
+        return dx, ddt, dA, dBm, dCm, None, dinit
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk_size: int,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (b,S,H,P), dt (b,S,H), A (H,), Bm/Cm (b,S,G,N), init_state
+    (b,H,P,N) or None, fp32 -> (y (b,S,H,P), final (b,H,P,N)) fp32.
+
+    CPU tensors go to the plain version.  CUDA tensors go to the kernel,
+    on the current stream and without synchronising, or this raises: it
+    never falls back.  Raises when S is not a multiple of
+    ``min(chunk_size, S)``.  When grad is enabled and an input requires
+    it, the call runs as ``SSDScan``.
+    """
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan: expected x (b,S,H,P), got "
+                         f"{tuple(x.shape)}")
+    _chunk_length(x.shape[1], chunk_size)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init_state)):
+        return SSDScan.apply(x, dt, A, Bm, Cm, chunk_size, init_state)
+    return _forward(x, dt, A, Bm, Cm, chunk_size, init_state)

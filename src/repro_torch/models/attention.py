@@ -125,9 +125,11 @@ def attend(q, k, v, *, q_positions, kv_positions, causal=True, window=0,
 
 
 def flash_self_attention(q, k, v, causal=True, window=0, chunk_size=1024):
-    """Forward of the reference's ``flash_self_attention`` (positions are
-    ``arange(S)``, ``Skv`` a multiple of the chunk): the chunked online
-    softmax.  Its custom backward is training work (ROADMAP A9)."""
+    """The reference's ``flash_self_attention`` on CPU tensors (positions
+    are ``arange(S)``, ``Skv`` a multiple of the chunk): the chunked
+    online softmax, which autograd follows through its loop.  On CUDA
+    tensors ``self_attention`` takes the flash kernel, whose backward
+    transcribes the reference's custom one."""
     chunk = min(chunk_size, k.shape[1])
     if k.shape[1] % chunk:
         raise ValueError(f"kv length {k.shape[1]} is not a multiple of the "

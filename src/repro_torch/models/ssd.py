@@ -7,12 +7,13 @@ SSD recurrence per head (state S in R^{P x N}):
     S_t = exp(dt_t * A) * S_{t-1} + dt_t * (x_t outer B_t)
     y_t = S_t @ C_t + D * x_t
 
-Counterpart of ``repro/models/ssd.py`` (forward only: the chunk-replay
-backward is training, ROADMAP A9).  The scan over the sequence is
+Counterpart of ``repro/models/ssd.py``.  The scan over the sequence is
 ``kernel_fn`` when one is given, and ``kernels.ops.ssd_scan`` otherwise:
 the hand-written CUDA kernel on a CUDA tensor, the chunked plain version
-``ssd_chunked_ref`` on a CPU tensor.  The engines' ``kernel_registry()``
-entry is that same wrapper.
+``ssd_chunked_ref`` on a CPU tensor; under autograd either runs as
+``kernels/ssd_scan.py::SSDScan``, the counterpart of its
+``ssd_chunked_train``, whose backward is the vjp of the plain version.
+The engines' ``kernel_registry()`` entry is that same wrapper.
 """
 from __future__ import annotations
 

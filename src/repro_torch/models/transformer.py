@@ -1,15 +1,16 @@
 """Decoder-only LM: the shared block machinery and the full-sequence
 forward of the LM zoo.
 
-Counterpart of ``repro/models/transformer.py`` for the layer-split
-serving path.  The parameter tree is the reference's: block parameters
-are stacked over "pattern groups" (``cfg.block_pattern`` tiled), so every
-leaf under ``params["blocks"]`` has a leading dimension ``G =
-cfg.num_groups()``; the remainder layers (``cfg.tail_pattern()``) sit
-unstacked under ``params["tail"]``.  A tree initialised in JAX converts
+Counterpart of ``repro/models/transformer.py``.  The parameter tree is
+the reference's: block parameters are stacked over "pattern groups"
+(``cfg.block_pattern`` tiled), so every leaf under ``params["blocks"]``
+has a leading dimension ``G = cfg.num_groups()``; the remainder layers
+(``cfg.tail_pattern()``) sit unstacked under ``params["tail"]``.  A tree initialised in JAX converts
 leaf for leaf (``repro_torch.convert.from_jax_params``).  The reference's
 ``lax.scan`` over groups is a Python loop over the stacked dimension
-here; PyTorch runs eagerly, so there is nothing to compile or to remat.
+here; PyTorch runs eagerly, so there is nothing to compile.  Its
+``jax.checkpoint`` of a group's body becomes ``torch.utils.checkpoint``
+when grad is enabled.
 
 ``run_layer_range`` is the paper's segmentation hook: the cloud runs
 groups ``[0, g)``, ships the hidden state, the device runs ``[g, G)``.
@@ -33,14 +34,16 @@ its einsum attention.
 Ported so far: attention (self- and cross-attention), RG-LRU and SSD
 (Mamba-2) blocks, dense MLPs and Mixture-of-Experts FFNs
 (``models/moe.py``, on one device), the encoder, decode over all of
-them.  The modality frontends of decoder-only models raise
-``NotImplementedError`` (ROADMAP A5).
+them, the modality frontends of decoder-only models (a prefix of the
+sequence), and training: ``lm_loss`` and ``train_forward``, with each
+group's blocks recomputed in the backward pass.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.convert import tree_map
@@ -63,16 +66,23 @@ from repro_torch.models.moe import LOCAL_CTX, ShardCtx
 Params = Dict[str, Any]
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def _tree_stack(trees: List[Any]) -> Any:
     """Stack the leaves of same-shaped trees along a new leading dim."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _tree_stack([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
+
+
+def _tree_unbind(tree: Any, n: int) -> List[Any]:
+    """The ``n`` slices of every leaf's leading dimension, as ``n`` trees
+    of views.  Under autograd one ``unbind`` a leaf stacks the slices'
+    gradients once, where ``n`` selects would each write a gradient of
+    the whole stack."""
+    if isinstance(tree, dict):
+        parts = {k: _tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _tree_index(tree: Any, i: int) -> Any:
@@ -270,13 +280,28 @@ def embed_tokens(params, tokens, cfg):
     return params["embed"][tokens.long()]
 
 
+def _frontend_proj(params, frames):
+    """Frames through ``frontend_proj`` when the tree has it.  The
+    reference's einsum promotes fp32 frames against bf16 weights;
+    torch.einsum takes one dtype, so promote here."""
+    if "frontend_proj" not in params:
+        return frames
+    w = params["frontend_proj"]
+    dt = torch.promote_types(frames.dtype, w.dtype)
+    return torch.einsum("bpe,ed->bpd", frames.to(dt), w.to(dt))
+
+
 def embed_inputs(params, batch, cfg):
-    """batch: {"tokens": (B,S)}.  The frontend prefix of decoder-only
-    models (``batch["frontend"]``) is not ported; an encoder-decoder
-    model's frames go to ``forward_hidden``'s encoder instead."""
+    """batch: {"tokens": (B,S)} (+ {"frontend": (B,P,E)} for vlm/audio).
+
+    Frontend embeddings are prepended (they come from the STUB modality
+    tower), through ``frontend_proj`` when the tree has it and cast to
+    the embedding's dtype; total sequence = P + S_text."""
+    x = embed_tokens(params, batch["tokens"], cfg)
     if cfg.frontend is not None and "frontend" in batch:
-        raise _not_ported("modality frontends", "A5")
-    return embed_tokens(params, batch["tokens"], cfg)
+        fe = _frontend_proj(params, batch["frontend"])
+        x = torch.cat([fe.to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(params, h, cfg):
@@ -294,16 +319,22 @@ def unembed(params, h, cfg):
 # ==========================================================================
 # Full-sequence forward (prefill)
 # ==========================================================================
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of kept: the counterpart of ``jax.checkpoint`` with the
+    ``nothing_saveable`` policy."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 def _scan_groups(params, x, cfg, ctx, *, positions, enc_out=None,
                  return_cache=False, remat=True, kernels=None):
     """Run all pattern groups + tail.  Returns (x, aux_sum, caches).
-    ``remat`` is accepted for the reference's signature; nothing here
-    keeps activations for a backward pass."""
+    With ``remat`` and grad enabled each group's blocks keep only their
+    input for the backward pass and run again there (the tail does not,
+    as in the reference); without grad nothing is kept anyway."""
     pattern = cfg.block_pattern
-    aux = torch.zeros((2,), device=x.device)   # load_balance, router_z
-    group_caches = []
-    for g in range(cfg.num_groups()):
-        gp = _tree_index(params["blocks"], g)
+
+    def group_body(gp, x, aux):
         caches = {}
         for i, kind in enumerate(pattern):
             x, a, c = apply_block_seq(
@@ -312,6 +343,16 @@ def _scan_groups(params, x, cfg, ctx, *, positions, enc_out=None,
             if a is not None:
                 aux = aux + torch.stack([a["load_balance"], a["router_z"]])
             caches[f"b{i}"] = c
+        return x, aux, caches
+
+    remat = remat and torch.is_grad_enabled()
+    aux = torch.zeros((2,), device=x.device)   # load_balance, router_z
+    group_caches = []
+    for gp in _tree_unbind(params["blocks"], cfg.num_groups()):
+        if remat:
+            x, aux, caches = _remat(group_body, gp, x, aux)
+        else:
+            x, aux, caches = group_body(gp, x, aux)
         group_caches.append(caches)
 
     tail_caches = {}
@@ -332,14 +373,18 @@ def _scan_groups(params, x, cfg, ctx, *, positions, enc_out=None,
 def encode(params, frames, cfg, ctx):
     """Encoder stack over frontend frames (B, S_enc, d): non-causal
     self-attention blocks at positions ``arange(S_enc)``, then the
-    encoder's final norm."""
+    encoder's final norm.  With grad enabled each block runs again in the
+    backward pass, as the reference's checkpointed body does."""
     enc = params["encoder"]
     positions = torch.arange(frames.shape[1], device=frames.device)
+
+    def body(bp, x):
+        return apply_attn_block_seq(bp, x, cfg, ctx, positions=positions,
+                                    causal=False)[0]
+
     x = frames
-    for e in range(cfg.encoder_layers):
-        x, _, _ = apply_attn_block_seq(_tree_index(enc["blocks"], e), x, cfg,
-                                       ctx, positions=positions,
-                                       causal=False)
+    for bp in _tree_unbind(enc["blocks"], cfg.encoder_layers):
+        x = _remat(body, bp, x) if torch.is_grad_enabled() else body(bp, x)
     return apply_norm(enc["final_norm"], x)
 
 
@@ -351,13 +396,7 @@ def forward_hidden(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *,
     ``caches["enc_out"]`` carries under ``return_cache``."""
     enc_out = None
     if cfg.encoder_layers:
-        frames = batch["frontend"]
-        if "frontend_proj" in params:
-            # the reference's einsum promotes fp32 frames against bf16
-            # weights; torch.einsum takes one dtype, so promote here
-            w = params["frontend_proj"]
-            dt = torch.promote_types(frames.dtype, w.dtype)
-            frames = torch.einsum("bpe,ed->bpd", frames.to(dt), w.to(dt))
+        frames = _frontend_proj(params, batch["frontend"])
         enc_out = encode(params, frames.to(pdtype(cfg)), cfg, ctx)
         x = embed_tokens(params, batch["tokens"], cfg)
     else:
@@ -370,6 +409,69 @@ def forward_hidden(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *,
     if return_cache and enc_out is not None:
         caches["enc_out"] = enc_out
     return x, aux, caches
+
+
+# ==========================================================================
+# Loss: sequence-chunked cross entropy
+# ==========================================================================
+def lm_loss(params, hidden, targets, mask, cfg, *, chunk: int = 512,
+            z_weight: float = 1e-4):
+    """hidden (B,S,d) -> scalar mean NLL (+ z-loss).  Never builds (B,S,V):
+    the logits of one chunk of ``chunk`` positions at a time, recomputed
+    in the backward pass; the padded vocabulary is masked out of the
+    log-sum-exp."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+    Sc = n * chunk
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    Vp = cfg.padded_vocab()
+
+    def chunk_loss(h_c, t_c, m_c):
+        logits = torch.einsum("bsd,dv->bsv", h_c, w).float()
+        if Vp != cfg.vocab_size:   # mask padded vocab columns out of the lse
+            keep = torch.arange(Vp, device=logits.device) < cfg.vocab_size
+            logits = torch.where(keep, logits,
+                                 torch.full((), -1e30, device=logits.device))
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, t_c.long()[..., None])[..., 0]
+        nll = (lse - tgt) * m_c
+        zl = lse.square() * m_c
+        return nll.sum() + z_weight * zl.sum()
+
+    def one(h_c, t_c, m_c):
+        m_c = m_c.float()
+        if torch.is_grad_enabled():
+            return _remat(chunk_loss, h_c, t_c, m_c)
+        return chunk_loss(h_c, t_c, m_c)
+
+    total = torch.zeros((), device=hidden.device)
+    for c in range(n):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + one(hidden[:, sl], targets[:, sl], mask[:, sl])
+    if Sc < S:
+        total = total + one(hidden[:, Sc:], targets[:, Sc:], mask[:, Sc:])
+    denom = torch.clamp_min(mask.float().sum(), 1.0)
+    return total / denom
+
+
+def train_forward(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *,
+                  kernels=None):
+    """batch: tokens (B,S), labels (B,S), mask (B,S) [+ frontend].
+
+    Returns (loss, metrics dict of 0-d tensors); a Mixture-of-Experts
+    model's loss carries its router's load-balance and z terms."""
+    hidden, aux, _ = forward_hidden(params, batch, cfg, ctx, kernels=kernels)
+    loss = lm_loss(params, hidden, batch["labels"], batch["mask"], cfg)
+    metrics = {"nll": loss}
+    if cfg.moe is not None:
+        lb, rz = aux[0], aux[1]
+        n_moe = cfg.num_layers
+        loss = loss + (cfg.moe.router_aux_weight * lb
+                       + cfg.moe.router_z_weight * rz) / n_moe
+        metrics.update({"load_balance": lb / n_moe, "router_z": rz / n_moe})
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ==========================================================================

@@ -13,7 +13,8 @@ the device time launched inside each ``record_function`` scope of
 ``SCOPES`` (the MoE layers' dispatch and experts), and the device's
 idle share over the round.  ``profile_decode`` does the
 same for decode steps through a warm cache.  Both raise if the trace
-holds another number of the hand kernels than the wrappers enqueued.
+lacks a class of hand kernel the wrappers enqueued, holds more of it, or
+lacks more than one record in a hundred of it (``_check_trace``).
 ``chip_smoke.py`` runs them in its ``lm_serve``, ``mamba_serve``,
 ``moe_serve``, ``lm_decode``, ``mamba_decode``, ``moe_decode`` and
 ``decode_profile`` phases; on the CPU
@@ -170,14 +171,33 @@ def _activities(dev: torch.device):
     return activities
 
 
+#: the share of a class of hand kernels a trace may lack before the check
+#: below refuses it: CUPTI has been seen to drop one kernel record of 192
+#: (an SSD decode step), so one record is always let through
+TRACE_LOSS_SHARE = 0.01
+
+
 def _check_trace(out: Dict) -> Dict:
-    """Raise unless the trace holds each class of hand kernel as often as
-    its wrapper enqueued it."""
+    """Hold the trace's hand kernels to what the wrappers enqueued, class
+    by class, and record each class's shortfall in ``out["trace_lost"]``.
+    Raise if a class that was enqueued is absent from the trace, if the
+    trace holds more of a class than was enqueued, or if it lacks more
+    than ``max(1, TRACE_LOSS_SHARE * enqueued)`` of one (the profiler,
+    not the port, loses the odd record).  The wrappers' own counts are
+    held exactly by their callers."""
     in_trace, enqueued = out["kernels_in_trace"], out["wrapper_kernels"]
-    if in_trace is not None and any(in_trace.get(k, 0) != n
-                                    for k, n in enqueued.items()):
-        raise RuntimeError(f"the trace holds {in_trace} kernels, the "
-                           f"wrappers enqueued {enqueued}")
+    lost = {}
+    if in_trace is not None:
+        for cls, n in enqueued.items():
+            got = in_trace.get(cls, 0)
+            allowed = max(1, int(TRACE_LOSS_SHARE * n))
+            if (n and not got) or got > n or n - got > allowed:
+                raise RuntimeError(
+                    f"the trace holds {in_trace} kernels, the wrappers "
+                    f"enqueued {enqueued} ({cls}: at most {allowed} may be "
+                    f"missing)")
+            lost[cls] = n - got
+    out["trace_lost"] = lost if in_trace is not None else None
     return out
 
 

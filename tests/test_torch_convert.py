@@ -71,10 +71,14 @@ def test_dtype_cast_and_bf16_bits():
                ml_dtypes.bfloat16)]}
     tree = convert.from_jax_params(src, "cpu")
     assert tree["b"][1].dtype == torch.bfloat16
-    back = convert.to_numpy_params(tree)
+    back = convert.to_numpy_params(tree, bf16=ml_dtypes.bfloat16)
     assert back["b"][1].dtype == src["b"][1].dtype
     np.testing.assert_array_equal(back["b"][1].view(np.uint16),
                                   src["b"][1].view(np.uint16))
+    # without a bf16 dtype of the caller's, the bits themselves
+    bits = convert.to_numpy_params(tree)["b"][1]
+    assert bits.dtype == np.uint16
+    np.testing.assert_array_equal(bits, src["b"][1].view(np.uint16))
     half = convert.from_jax_params(src, "cpu", dtype=torch.float16)
     assert half["a"].dtype == half["b"][1].dtype == torch.float16
 
@@ -130,7 +134,7 @@ def test_lm_tree_round_trip_is_bit_exact(lm_tree):
     import ml_dtypes
     cfg, ref = lm_tree
     tree = convert.from_jax_params(ref, "cpu")
-    back = convert.to_numpy_params(tree)
+    back = convert.to_numpy_params(tree, bf16=ml_dtypes.bfloat16)
     a, b, t = _paths(ref), _paths(back), _paths(tree)
     assert a.keys() == b.keys() == t.keys()
     G = cfg.num_groups()

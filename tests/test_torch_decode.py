@@ -14,9 +14,11 @@ bf16 intermediates at different places).  int8 codes and scales of the
 cache helpers are bit-equal.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -27,10 +29,15 @@ from repro.models import attention as ref_attn
 from repro.models import transformer as ref_tr
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.configs import regnet_y_128gf, stable_diffusion_v1
-from repro_torch.convert import from_jax_params, to_numpy_params
+from repro_torch import convert
+from repro_torch.convert import from_jax_params
 from repro_torch.models import (attention, common, diffusion, mlp, moe,
                                 regnet, rglru, ssd)
 from repro_torch.models import transformer as tr
+
+#: the port's trees as numpy, bf16 leaves viewed as ml_dtypes' bf16
+to_numpy_params = functools.partial(convert.to_numpy_params,
+                                    bf16=ml_dtypes.bfloat16)
 
 # The models here are tiny: one thread each, or the test workers that
 # share a machine fight over cores inside PyTorch's thread pool.

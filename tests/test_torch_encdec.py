@@ -9,7 +9,11 @@ layers, d = 64, 8 frames of 64), a variant whose frames are 48 wide (so
 the tree has ``frontend_proj``), and a variant of 3 decoder layers in a
 pattern of two (so one cross-attention block sits in the tail).
 Parameters are initialised in JAX and converted; tokens and frames come
-from numpy.  Also pinned: the reference's two quirks that the port keeps
+from numpy.  The modality frontend of a decoder-only model (reduced
+internvl2-1b, patches as wide as the model and 48 wide) is held here
+too: ``embed_inputs``, ``forward_hidden``, prefill + decode after the
+prefix, and the layer-split engines.  Also pinned: the reference's two
+quirks that the port keeps
 (its layer-split engines run the decoder without cross-attention; its
 prefill projects the cross K/V twice) and where the port's attention
 goes on a CUDA tensor (flash at prefill, decode attention at decode).
@@ -20,10 +24,12 @@ intermediates at different places).
 """
 import ast
 import dataclasses
+import functools
 from pathlib import Path
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -35,12 +41,17 @@ from repro.models import attention as ref_attn
 from repro.models import transformer as ref_tr
 from repro.serving import engine as ref_engine
 from repro_torch.configs import reduced_config
-from repro_torch.convert import from_jax_params, to_numpy_params
+from repro_torch import convert
+from repro_torch.convert import from_jax_params
 from repro_torch.core.transport import LOCAL_LINK
 from repro_torch.kernels import ops
 from repro_torch.models import attention
 from repro_torch.models import transformer as tr
 from repro_torch.serving import engine
+
+#: the port's trees as numpy, bf16 leaves viewed as ml_dtypes' bf16
+to_numpy_params = functools.partial(convert.to_numpy_params,
+                                    bf16=ml_dtypes.bfloat16)
 
 # The models here are tiny: one thread each, or the test workers that
 # share a machine fight over cores inside PyTorch's thread pool.
@@ -544,14 +555,86 @@ def test_prefill_projects_the_cross_kv_twice(models, monkeypatch):
     assert order[-1] == "build_enc_kv" and "attend" in order[:-1]
 
 
-def test_frontend_prefix_of_decoder_only_models_still_raises():
-    """A5.4 is not ported: ``embed_inputs`` with ``batch["frontend"]``
-    (the vision prefix of internvl2-1b, or frames given to seamless's
-    decoder alone) raises, naming ROADMAP A5."""
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    for arch in ("internvl2-1b", ARCH):
-        cfg = reduced_config(arch)
-        frames = torch.zeros((1, cfg.frontend.num_positions,
-                              cfg.frontend.embed_dim))
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            tr.embed_inputs({}, {"tokens": toks, "frontend": frames}, cfg)
+# --------------------------------------------------------------------------
+# the modality frontend of a decoder-only model (internvl2-1b's vision
+# prefix): its own init, two variants
+# --------------------------------------------------------------------------
+VLM = "internvl2-1b"
+
+
+@pytest.fixture(scope="module")
+def vlm_models():
+    """{variant: fp32 (reference cfg, params, port cfg, params)} of
+    reduced internvl2-1b: patches as wide as d_model (no
+    ``frontend_proj``), and 48 wide (the tree has it)."""
+    out = {}
+    for name in ("base", "proj"):
+        ref_cfg = dataclasses.replace(_variant(ref_reduced_config(VLM), name),
+                                      param_dtype="float32")
+        ref_params = ref_tr.init_params(ref_cfg, jax.random.PRNGKey(3))
+        params = from_jax_params(
+            jax.tree_util.tree_map(np.asarray, ref_params), "cpu")
+        cfg = dataclasses.replace(_variant(reduced_config(VLM), name),
+                                  param_dtype="float32")
+        out[name] = (ref_cfg, ref_params, cfg, params)
+    return out
+
+
+@pytest.mark.parametrize("name", ["base", "proj"])
+def test_frontend_prefix_of_decoder_only_models(vlm_models, name):
+    """``embed_inputs`` prepends the patch embeddings (through
+    ``frontend_proj`` when the tree has it), so ``forward_hidden`` runs
+    P + S_text positions; ``prefill`` then 2 teacher-forced
+    ``decode_step``s continue after the prefix.  Each matches the
+    reference's at fp32 tolerance."""
+    ref_cfg, ref_params, cfg, params = vlm_models[name]
+    assert ("frontend_proj" in params) == (name == "proj")
+    prompt, steps = 5, 2
+    batch = _batch(cfg, seed=21, seq=prompt + steps)
+    P = cfg.frontend.num_positions
+    ref_b = {"tokens": jnp.asarray(batch["tokens"][:, :prompt]),
+             "frontend": jnp.asarray(batch["frontend"])}
+    port_b = {"tokens": torch.from_numpy(batch["tokens"][:, :prompt]),
+              "frontend": torch.from_numpy(batch["frontend"])}
+    x = tr.embed_inputs(params, port_b, cfg)
+    assert x.shape == (B, P + prompt, cfg.d_model)
+    _assert_close(x, ref_tr.embed_inputs(ref_params, ref_b, ref_cfg),
+                  "float32")
+    got, _, _ = tr.forward_hidden(params, port_b, cfg)
+    want, _, _ = ref_tr.forward_hidden(ref_params, ref_b, ref_cfg)
+    _assert_close(got, want, "float32")
+    want, ref_cache = ref_tr.prefill(ref_params, ref_b, ref_cfg,
+                                     pad_to=P + prompt + steps)
+    got, cache = tr.prefill(params, port_b, cfg, pad_to=P + prompt + steps)
+    V = cfg.vocab_size
+    _assert_close(got[..., :V], np.asarray(want)[..., :V], "float32")
+    toks = batch["tokens"]
+    for t in range(prompt, prompt + steps):
+        want, ref_cache = ref_tr.decode_step(
+            ref_params, jnp.asarray(toks[:, t:t + 1]), ref_cache,
+            jnp.int32(P + t), ref_cfg)
+        got, cache = tr.decode_step(params, torch.from_numpy(
+            toks[:, t:t + 1]), cache, P + t, cfg)
+        _assert_close(got[..., :V], np.asarray(want)[..., :V], "float32")
+
+
+def test_frontend_passes_through_the_layer_split_engines(vlm_models):
+    """The cloud engine embeds the batch's patches with its tokens, as
+    the reference's ``_run_fn`` does, and ships P + S_text positions; the
+    device side finishes them: the last position's logits equal the
+    one-machine forward's, to the wire's fp16 rounding."""
+    _, _, cfg, params = vlm_models["proj"]
+    batch = _batch(cfg, seed=22, seq=6)
+    cloud = engine.LayerSplitEngine(params, cfg, LOCAL_LINK, device="cpu")
+    device = engine.LayerSplitDevice(params, cfg, device="cpu")
+    G = cfg.num_groups()
+    payload, _ = cloud.process(batch, 1)
+    assert payload.shape == (B, cfg.frontend.num_positions + 6, cfg.d_model)
+    logits = device.complete(payload, 1)
+    hidden, _, _ = tr.forward_hidden(params, _torch(batch), cfg)
+    want = tr.unembed(params, hidden[:, -1:], cfg)
+    assert 0 < 1 < G
+    got = logits[..., :cfg.vocab_size].float()
+    want = want[..., :cfg.vocab_size].float()
+    rel = float((got - want).norm() / want.norm())
+    assert rel < 2e-3, rel

@@ -122,6 +122,7 @@ class _OnTheCard:
     before it launches."""
     is_cuda = True
     device = torch.device("cuda", 0)
+    requires_grad = False
 
     def __init__(self, t):
         self.t, self.shape, self.dtype = t, t.shape, t.dtype
@@ -161,8 +162,9 @@ def test_wrapper_passes_the_dtype_code(dtype, code, monkeypatch):
     o = fa.flash_attention(q, kv, kv, causal=True, window=16, kv_len=45)
     assert fa.launch_count == before + 1 and o.shape == q.shape
     (args,) = calls
-    assert args[4:12] == (6, 2, 40, 50, 36, 45, 1, 16)
-    assert args[12] == pytest.approx(36 ** -0.5) and args[13] == code
+    assert args[4] is None               # no lse asked for
+    assert args[5:13] == (6, 2, 40, 50, 36, 45, 1, 16)
+    assert args[13] == pytest.approx(36 ** -0.5) and args[14] == code
 
 
 # --------------------------------------------------------------------------

@@ -16,9 +16,11 @@ up to ~4 (observed 1.2e-2 and 0.047).  The split engines are held to the
 reference's own fp16-boundary tolerance (atol 0.15, rtol 0.1).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -30,12 +32,17 @@ from repro.models import mlp as ref_mlp
 from repro.models import transformer as ref_tr
 from repro.serving import engine as ref_engine
 from repro_torch.configs import reduced_config
-from repro_torch.convert import from_jax_params, to_numpy_params
+from repro_torch import convert
+from repro_torch.convert import from_jax_params
 from repro_torch.core.transport import LOCAL_LINK
 from repro_torch.kernels import ops
 from repro_torch.models import common, mlp
 from repro_torch.models import transformer as tr
 from repro_torch.serving import engine
+
+#: the port's trees as numpy, bf16 leaves viewed as ml_dtypes' bf16
+to_numpy_params = functools.partial(convert.to_numpy_params,
+                                    bf16=ml_dtypes.bfloat16)
 
 # The models here are tiny: one thread each, or the test workers that
 # share a machine fight over cores inside PyTorch's thread pool.

@@ -16,6 +16,7 @@ different places).  The split engines are held to the reference's own
 fp16-boundary tolerance (atol 0.15, rtol 0.1).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,8 @@ from repro.models import ssd as ref_ssd
 from repro.models import transformer as ref_tr
 from repro.serving import engine as ref_engine
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.convert import from_jax_params, to_numpy_params
+from repro_torch import convert
+from repro_torch.convert import from_jax_params
 from repro_torch.core import segmentation
 from repro_torch.core.transport import LOCAL_LINK
 from repro_torch.kernels import ops
@@ -40,6 +42,10 @@ from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.models import ssd
 from repro_torch.models import transformer as tr
 from repro_torch.serving import engine
+
+#: the port's trees as numpy, bf16 leaves viewed as ml_dtypes' bf16
+to_numpy_params = functools.partial(convert.to_numpy_params,
+                                    bf16=ml_dtypes.bfloat16)
 
 # The models here are tiny: one thread each, or the test workers that
 # share a machine fight over cores inside PyTorch's thread pool.

@@ -247,3 +247,40 @@ def test_moe_round_on_the_cpu_records_its_scopes(monkeypatch):
     G = cfg.num_groups()
     assert names.count("moe_dispatch") == names.count("moe_experts") == G
     assert out["by_scope"] is None and out["device_seconds"] is None
+
+
+def _trace_out(in_trace, enqueued):
+    return {"kernels_in_trace": in_trace, "wrapper_kernels": enqueued}
+
+
+def test_trace_check_lets_one_lost_record_through_and_reports_it():
+    """191 of 192 SSD kernels in the trace (CUPTI lost one): accepted, the
+    shortfall reported as ``trace_lost``."""
+    out = ps._check_trace(_trace_out({"ssd_scan": 191, "gemm": 40},
+                                     {"ssd_scan": 192, "flash_attention": 0}))
+    assert out["trace_lost"] == {"ssd_scan": 1, "flash_attention": 0}
+    out = ps._check_trace(_trace_out({"flash_attention": 990},
+                                     {"flash_attention": 1000}))
+    assert out["trace_lost"] == {"flash_attention": 10}
+    assert ps._check_trace(_trace_out(None, {"ssd_scan": 3}))[
+        "trace_lost"] is None
+
+
+@pytest.mark.parametrize("in_trace,enqueued", [
+    ({"gemm": 4}, {"ssd_scan": 1}),             # a whole class absent
+    ({"ssd_scan": 0}, {"ssd_scan": 48}),
+])
+def test_trace_check_refuses_an_absent_class(in_trace, enqueued):
+    with pytest.raises(RuntimeError, match="at most"):
+        ps._check_trace(_trace_out(in_trace, enqueued))
+
+
+@pytest.mark.parametrize("in_trace,enqueued", [
+    ({"ssd_scan": 193}, {"ssd_scan": 192}),     # more than was enqueued
+    ({"flash_attention": 1}, {"flash_attention": 0}),
+    ({"ssd_scan": 190}, {"ssd_scan": 192}),     # two of 192 lost
+    ({"flash_attention": 989}, {"flash_attention": 1000}),
+])
+def test_trace_check_refuses_a_surplus_or_a_larger_loss(in_trace, enqueued):
+    with pytest.raises(RuntimeError, match="at most"):
+        ps._check_trace(_trace_out(in_trace, enqueued))

@@ -11,9 +11,11 @@ steps sequentially, the oracles associate in a tree).  The block in fp32
 roundings the two frameworks place differently.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -23,10 +25,15 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracle
 from repro.models import rglru as ref_rglru
 from repro_torch.configs import reduced_config
-from repro_torch.convert import from_jax_params, to_numpy_params
+from repro_torch import convert
+from repro_torch.convert import from_jax_params
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import rglru_scan as lru
 from repro_torch.models import rglru
+
+#: the port's trees as numpy, bf16 leaves viewed as ml_dtypes' bf16
+to_numpy_params = functools.partial(convert.to_numpy_params,
+                                    bf16=ml_dtypes.bfloat16)
 
 # The models here are tiny: one thread each, or the test workers that
 # share a machine fight over cores inside PyTorch's thread pool.

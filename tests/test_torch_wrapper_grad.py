@@ -1,14 +1,17 @@
-"""The CUDA wrappers under autograd.  The hand kernels have no backward
-yet (ROADMAP A9): a result filled through ``ctypes`` carries no
-``grad_fn``, so each wrapper of a kernel that models call (flash
-attention, decode attention, the RG-LRU and SSD scans) raises on CUDA
-tensors when grad is enabled and an input requires it, before it loads
-or launches anything.  Without grad, or without an input that requires
-it, the wrapper goes on to the library.  CPU tensors take the plain
-versions, which autograd follows.
+"""The CUDA wrappers under autograd.  A result filled through ``ctypes``
+carries no ``grad_fn``, so the wrappers of the kernels that training
+runs (flash attention, the RG-LRU and SSD scans) run as a
+``torch.autograd.Function`` when grad is enabled and an input requires
+it: the kernel in the forward, the backward in torch code.  Decode
+attention has no backward (decode is never differentiated), so its
+wrapper raises on CUDA tensors in that case, before it loads or launches
+anything.  Without grad, or without an input that requires it, every
+wrapper goes straight on to the library.  CPU tensors take the plain
+versions, under the same Functions.
 
 The card is stood in for by CPU tensors of a subclass that says it lies
-on the card, and by a library stub that raises when it is reached.
+on the card, by a library stub that raises when it is reached, and, for
+a launch, by each module's ``_launch`` replaced with its plain version.
 """
 import numpy as np
 import pytest
@@ -77,14 +80,64 @@ def stub_library(monkeypatch):
     monkeypatch.setattr(_build, "load_library", reached)
 
 
+#: what each Function's node is called in a result's ``grad_fn``
+FUNCTIONS = {"flash_attention": "FlashAttentionBackward",
+             "rglru_scan": "RGLRUScanBackward", "ssd_scan": "SSDScanBackward"}
+
+
+def _plain_launches(monkeypatch):
+    """Each training kernel's ``_launch`` replaced by its plain version,
+    counting its calls: what the card would return, without the card."""
+    calls = []
+
+    def flash(q, k, v, *, causal, window, kv_len, scale, want_lse):
+        calls.append("flash_attention")
+        o, lse = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                        kv_len=kv_len, softmax_scale=scale,
+                                        return_lse=True)
+        return o, lse if want_lse else None
+
+    def scan(a, b, h0):
+        calls.append("rglru_scan")
+        return lru.rglru_scan_ref(a, b, h0)
+
+    def chunked(x, dt, A, Bm, Cm, Q, init_state):
+        calls.append("ssd_scan")
+        return ssd.ssd_chunked_ref(x, dt, A, Bm, Cm, Q, init_state)
+    monkeypatch.setattr(fa, "_launch", flash)
+    monkeypatch.setattr(lru, "_launch", scan)
+    monkeypatch.setattr(ssd, "_launch", chunked)
+    return calls
+
+
 @pytest.mark.parametrize("name,arg", CASES)
 def test_cuda_wrapper_refuses_inputs_that_require_grad(name, arg,
-                                                       stub_library):
+                                                       stub_library,
+                                                       monkeypatch):
+    """Decode attention refuses, launching nothing.  The training
+    kernels' results carry their Function's ``grad_fn``; the forward
+    launched the kernel once, and the gradient equals the plain
+    version's on CPU tensors."""
     args, call = _inputs(name)
-    before = WRAPPERS[name].launch_count
-    with pytest.raises(RuntimeError, match="ROADMAP A9"):
-        call(_on_the_card(args, grad_arg=arg))
-    assert WRAPPERS[name].launch_count == before
+    if name == "decode_attention":
+        before = WRAPPERS[name].launch_count
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(_on_the_card(args, grad_arg=arg))
+        assert WRAPPERS[name].launch_count == before
+        return
+    calls = _plain_launches(monkeypatch)
+    on_card = _on_the_card(args, grad_arg=arg)
+    out = call(on_card)
+    out = out[0] if isinstance(out, tuple) else out
+    assert type(out.grad_fn).__name__ == FUNCTIONS[name]
+    assert calls == [name]
+    out.square().sum().backward()
+    cpu = {k: v.clone().requires_grad_(k == arg) for k, v in args.items()}
+    want = call(cpu)
+    want = want[0] if isinstance(want, tuple) else want
+    want.square().sum().backward()
+    np.testing.assert_allclose(on_card[arg].grad.numpy(),
+                               cpu[arg].grad.numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -118,3 +171,40 @@ def test_cpu_wrapper_is_differentiable(name, stub_library):
     for k, v in args.items():
         assert v.grad is not None and bool(torch.isfinite(v.grad).all()), k
         assert float(v.grad.abs().sum()) > 0, k
+
+
+def test_rglru_backward_launches_the_scan_on_the_card(stub_library,
+                                                      monkeypatch):
+    """The RG-LRU backward is the same kernel, once, on the time-reversed
+    inputs: on tensors on the card it launches, and its gradients equal
+    those of the plain version's autograd."""
+    calls = _plain_launches(monkeypatch)
+    args, _ = _inputs("rglru_scan")
+    a, b, h0 = args["a"], args["b"], args["h0"]
+    h = lru.rglru_scan_ref(a, b, h0)
+    dh = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        tuple(h.shape)).astype(np.float32))
+    card = [t.as_subclass(_OnTheCard) for t in (a, h, h0, dh)]
+    got = lru.rglru_scan_bwd(*card)
+    assert calls == ["rglru_scan"]
+    leaves = [t.clone().requires_grad_() for t in (a, b, h0)]
+    want = torch.autograd.grad(lru.rglru_scan_ref(*leaves), leaves, dh)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flash_refuses_grad_for_bf16_beyond_head_dim_128(stub_library):
+    """The bf16 kernel writes no lse above head_dim 128, so on the card
+    the wrapper refuses autograd there before it loads the library; the
+    same call without grad goes on to it."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 8, 256)).astype(
+        np.float32)).to(torch.bfloat16).as_subclass(_OnTheCard)
+        for _ in range(3))
+    before = fa.launch_count
+    with pytest.raises(RuntimeError, match="no lse above 128"):
+        fa.flash_attention(q.requires_grad_(), k, v)
+    assert fa.launch_count == before
+    with torch.no_grad(), pytest.raises(_Reached):
+        fa.flash_attention(q, k, v)
