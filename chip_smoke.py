@@ -86,6 +86,18 @@ drives the port's serving paths, each at full published width:
     forward of the same batch, and request 0 prefilled and decoded 8
     steps in bf16 and fp32, the fp32 decode held to the fp32 forward
     (phase ``frontend_serve``);
+  * sliding-window decode through a ring cache (h2o-danube-1.8b, 24
+    attention layers, 32 query heads on 8 kv heads of 80, window 4096,
+    bf16), after internvl2-1b's weights are freed: 4 sequences decoded
+    4160 teacher-forced steps from an empty ring of 4096 rows, so that it
+    wraps, every step's attention on the decode kernel; the 64 steps past
+    the window held to prefill of the first 4096 tokens into a linear
+    cache of 4160 rows and 64 steps through the window inside it, and the
+    last to the one-machine forward; the last 8 steps once more through
+    the plain version, and the kernel timed on that ring; a ring of 256
+    rows in fp32 (the window narrowed, batch 1, 320 steps) against a
+    linear cache and the fp32 forward
+    (phase ``swa_ring_decode``);
   * RegNet-Y-128GF, the paper's classifier (phase ``regnet``): one 384 x
     384 image through the forward and split at each point of paper Table
     1, the activation through the host, held to the forward; its
@@ -105,7 +117,12 @@ drives the port's serving paths, each at full published width:
     blocks recomputed in the backward pass), step 0's loss held to a
     no-grad forward, the first two layers' fp32 gradients through the
     kernels held leaf by leaf to the plain versions', one more step
-    profiled (``train_danube``, ``train_mamba``).
+    profiled (``train_danube``, ``train_mamba``); then smollm-135m at
+    full width: its parameters and AdamW state after one step saved with
+    ``train/checkpoint.py``, restored and held to the bit, and the
+    training launcher ``launch/train.py`` run twice on one checkpoint
+    directory (100 steps of 8 x 2048 tokens each), the second run resuming
+    at step 100 from the first's checkpoint (``train_cli``).
 
 Each phase prints one JSON line (``total``: the script's own time, the
 kernels' build included).  The line before the last two is
@@ -116,15 +133,19 @@ is then non-zero and no result line is printed.  There is no CPU mode.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -400,6 +421,32 @@ FLASH_REF_TEST_LAYOUT = (2, 256, 256, 4, 2, 64, True, 0)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_FP32_LAYERS = 2
 TRAIN_FP32_GRAD_REL_L2 = 2e-4
+
+# Sliding-window decode through a ring cache: full-width h2o-danube-1.8b,
+# RING_BATCH sequences decoded RING_PAST teacher-forced steps past its
+# window from an empty ring (init_decode_cache caps the cache at the
+# window), held to prefill of the window's tokens into a linear cache of
+# window + RING_PAST rows and RING_PAST steps through the window inside it
+# at LM_PLAIN_REL_L2; the last RING_PLAIN_STEPS steps of the ring once
+# more through decode attention's plain version
+RING_BATCH, RING_PAST, RING_PLAIN_STEPS = 4, 64, 8
+# 24 layers x (k, v) x 4 x 4096 rows x 8 kv heads x 80 x 2 B, and the
+# linear cache of 4160 rows
+RING_CACHE_BYTES = 1_006_632_960
+RING_LINEAR_CACHE_BYTES = 1_022_361_600
+# the fp32 ring (parameters cast to fp32, batch 1) at a narrowed window,
+# RING_PAST steps past it, held to a linear cache and to the fp32 forward
+# at DECODE_FP32_REL_L2
+RING_FP32_WINDOW = 256
+
+# The training launcher at full smollm-135m width: CLI_STEPS steps of
+# CLI_BATCH x CLI_SEQ tokens, twice on one checkpoint directory.  The
+# checkpoint round trip saves the parameters and the AdamW state after
+# one step.  jax.eval_shape of the reference's init_params:
+CLI_ARCH = "smollm-135m"
+CLI_PARAMETERS = 134_515_008
+CLI_PARAMETER_BYTES = 269_100_288
+CLI_BATCH, CLI_SEQ, CLI_STEPS = 8, 2048, 100
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -3147,6 +3194,214 @@ def phase_frontend_serve() -> None:
                            f"{DECODE_FP32_REL_L2}")
 
 
+def _ring_steps(params, cfg, tokens, cache, start: int, stop: int,
+                keep_from: int):
+    """Teacher-forced decode steps at positions [start, stop) through
+    ``cache``; returns the logits of the steps at ``keep_from`` and later
+    and every step's CUDA-event milliseconds."""
+    _, step_ms = decode_steps(params, cfg, tokens, cache, start,
+                              keep_from - start)
+    kept = []
+    for t in range(keep_from, stop):
+        logits, ms = decode_steps(params, cfg, tokens, cache, t, 1)
+        kept.append(logits)
+        step_ms += ms
+    return kept, step_ms
+
+
+def ring_fp32_check(params, cfg, tokens) -> dict:
+    """Request 0 in fp32 at a window narrowed to RING_FP32_WINDOW: a ring
+    of that many rows against a linear cache of RING_FP32_WINDOW +
+    RING_PAST rows grown from one (``pad_kv_caches``), both from empty,
+    at each of the RING_PAST steps past the window, and the ring's last
+    logits against the fp32 one-machine forward."""
+    from repro_torch.models import transformer as tr
+    cfg32 = dataclasses.replace(cfg, window=RING_FP32_WINDOW,
+                                param_dtype="float32")
+    params32 = _tree_map(lambda t: t.float(), params)
+    W, T, V = RING_FP32_WINDOW, RING_FP32_WINDOW + RING_PAST, cfg.vocab_size
+    tok = tokens[:1, :T]
+    caches = {"ring": tr.init_decode_cache(cfg32, 1, T, device="cuda"),
+              "linear": tr.pad_kv_caches(
+                  tr.init_decode_cache(cfg32, 1, 1, device="cuda"), T)}
+    out, logits = {}, {}
+    for name, cache in caches.items():
+        reset_launch_counts()
+        logits[name], step_ms = _ring_steps(params32, cfg32, tok, cache, 0,
+                                            T, W)
+        out[name] = {"rows": cache["groups"]["b0"]["k"].shape[2],
+                     "step_ms_median": statistics.median(step_ms),
+                     "launches": launch_counts()}
+    want = one_machine(params32, cfg32, tok)
+    del params32, caches
+    torch.cuda.empty_cache()
+    rel = [_rel_l2(r, lin, V)
+           for r, lin in zip(logits["ring"], logits["linear"])]
+    return dict(out, window=W, steps=T,
+                ring_vs_linear_rel_l2_max=max(rel),
+                ring_vs_forward_rel_l2=_rel_l2(logits["ring"][-1], want, V),
+                finite=all(bool(torch.isfinite(t[..., :V]).all())
+                           for t in logits["ring"] + logits["linear"]
+                           + [want]),
+                launches_expected=_decode_step_launches(cfg32, T))
+
+
+def ring_kernel_entry(ring, cfg) -> dict:
+    """Decode attention on the wrapped ring's first layer as the ring
+    path gives it (q (RING_BATCH, 32, 80) against all 4096 slots, the
+    cache's own K and V): held to its plain version at DECODE_TOL, then
+    timed beside it, SDPA and its bound."""
+    from repro_torch.kernels import decode_attention as dec
+    k, v = ring["groups"]["b0"]["k"][0], ring["groups"]["b0"]["v"][0]
+    B, W = k.shape[:2]
+    q = torch.randn((B, cfg.num_heads, cfg.resolved_head_dim()),
+                    generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    device="cuda").to(k.dtype)
+    lens = torch.full((B,), W, dtype=torch.int32, device="cuda")
+    o = dec.decode_attention(q, k, v, lens)
+    want = dec.decode_attention_ref(q, k, v, lens)
+    err = float((o.float() - want.float()).abs().max())
+    atol, rtol = DECODE_TOL[k.dtype]
+    if not _within(o, want, atol, rtol):
+        raise RuntimeError(f"decode_attention on the ring {list(k.shape)} "
+                           f"disagrees with its plain version: max|d|={err}")
+    return {"shape": [B, W, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim()], "max_abs_err": err,
+            "atol": atol, "rtol": rtol, **time_decode(q, k, v, lens)}
+
+
+def phase_swa_ring_decode() -> None:
+    """h2o-danube-1.8b at full width decoded past its window through a
+    ring cache: RING_BATCH sequences of window + RING_PAST teacher-forced
+    steps from an empty ring of window rows (the launch counts set to 0
+    just before and read just after), held to prefill of the window's
+    tokens into a linear cache and RING_PAST steps through the window
+    inside it, at each of those steps (the last MODEL_PROFILE_STEPS of
+    each path decoded once more under the profiler, every row rewritten);
+    the ring's last logits to the
+    one-machine forward over every token; its last RING_PLAIN_STEPS steps
+    once more from a copy of the ring through decode attention's plain
+    version, and the kernel timed on that copy's first layer; then the
+    fp32 ring at a narrowed window.  Raises on any
+    miss, after printing its line."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.profile_split import profile_decode
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, info = init_full_width(DANUBE_ARCH, DANUBE_PARAMETERS,
+                                        DANUBE_PARAMETER_BYTES)
+    W, V = cfg.window, cfg.vocab_size
+    T = W + RING_PAST
+    cut = T - RING_PLAIN_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, V, (RING_BATCH, T)).astype(np.int32)).cuda()
+    ring = tr.init_decode_cache(cfg, RING_BATCH, T, device="cuda")
+    ring_rows, ring_bytes = ring["groups"]["b0"]["k"].shape[2], _nbytes(ring)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring_logits, step_ms = _ring_steps(params, cfg, tokens, ring, 0, cut, W)
+    at_cut = _tree_map(torch.clone, ring)
+    more, ms = _ring_steps(params, cfg, tokens, ring, cut, T, cut)
+    ring_s = time.perf_counter() - t0
+    ring_launches = launch_counts()
+    ring_logits += more
+    step_ms += ms
+    profiles = {"ring": profile_decode(params, cfg, tokens, ring,
+                                       T - MODEL_PROFILE_STEPS,
+                                       MODEL_PROFILE_STEPS)}
+    del ring
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, linear = tr.prefill(params, {"tokens": tokens[:, :W]}, cfg, pad_to=T)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = launch_counts()
+    lin_rows, lin_bytes = (linear["groups"]["b0"]["k"].shape[2],
+                           _nbytes(linear))
+    lin_logits, lin_ms = _ring_steps(params, cfg, tokens, linear, W, T, W)
+    lin_launches = {"prefill": prefill_launches,
+                    "decode": launches_since(prefill_launches)}
+    profiles["linear"] = profile_decode(params, cfg, tokens, linear,
+                                        T - MODEL_PROFILE_STEPS,
+                                        MODEL_PROFILE_STEPS)
+    del linear
+
+    before = launch_counts()
+    with plain_versions("decode_attention"):
+        plain_logits, _ = _ring_steps(params, cfg, tokens, at_cut, cut, T,
+                                      cut)
+    plain_launches = launches_since(before)["decode_attention"]
+    kernel = ring_kernel_entry(at_cut, cfg)
+    del at_cut
+    want = one_machine(params, cfg, tokens)
+    peak = torch.cuda.max_memory_allocated()
+    fp32 = ring_fp32_check(params, cfg, tokens)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vs_linear = [_rel_l2(r, lin, V) for r, lin in zip(ring_logits,
+                                                      lin_logits)]
+    vs_plain = [_rel_l2(k, p, V) for k, p in zip(ring_logits[-len(
+        plain_logits):], plain_logits)]
+    vs_forward = _rel_l2(ring_logits[-1], want, V)
+    finite = all(bool(torch.isfinite(t[..., :V]).all()) for t in
+                 ring_logits + lin_logits + plain_logits + [want])
+    expected = {"ring": _decode_step_launches(cfg, T), "linear": {
+        "prefill": _prefill_launches(cfg),
+        "decode": _decode_step_launches(cfg, RING_PAST)}}
+    emit("swa_ring_decode", **info, window=W, batch=RING_BATCH, steps=T,
+         heads=[cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()],
+         ring_rows=ring_rows, ring_cache_bytes=ring_bytes,
+         linear_rows=lin_rows, linear_cache_bytes=lin_bytes,
+         decode_seconds=ring_s,
+         step_ms_median=statistics.median(step_ms),
+         step_ms_median_past_window=statistics.median(step_ms[W:]),
+         tokens_per_second=RING_BATCH * T / ring_s,
+         peak_memory_bytes=peak, launches=ring_launches,
+         linear={"prefill_seconds": prefill_s,
+                 "step_ms_median": statistics.median(lin_ms),
+                 "launches": lin_launches},
+         launches_expected=expected, profiles=profiles,
+         ring_vs_linear_rel_l2=vs_linear,
+         ring_vs_linear_rel_l2_max=max(vs_linear),
+         ring_vs_forward_rel_l2=vs_forward,
+         kernel_vs_plain_rel_l2=vs_plain, plain_kernel_launches=plain_launches,
+         decode_attention=kernel,
+         limit_rel_l2=LM_PLAIN_REL_L2, fp32=fp32,
+         limit_fp32_rel_l2=DECODE_FP32_REL_L2,
+         seconds=time.perf_counter() - t_phase)
+    misses = [what for what, ok in (
+        ("ring rows", ring_rows == W),
+        ("ring cache bytes", ring_bytes == RING_CACHE_BYTES),
+        ("linear cache bytes", lin_bytes == RING_LINEAR_CACHE_BYTES),
+        ("ring launches", ring_launches == expected["ring"]),
+        ("linear launches", lin_launches == expected["linear"]),
+        ("profiled steps", all(
+            pr["device_seconds"] is not None and pr["wrapper_launches"]
+            == _decode_step_launches(cfg, MODEL_PROFILE_STEPS)
+            for pr in profiles.values())),
+        ("finite logits", finite and fp32["finite"]),
+        ("ring vs linear", max(vs_linear) <= LM_PLAIN_REL_L2),
+        ("ring vs the forward", vs_forward <= LM_PLAIN_REL_L2),
+        ("kernel vs plain", max(vs_plain) <= LM_PLAIN_REL_L2),
+        ("plain version launched the kernel", plain_launches == 0),
+        ("fp32 rows", (fp32["ring"]["rows"], fp32["linear"]["rows"])
+         == (RING_FP32_WINDOW, RING_FP32_WINDOW + RING_PAST)),
+        ("fp32 launches", fp32["ring"]["launches"]
+         == fp32["linear"]["launches"] == fp32["launches_expected"]),
+        ("fp32 ring vs linear",
+         fp32["ring_vs_linear_rel_l2_max"] <= DECODE_FP32_REL_L2),
+        ("fp32 ring vs the forward",
+         fp32["ring_vs_forward_rel_l2"] <= DECODE_FP32_REL_L2)) if not ok]
+    if misses:
+        raise RuntimeError(f"swa_ring_decode: missed {misses}")
+
+
 # --------------------------------------------------------------------------
 # Training: the kernels' backwards, then h2o-danube-1.8b and Mamba-2-780M
 # --------------------------------------------------------------------------
@@ -3399,10 +3654,7 @@ def profile_train_step(step_fn, params, opt_state, batch) -> dict:
     the wrappers enqueued."""
     from repro_torch.serving import profile_split as ps
     counts, kernels = ps.wrapper_counts(), ps.kernel_counts()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with ps.traced(torch.device("cuda")) as prof:
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         torch.cuda.synchronize()
@@ -3488,6 +3740,152 @@ def phase_train(phase: str, arch: str, want_params: int,
     if not held <= TRAIN_LOSS_RTOL:
         raise RuntimeError(f"{phase}: step 0's loss {steps[0]['loss']} "
                            f"against the no_grad forward's {loss0}")
+
+
+def checkpoint_round_trip(cfg, params) -> dict:
+    """One train step of ``params`` (so that AdamW's m and v are not
+    zero), the parameters and optimizer state saved with
+    ``train/checkpoint.py`` to a new temporary directory, restored, moved
+    to the card and held to the state in memory leaf by leaf, to the bit
+    and dtype for dtype.  The directory is removed."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_config
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=CLI_SEQ,
+                    global_batch=CLI_BATCH)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in batch_for_config(cfg, dc, 0).items()}
+    params, opt_state, _ = make_train_step(cfg, TrainConfig())(
+        params, init_opt_state(params), batch)
+    state = {"params": params, "opt": opt_state}
+    moments = [float(t.abs().sum()) for t in
+               _leaves(opt_state["m"]) + _leaves(opt_state["v"])]
+    directory = tempfile.mkdtemp()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(directory, 1, state, metadata={"model": cfg.name})
+        save_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        t0 = time.perf_counter()
+        step, restored, meta = ckpt.restore(directory, state)
+        restored = _tree_map(lambda t: t.to("cuda"), restored)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory)
+    want = dict(_paths(state))
+    got = dict(_paths(restored))
+    unequal = [path for path in sorted(want.keys() | got.keys())
+               if path not in got or path not in want
+               or got[path].dtype != want[path].dtype
+               or not torch.equal(got[path], want[path])]
+    out = {"parameters": sum(t.numel() for t in _leaves(params)),
+           "state_bytes": _nbytes(state), "disk_bytes": disk,
+           "save_seconds": save_s, "restore_seconds": restore_s,
+           "leaves": len(_leaves(state)), "unequal_leaves": unequal,
+           "step": step, "metadata": meta,
+           "moments_nonzero": all(m > 0 for m in moments)}
+    if unequal or step != 1 or not out["moments_nonzero"]:
+        raise RuntimeError(f"checkpoint round trip: {out}")
+    return out
+
+
+def phase_train_cli() -> None:
+    """smollm-135m at full width: the checkpoint round trip, then
+    ``launch/train.py``'s ``main`` twice on one checkpoint directory
+    (CLI_STEPS steps each, its lines captured, the launch counts set to 0
+    just before and read just after each run).  The second run must
+    resume at step CLI_STEPS, its first loss equal to a no-grad
+    ``train_forward`` of the restored step-CLI_STEPS parameters on that
+    step's batch within TRAIN_LOSS_RTOL.  Raises on any miss, after
+    printing its line."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_config
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    cfg, params, info = init_full_width(CLI_ARCH, CLI_PARAMETERS,
+                                        CLI_PARAMETER_BYTES)
+    round_trip = checkpoint_round_trip(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    directory = tempfile.mkdtemp()
+    argv = ["--arch", CLI_ARCH, "--full", "--steps", str(CLI_STEPS),
+            "--batch", str(CLI_BATCH), "--seq", str(CLI_SEQ),
+            "--ckpt-dir", directory, "--device", "cuda"]
+    per_step = _train_launches(cfg)
+    runs = []
+    try:
+        for _ in range(2):
+            reset_launch_counts()
+            printed = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                hist = launch.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            lines = printed.getvalue().splitlines()
+            # the logged steps' clocks, each read after its step's sync
+            step_s = ((hist[-1]["wall_s"] - hist[0]["wall_s"])
+                      / (hist[-1]["step"] - hist[0]["step"]))
+            runs.append({
+                "seconds": wall, "steps_per_second": 1 / step_s,
+                "tokens_per_second": CLI_BATCH * CLI_SEQ / step_s,
+                "printed_steps": [int(ln.split()[1]) for ln in lines
+                                  if ln.startswith("step ")],
+                "losses": [h["loss"] for h in hist],
+                "summary": lines[-1], "launches": launches,
+                "flash_launches_per_step":
+                    launches["flash_attention"] / CLI_STEPS,
+                "checkpoints": sorted(os.listdir(directory))})
+        template = tr.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        _, tree, _ = ckpt.restore(directory, {"params": template},
+                                  step=CLI_STEPS)
+        del template
+        restored = _tree_map(lambda t: t.to("cuda"), tree["params"])
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch_for_config(
+            cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=CLI_SEQ,
+                            global_batch=CLI_BATCH), CLI_STEPS).items()}
+        with torch.no_grad():
+            loss, _ = tr.train_forward(restored, batch, cfg)
+        loss = float(loss)
+        del restored, batch, tree
+    finally:
+        shutil.rmtree(directory)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = runs[1]["losses"][0]
+    held = abs(resumed - loss) / abs(loss)
+    expected = {k: CLI_STEPS * v for k, v in per_step.items()}
+    logged = [0] + list(range(9, CLI_STEPS, 10))
+    emit("train_cli", **info, batch=CLI_BATCH, seq=CLI_SEQ, steps=CLI_STEPS,
+         checkpoint=round_trip, runs=runs, launches_per_step=per_step,
+         resumed_loss=resumed, restored_no_grad_loss=loss,
+         resumed_rel_diff=held, limit_loss_rtol=TRAIN_LOSS_RTOL,
+         seconds=time.perf_counter() - t_phase)
+    misses = [what for what, ok in (
+        ("first run's steps", runs[0]["printed_steps"] == logged),
+        ("resumed at step 100", runs[1]["printed_steps"]
+         == [CLI_STEPS + s for s in logged]),
+        ("checkpoints", runs[0]["checkpoints"] == ["LATEST", "step_00000100"]
+         and runs[1]["checkpoints"] == ["LATEST", "step_00000100",
+                                        "step_00000200"]),
+        ("launches", all(r["launches"] == expected for r in runs)),
+        ("finite losses", all(math.isfinite(x) for r in runs
+                              for x in r["losses"])),
+        ("one device", all(r["summary"].endswith(
+            "on mesh {'data': 1, 'model': 1}") for r in runs)),
+        ("resumed loss", held <= TRAIN_LOSS_RTOL)) if not ok]
+    if misses:
+        raise RuntimeError(f"train_cli: missed {misses}")
 
 
 def phase_replay(params, cfg) -> None:
@@ -3766,6 +4164,7 @@ def main() -> int:
         phase_frontend_serve()
         gc.collect()                 # internvl2-1b's 1.3 GB
         torch.cuda.empty_cache()
+        phase_swa_ring_decode()
         phase_regnet()
     # training saves tensors for backward, which inference tensors cannot
     # be: these phases build everything outside inference mode
@@ -3776,6 +4175,7 @@ def main() -> int:
                 DANUBE_PARAMETER_BYTES, "flash_attention")
     phase_train("train_mamba", TRAIN_SSD_ARCH, SSD_PARAMETERS,
                 SSD_PARAMETER_BYTES, "ssd_scan")
+    phase_train_cli()
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels_line(
         kernel_entry, lm_entries["flash_attention"], lm_entries["rglru_scan"],

@@ -12,7 +12,9 @@ kernels, the wrappers' calls and the CUDA kernels those enqueued, and
 the device time launched inside each ``record_function`` scope of
 ``SCOPES`` (the MoE layers' dispatch and experts), and the device's
 idle share over the round.  ``profile_decode`` does the
-same for decode steps through a warm cache.  Both raise if the trace
+same for decode steps through a warm cache.  Both trace through
+``traced``, whose first kernels absorb the records CUPTI drops at the
+start of a session.  Both raise if the trace
 lacks a class of hand kernel the wrappers enqueued, holds more of it, or
 lacks more than one record in a hundred of it (``_check_trace``).
 ``chip_smoke.py`` runs them in its ``lm_serve``, ``mamba_serve``,
@@ -22,11 +24,12 @@ there are no device kernels and the device fields are null.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import tempfile
 import time
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -97,26 +100,35 @@ def _busy_us(spans: List[Tuple[float, float]]) -> float:
     return busy
 
 
-def time_by_scope(events: List[dict], device: List[dict]) -> Dict:
-    """Device seconds of the ``device`` events (kernels, copies) whose
-    launch on the host (the runtime or driver call of the same
-    correlation id) lies inside a ``SCOPES`` span of the same thread; the
-    innermost span takes it."""
+def _scope_of(events: List[dict], names) -> Callable[[dict], str]:
+    """A function from a device event (kernel, copy) to the innermost span
+    of ``names`` (same host thread) that holds its launch, the runtime or
+    driver call of the same correlation id; None where no span does."""
     spans = [(e["ts"], e["ts"] + e["dur"], e.get("tid"), e["name"])
              for e in events if e.get("ph") == "X"
-             and e.get("cat") == "user_annotation" and e["name"] in SCOPES]
+             and e.get("cat") == "user_annotation" and e["name"] in names]
     launched = {e["args"]["correlation"]: (e["ts"], e.get("tid"))
                 for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
-    out = dict.fromkeys(SCOPES, 0.0)
-    for e in device:
+
+    def scope(e: dict):
         at = launched.get(e.get("args", {}).get("correlation"))
         if at is None:
-            continue
+            return None
         inside = [s for s in spans if s[2] == at[1] and s[0] <= at[0] <= s[1]]
-        if inside:
-            name = min(inside, key=lambda s: s[1] - s[0])[3]
+        return min(inside, key=lambda s: s[1] - s[0])[3] if inside else None
+    return scope
+
+
+def time_by_scope(events: List[dict], device: List[dict]) -> Dict:
+    """Device seconds of the ``device`` events whose launch lies inside a
+    ``SCOPES`` span; the innermost span takes it (``_scope_of``)."""
+    scope = _scope_of(events, SCOPES)
+    out = dict.fromkeys(SCOPES, 0.0)
+    for e in device:
+        name = scope(e)
+        if name is not None:
             out[name] += e["dur"] * 1e-6
     return out
 
@@ -124,12 +136,18 @@ def time_by_scope(events: List[dict], device: List[dict]) -> Dict:
 def summarize_trace(events: List[dict], wall_s: float) -> Dict:
     """Device time by kernel class from Chrome-trace events (microseconds),
     and the share of ``wall_s`` in which no kernel or copy ran.  Raises if
-    the device was busy for longer than ``wall_s``."""
+    the device was busy for longer than ``wall_s``.  The kernels launched
+    inside the ``WARMUP_SCOPE`` span (``traced``) are left out, and
+    counted in ``warmup_kernels_in_trace``."""
     device = [e for e in events if e.get("ph") == "X" and e.get("cat") in
               ("kernel", "gpu_memcpy", "gpu_memset")]
+    warm = _scope_of(events, (WARMUP_SCOPE,))
+    n_device = len(device)
+    device = [e for e in device if warm(e) is None]
     if not device:
         return {"device_seconds": None, "by_class": None, "by_scope": None,
-                "top": None, "kernels_in_trace": None, "idle_share": None}
+                "top": None, "kernels_in_trace": None, "idle_share": None,
+                "warmup_kernels_in_trace": None}
     by_class: Dict[str, float] = {}
     per_name: Dict[str, List[float]] = {}
     counts: Dict[str, int] = {}
@@ -152,6 +170,7 @@ def summarize_trace(events: List[dict], wall_s: float) -> Dict:
         "top": [{"name": n[:120], "calls": len(d), "seconds": sum(d)}
                 for n, d in top],
         "idle_share": 1.0 - busy / wall_s,
+        "warmup_kernels_in_trace": n_device - len(device),
     }
 
 
@@ -163,12 +182,44 @@ def _trace_events(prof) -> List[dict]:
             return json.load(f)["traceEvents"]
 
 
-def _activities(dev: torch.device):
+#: tiny kernels ``traced`` launches first in every window on a GPU, in a
+#: span of this name: CUPTI drops the first records of a
+#: ``torch.profiler`` session, more of them the more sessions the process
+#: has run (a whole-model decode round on an H100 has lost 49, two of them
+#: decode attention's), so these take the loss and the summary leaves
+#: them out
+WARMUP_SCOPE = "trace_warmup"
+TRACE_WARMUP_KERNELS = 512
+#: host seconds a window stays open after the block's synchronise, so that
+#: a kernel whose timestamp, moved onto the host's clock, lands late still
+#: falls inside it
+TRACE_TAIL_SECONDS = 0.05
+
+
+@contextlib.contextmanager
+def traced(dev: torch.device) -> Iterator[torch.profiler.profile]:
+    """``torch.profiler.profile`` of the host and, on a GPU, of the
+    device around the block: the device synchronised first, the
+    ``WARMUP_SCOPE`` kernels launched and waited for before the block,
+    the window held ``TRACE_TAIL_SECONDS`` after it.  The block ends in
+    a synchronise of its own where its wall time is to hold the
+    device's work."""
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
+    cuda = dev.type == "cuda"
+    if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
         torch.cuda.synchronize(dev)
-    return activities
+    with torch.profiler.profile(activities=activities) as prof:
+        if cuda:
+            with torch.profiler.record_function(WARMUP_SCOPE):
+                x = torch.zeros(1, device=dev)
+                for _ in range(TRACE_WARMUP_KERNELS - 1):
+                    x.add_(1)
+            torch.cuda.synchronize(dev)
+        yield prof
+        if cuda:
+            torch.cuda.synchronize(dev)
+            time.sleep(TRACE_TAIL_SECONDS)
 
 
 #: the share of a class of hand kernels a trace may lack before the check
@@ -206,12 +257,11 @@ def profile_round(cloud, device, tokens: np.ndarray, group: int) -> Dict:
     ``LayerSplitEngine``) and ``device`` (its ``LayerSplitDevice``) under
     ``torch.profiler``; see the module's docstring for what it returns."""
     dev = device.device
-    activities = _activities(dev)
     before = {"cloud": cloud.stats["gpu_seconds"],
               "device": device.stats["gpu_seconds"]}
     misses = cloud.stats["cache_misses"] + device.stats["cache_misses"]
     counts, kernels = wrapper_counts(), kernel_counts()
-    with torch.profiler.profile(activities=activities) as prof:
+    with traced(dev) as prof:
         t0 = time.perf_counter()
         payload, _ = cloud.process({"tokens": tokens}, group)
         logits = device.complete(payload, group)
@@ -241,9 +291,8 @@ def profile_decode(params, cfg, tokens: torch.Tensor, cache, start: int,
     work.  Returns the summary of ``profile_round`` with ``steps`` and the
     host's milliseconds a step in place of the sides' seconds."""
     dev = params["embed"].device
-    activities = _activities(dev)
     counts, kernels = wrapper_counts(), kernel_counts()
-    with torch.profiler.profile(activities=activities) as prof:
+    with traced(dev) as prof:
         t0 = time.perf_counter()
         for t in range(start, start + steps):
             logits, cache = tr.decode_step(params, tokens[:, t:t + 1], cache,

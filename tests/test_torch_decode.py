@@ -507,6 +507,28 @@ def test_ring_cache_matches_reference_and_linear(models):
     _assert_close(lr, ll.numpy(), "float32")
 
 
+def test_ring_matches_prefill_then_the_window_view(models):
+    """The CPU twin of ``chip_smoke.py``'s ``swa_ring_decode``: h2o-danube
+    (window 32) decoded 40 steps from empty through a ring of 32 slots,
+    against ``prefill`` of the first 32 tokens into a linear cache of 40
+    rows and 8 decode steps through the window inside it; the logits of
+    each of the 8 steps past the window agree at the fp32 tolerance."""
+    _, _, cfg, params = _model(models, "h2o-danube-1.8b", "float32")
+    W, T = cfg.window, cfg.window + 8
+    toks = torch.from_numpy(_tokens(cfg, T, seed=7))
+    ring = tr.init_decode_cache(cfg, B, T, device="cpu")
+    ring_logits = []
+    for t in range(T):
+        logits, ring = tr.decode_step(params, toks[:, t:t + 1], ring, t, cfg)
+        ring_logits.append(logits)
+    _, lin = tr.prefill(params, {"tokens": toks[:, :W]}, cfg, pad_to=T)
+    assert ring["groups"]["b0"]["k"].shape[2] == W == 32
+    assert lin["groups"]["b0"]["k"].shape[2] == T == 40
+    for t in range(W, T):
+        logits, lin = tr.decode_step(params, toks[:, t:t + 1], lin, t, cfg)
+        _assert_close(ring_logits[t], logits.numpy(), "float32")
+
+
 def test_prefill_ignores_an_int8_cache_dtype(models):
     """A quirk of the reference kept by the port: with
     ``kv_cache_dtype="int8"`` prefill still returns the prompt's k and v

@@ -1,0 +1,163 @@
+"""Port parity, the training launcher (ROADMAP A9c):
+``repro_torch.launch.train.main`` against the reference's
+``repro.launch.train.main`` on reduced smollm-135m in fp32, both started
+from the reference's initial tree (one JAX init for the file; the port's
+``transformer.init_params`` is monkeypatched to hand it over, as
+``tests/test_torch_train.py`` does).  The reference's ``main`` takes its
+arguments from ``sys.argv`` and prints its history; the port's takes an
+argv and also returns the history.
+
+Tolerances: the logged losses and gradient norms rtol 1e-4, as
+``tests/test_torch_train.py`` holds ``TrainLoop`` over 10 steps; the
+learning rates rtol 1e-6 (the same fp32 schedule); the printed numbers
+within one unit of their last printed digit.
+"""
+import contextlib
+import dataclasses
+import io
+import os
+import re
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config as ref_reduced_config
+from repro.launch import train as ref_launch
+from repro.models import transformer as ref_tr
+from repro.train import train_loop as ref_loop
+from repro_torch.configs import reduced_config
+from repro_torch.convert import from_jax_params, tree_leaves
+from repro_torch.data.pipeline import DataConfig, batch_for_config
+from repro_torch.launch import train as launch
+from repro_torch.models import transformer as tr
+from repro_torch.train import checkpoint
+
+torch.set_num_threads(1)
+
+ARCH = "smollm-135m"
+BATCH, SEQ = 2, 32
+ARGS = ["--arch", ARCH, "--batch", str(BATCH), "--seq", str(SEQ)]
+STEP_LINE = re.compile(r"^step +(\d+) loss (\S+) gnorm (\S+) lr (\S+)$")
+
+
+def _fp32(reduced):
+    return lambda arch: dataclasses.replace(reduced(arch),
+                                            param_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def ref_tree():
+    cfg = _fp32(ref_reduced_config)(ARCH)
+    return jax.jit(lambda key: ref_tr.init_params(cfg, key))(
+        jax.random.PRNGKey(0))
+
+
+@pytest.fixture
+def fp32_from_the_reference(monkeypatch, ref_tree):
+    """Both launchers build the fp32 reduced config and start from the
+    reference's tree."""
+    monkeypatch.setattr(ref_launch, "reduced_config",
+                        _fp32(ref_reduced_config))
+    monkeypatch.setattr(launch, "reduced_config", _fp32(reduced_config))
+    tree = jax.tree_util.tree_map(np.asarray, ref_tree)
+    monkeypatch.setattr(tr, "init_params",
+                        lambda c, gen, dev: from_jax_params(tree, dev))
+    monkeypatch.setattr(ref_tr, "init_params", lambda c, key: ref_tree)
+
+
+def _run(fn, *args):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ret = fn(*args)
+    return ret, out.getvalue().splitlines()
+
+
+def _steps(lines):
+    """The printed (step, loss, gnorm, lr) rows."""
+    rows = [STEP_LINE.match(line) for line in lines]
+    return [(int(m[1]), float(m[2]), float(m[3]), float(m[4]))
+            for m in rows if m]
+
+
+def test_main_prints_the_reference_history(fp32_from_the_reference,
+                                           monkeypatch):
+    ref_hist = []
+    ref_run = ref_loop.TrainLoop.run
+
+    def spy(self, *a, **k):
+        out = ref_run(self, *a, **k)
+        ref_hist.extend(out[2])
+        return out
+
+    monkeypatch.setattr(ref_loop.TrainLoop, "run", spy)
+    monkeypatch.setattr(sys, "argv", ["train"] + ARGS + ["--steps", "10"])
+    _, want = _run(ref_launch.main)
+    hist, got = _run(launch.main, ARGS + ["--steps", "10", "--device", "cpu"])
+
+    assert [h["step"] for h in hist] == [h["step"] for h in ref_hist] \
+        == [0, 9]
+    for key, rtol in (("loss", 1e-4), ("grad_norm", 1e-4), ("lr", 1e-6)):
+        np.testing.assert_allclose([h[key] for h in hist],
+                                   [h[key] for h in ref_hist], rtol=rtol)
+    rows, ref_rows = np.array(_steps(got)), np.array(_steps(want))
+    assert rows.shape == ref_rows.shape == (2, 4)
+    np.testing.assert_array_equal(rows[:, 0], ref_rows[:, 0])
+    np.testing.assert_allclose(rows[:, 1], ref_rows[:, 1], rtol=0,
+                               atol=1.01e-4)
+    np.testing.assert_allclose(rows[:, 2], ref_rows[:, 2], rtol=0,
+                               atol=1.01e-3)
+    np.testing.assert_allclose(rows[:, 3], ref_rows[:, 3], rtol=1.01e-2)
+    # the summary, numbers aside, word for word (the mesh included)
+    number = re.compile(r"\d+\.\d+")
+    assert [number.sub("#", line) for line in got[2:]] == \
+        [number.sub("#", line) for line in want[2:]] == \
+        ["", f"{reduced_config(ARCH).name}: loss # -> # over 10 steps on "
+             "mesh {'data': 1, 'model': 1}"]
+
+
+@pytest.mark.parametrize("flag", ["--data-parallel", "--model-parallel"])
+def test_a_mesh_above_one_device_raises(flag):
+    """The reference clamps the mesh to the devices it finds; the port
+    refuses rather than train on fewer than were asked for."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        launch.main(ARGS + ["--steps", "1", "--device", "cpu", flag, "2"])
+
+
+def test_main_needs_a_gpu_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        launch.main(ARGS + ["--steps", "1"])
+
+
+def test_a_second_run_resumes_at_step_100(tmp_path):
+    """Two runs of 100 steps on one checkpoint directory: the first
+    writes step 100, the second starts there, logs steps 100-199 and
+    writes step 200; its step-100 loss is the loss of the restored
+    parameters on the data of step 100."""
+    argv = ["--arch", ARCH, "--batch", "2", "--seq", "16", "--steps", "100",
+            "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    first, lines = _run(launch.main, argv)
+    assert [r[0] for r in _steps(lines)] == [0] + list(range(9, 100, 10))
+    assert sorted(os.listdir(tmp_path)) == ["LATEST", "step_00000100"]
+    second, lines = _run(launch.main, argv)
+    assert [r[0] for r in _steps(lines)] == [100] + list(range(109, 200, 10))
+    assert sorted(os.listdir(tmp_path)) == ["LATEST", "step_00000100",
+                                            "step_00000200"]
+    assert all(np.isfinite(h["loss"]) for h in first + second)
+
+    cfg = reduced_config(ARCH)
+    template = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    _, params, meta = checkpoint.restore(str(tmp_path),
+                                         {"params": template}, step=100)
+    assert meta == {"model": cfg.name}
+    batch = batch_for_config(cfg, DataConfig(cfg.vocab_size, 16, 2), 100)
+    with torch.no_grad():
+        loss, _ = tr.train_forward(
+            params["params"],
+            {k: torch.from_numpy(v) for k, v in batch.items()}, cfg)
+    np.testing.assert_allclose(second[0]["loss"], float(loss), rtol=1e-5)
+    assert [p.dtype for p in tree_leaves(params["params"])] == \
+        [p.dtype for p in tree_leaves(template)]

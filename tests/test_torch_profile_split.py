@@ -222,6 +222,47 @@ def test_time_by_scope_takes_the_innermost_scope():
     assert ps.SCOPES == ("moe_dispatch", "moe_experts")
 
 
+def test_summary_leaves_out_the_warmup_kernels():
+    """Kernels launched inside the ``WARMUP_SCOPE`` span (``traced``'s
+    first kernels) count in no class, scope, busy time or top list, only
+    in ``warmup_kernels_in_trace``; a launch of the same thread outside
+    it, or one of another thread inside its time, counts as usual."""
+    def event(cat, name, ts, dur, corr=None, tid=1):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+             "tid": tid}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+    ev = [event("user_annotation", ps.WARMUP_SCOPE, 0.0, 100.0)]
+    for i in range(3):
+        ev += [event("cuda_runtime", "cudaLaunchKernel", 10.0 + i, 1.0, i),
+               event("kernel", "warm", 20.0 + i, 1.0, i)]
+    ev += [event("cuda_runtime", "cudaLaunchKernel", 50.0, 1.0, 7, tid=2),
+           event("kernel", "gemm_other_thread", 300.0, 5.0, 7),
+           event("cuda_runtime", "cudaLaunchKernel", 200.0, 1.0, 8),
+           event("kernel", "ampere_gemm", 400.0, 10.0, 8)]
+    s = ps.summarize_trace(ev, wall_s=1e-3)
+    assert s["warmup_kernels_in_trace"] == 3
+    assert s["kernels_in_trace"] == {"gemm": 2}
+    assert s["device_seconds"] == pytest.approx(15e-6)
+    assert s["busy_seconds"] == pytest.approx(15e-6)
+    assert {t["name"] for t in s["top"]} == {"gemm_other_thread",
+                                              "ampere_gemm"}
+    only_warm = ps.summarize_trace(ev[:7], wall_s=1e-3)
+    assert only_warm["device_seconds"] is None
+
+
+def test_traced_on_the_cpu_launches_no_warmup():
+    """On the CPU ``traced`` profiles the host alone: no warmup span, no
+    device events, and a summary without device fields."""
+    with ps.traced(torch.device("cpu")) as prof:
+        torch.ones(4).sum()
+    events = ps._trace_events(prof)
+    assert not [e for e in events if e.get("name") == ps.WARMUP_SCOPE]
+    s = ps.summarize_trace(events, wall_s=1.0)
+    assert s["device_seconds"] is None and s["warmup_kernels_in_trace"] is None
+
+
 def test_moe_round_on_the_cpu_records_its_scopes(monkeypatch):
     """Reduced OLMoE through the engines under the profiler: the trace
     holds one ``moe_dispatch`` and one ``moe_experts`` span a layer run
