@@ -122,7 +122,16 @@ drives the port's serving paths, each at full published width:
     ``train/checkpoint.py``, restored and held to the bit, and the
     training launcher ``launch/train.py`` run twice on one checkpoint
     directory (100 steps of 8 x 2048 tokens each), the second run resuming
-    at step 100 from the first's checkpoint (``train_cli``).
+    at step 100 from the first's checkpoint (``train_cli``);
+  * calibration (phase ``calibrate``): the port's dry run
+    (``launch/dryrun.py``) over every architecture and shape cell, host
+    arithmetic on meta tensors, then four steps timed above -- Qwen2-7B's
+    warm prefill of 8 x 4096 tokens and its median decode step at batch
+    8, the median warm training steps of h2o-danube-1.8b and Mamba-2-780M
+    -- each counted at its shape and its measured rate held to the
+    roofline's estimate on the H100 (``calibration_ratio``, at most
+    1.05); the capacity artifact is written from the calibrated records
+    and read back.
 
 Each phase prints one JSON line (``total``: the script's own time, the
 kernels' build included).  The line before the last two is
@@ -438,6 +447,27 @@ RING_LINEAR_CACHE_BYTES = 1_022_361_600
 # RING_PAST steps past it, held to a linear cache and to the fp32 forward
 # at DECODE_FP32_REL_L2
 RING_FP32_WINDOW = 256
+
+# The calibrate phase: four steps the phases above time, each counted at
+# its shape by the port's dry run (launch/dryrun.py::count_cell): (key of
+# the measured seconds, arch, (kind, sequence, batch), count keywords).
+# The decode steps run at positions DECODE_PROMPT .. DECODE_LEN - 1; the
+# count takes the middle one
+CALIBRATION_STEPS = (
+    ("qwen2_prefill", DECODE_ARCH, ("prefill", DECODE_PROMPT, DECODE_BATCH),
+     {}),
+    ("qwen2_decode", DECODE_ARCH, ("decode", DECODE_LEN, DECODE_BATCH),
+     {"position": DECODE_PROMPT + DECODE_STEPS // 2 - 1}),
+    ("train_danube", DANUBE_ARCH, ("train", TRAIN_SEQ, TRAIN_BATCH), {}),
+    ("train_mamba", TRAIN_SSD_ARCH, ("train", TRAIN_SEQ, TRAIN_BATCH), {}),
+)
+# A card cannot beat its own roofline: a measured rate above the
+# estimate by more than this share means the count holds work that the
+# step does not do
+CALIBRATION_RATIO_MAX = 1.05
+# the dry run: 10 architectures x 4 shape cells, 7 of them the
+# reference's SKIP (long_500k of a model without sub-quadratic state)
+DRYRUN_RECORDS, DRYRUN_SKIPS = 40, 7
 
 # The training launcher at full smollm-135m width: CLI_STEPS steps of
 # CLI_BATCH x CLI_SEQ tokens, twice on one checkpoint directory.  The
@@ -2207,7 +2237,12 @@ def phase_model_decode(phase: str, cfg, params, prompts, frames=None,
                            f"{DECODE_FP32_REL_L2}")
 
 
-def phase_decode_serve(entry: dict, flash_entry: dict):
+def phase_decode_serve(entry: dict, flash_entry: dict, measured: dict):
+    """Qwen2-7B at full width: 8 prompts of 4096 tokens prefilled and
+    decoded DECODE_STEPS steps (the main path), held to the forward, in
+    fp32 to the plain version, and from an int8 cache; the prefill once
+    more, warm.  Writes the warm prefill's seconds and the median decode
+    step's into ``measured`` for ``calibrate``."""
     from repro_torch.models import transformer as tr
 
     cfg, params, info = init_full_width(DECODE_ARCH, DECODE_PARAMETERS,
@@ -2236,6 +2271,15 @@ def phase_decode_serve(entry: dict, flash_entry: dict):
     if cache_bytes != DECODE_CACHE_BYTES:
         raise RuntimeError(f"the cache holds {cache_bytes} B, the "
                            f"reference's {DECODE_CACHE_BYTES} B")
+    # the prefill once more, warm (the first one grew the allocator's
+    # pool), unpadded as the count has it; its cache is dropped
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.prefill(params, {"tokens": tokens[:, :DECODE_PROMPT]}, cfg)
+    torch.cuda.synchronize()
+    prefill_warm = time.perf_counter() - t0
+    measured["qwen2_prefill"] = prefill_warm
+    measured["qwen2_decode"] = record["step_ms_median"] / 1e3
 
     # bf16: against the one-machine forward over the same 4160 tokens
     want = one_machine(params, cfg, tokens)
@@ -2293,7 +2337,7 @@ def phase_decode_serve(entry: dict, flash_entry: dict):
             "vs_bf16_cache_rel_l2": _rel_l2(k8, b16, V),
             "plain_vs_bf16_cache_rel_l2": _rel_l2(p8, b16, V)}
     emit("decode_serve", **info, **record, cache_bytes=cache_bytes,
-         peak_memory_bytes=peak, bf16_decode_vs_forward_rel_l2=bf16,
+         prefill_seconds_warm=prefill_warm, peak_memory_bytes=peak, bf16_decode_vs_forward_rel_l2=bf16,
          limit_bf16_rel_l2=LM_PLAIN_REL_L2, fp32=fp32,
          limit_fp32_rel_l2=DECODE_FP32_REL_L2, fp32_steps=DECODE_FP32_STEPS,
          int8=int8, int8_steps=DECODE_INT8_STEPS)
@@ -3670,7 +3714,7 @@ def profile_train_step(step_fn, params, opt_state, batch) -> dict:
 
 
 def phase_train(phase: str, arch: str, want_params: int,
-                want_bytes: int, kernel: str) -> None:
+                want_bytes: int, kernel: str) -> float:
     """``arch`` at full width in bf16 with fp32 AdamW state: the fp32
     gradient check of its first layers, then TRAIN_STEPS steps of
     make_train_step on batch_for_config's batches (launch counts set to 0
@@ -3740,6 +3784,7 @@ def phase_train(phase: str, arch: str, want_params: int,
     if not held <= TRAIN_LOSS_RTOL:
         raise RuntimeError(f"{phase}: step 0's loss {steps[0]['loss']} "
                            f"against the no_grad forward's {loss0}")
+    return statistics.median(warm)
 
 
 def checkpoint_round_trip(cfg, params) -> dict:
@@ -4098,6 +4143,81 @@ def phase_regnet() -> None:
          seconds=time.perf_counter() - t_phase)
 
 
+def phase_calibrate(measured: dict, smi: str) -> None:
+    """The port's dry run over every (arch, shape cell): host arithmetic
+    on meta tensors, one record each, OK or the reference's SKIP.  Then
+    each step of CALIBRATION_STEPS counted at its shape: its FLOPs and
+    bytes, their times on the H100, the rate the roofline gives there
+    (``r_cloud_est["h100"]``), the rate measured above (no step runs
+    again), their ratio ``calibration_ratio`` and model FLOPs over peak
+    over the measured seconds.  The capacity artifact is written from
+    the records with their rates scaled by their ratios, and read back
+    through ``CloudCapacity.from_json``."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.core.capacity import CloudCapacity
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analysis import (HBM_BW, PEAK_FLOPS,
+                                               r_cloud_estimates)
+    t0 = time.perf_counter()
+    records = dryrun.sweep()
+    sweep_s = time.perf_counter() - t0
+    skips = [f"{r['arch']}/{r['cell']}" for r in records
+             if "SKIP" in r["status"]]
+    failed = [r for r in records
+              if r["status"] != "OK" and "SKIP" not in r["status"]]
+    if (len(records), len(skips), failed) != (DRYRUN_RECORDS, DRYRUN_SKIPS,
+                                              []):
+        raise RuntimeError(f"calibrate: the dry run gave {len(records)} "
+                           f"records, {len(skips)} SKIPs, failures "
+                           f"{failed}")
+    steps, calibrated = [], []
+    for key, arch, (kind, seq, batch), kw in CALIBRATION_STEPS:
+        seconds = measured[key]
+        cell = ShapeCell(f"{arch}_{kind}_{batch}x{seq}", seq, batch, kind)
+        rec = dryrun.analyze_cell(arch, cell, **kw)
+        flops, byts = rec["flops_per_device"], rec["hlo_bytes_per_device"]
+        est = r_cloud_estimates(flops, byts)["h100"]
+        ratio = (1.0 / seconds) / est
+        steps.append({
+            "step": key, "arch": arch, "cell": cell.name, **kw,
+            "flops": flops, "bytes": byts,
+            "t_compute_s": flops / PEAK_FLOPS,
+            "t_memory_s": byts / HBM_BW, "dominant": rec["dominant"],
+            "r_cloud_est_h100": est, "seconds_measured": seconds,
+            "r_cloud_measured": 1.0 / seconds, "calibration_ratio": ratio,
+            "model_flops": rec["model_flops_per_device"],
+            "model_flops_share_of_peak": rec["model_flops_per_device"]
+            / PEAK_FLOPS / seconds,
+            "components": rec["components"]})
+        calibrated.append(dict(
+            rec, step_time_measured_s=seconds, r_cloud_measured=1.0 / seconds,
+            calibration_hw="h100", calibration_ratio=ratio,
+            r_cloud_est={k: v * ratio for k, v in rec["r_cloud_est"].items()}))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "capacity.json")
+        n_classes = dryrun.write_capacity(calibrated, path)
+        with open(path) as f:
+            capacity = CloudCapacity.from_json(json.load(f))
+    h100 = capacity["h100"].r_cloud
+    emit("calibrate", card=smi, dryrun_records=len(records),
+         dryrun_seconds=sweep_s, skips=skips,
+         dominant={f"{r['arch']}/{r['cell']}": r["dominant"]
+                   for r in records if r["status"] == "OK"},
+         steps=steps, limit_calibration_ratio=CALIBRATION_RATIO_MAX,
+         capacity_classes=n_classes,
+         capacity_rates={c.name: c.r_cloud for c in capacity.classes},
+         capacity_h100_rate=h100)
+    for s in steps:
+        if not (math.isfinite(s["calibration_ratio"])
+                and 0 < s["calibration_ratio"] <= CALIBRATION_RATIO_MAX):
+            raise RuntimeError(f"calibrate: {s['step']}: calibration ratio "
+                               f"{s['calibration_ratio']} outside (0, "
+                               f"{CALIBRATION_RATIO_MAX}]")
+    if n_classes != 4 or not (math.isfinite(h100) and h100 > 0):
+        raise RuntimeError(f"calibrate: the capacity read back holds "
+                           f"{n_classes} classes, h100 at {h100}")
+
+
 #: the keys of a kernel in the kernels line: this run's measurements, its
 #: launches on the main path and its bound; the phase lines carry the rest
 KERNEL_LINE_KEYS = ("name", "route", "source", "replaces", "launches",
@@ -4149,8 +4269,9 @@ def main() -> int:
         gc.collect()                 # Mamba-2's 1.7 GB of weights
         torch.cuda.empty_cache()
         decode_entry = phase_decode_kernels()
+        measured = {}
         phase_decode_profile(*phase_decode_serve(
-            decode_entry, lm_entries["flash_attention"]))
+            decode_entry, lm_entries["flash_attention"], measured))
         gc.collect()                 # Qwen2-7B's 15 GB of weights
         torch.cuda.empty_cache()
         phase_moe_decode(*phase_moe_serve())
@@ -4171,11 +4292,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_kernels()
-    phase_train("train_danube", DANUBE_ARCH, DANUBE_PARAMETERS,
-                DANUBE_PARAMETER_BYTES, "flash_attention")
-    phase_train("train_mamba", TRAIN_SSD_ARCH, SSD_PARAMETERS,
-                SSD_PARAMETER_BYTES, "ssd_scan")
+    measured["train_danube"] = phase_train(
+        "train_danube", DANUBE_ARCH, DANUBE_PARAMETERS,
+        DANUBE_PARAMETER_BYTES, "flash_attention")
+    measured["train_mamba"] = phase_train(
+        "train_mamba", TRAIN_SSD_ARCH, SSD_PARAMETERS, SSD_PARAMETER_BYTES,
+        "ssd_scan")
     phase_train_cli()
+    phase_calibrate(measured, smi)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels_line(
         kernel_entry, lm_entries["flash_attention"], lm_entries["rglru_scan"],

@@ -47,6 +47,11 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
 def embed_init(generator: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype,
                device: DeviceLike = None) -> torch.Tensor:
+    """Normal(0, 0.02).  On the ``meta`` device nothing is drawn, as in
+    ``dense_init``."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=dev)
     w = torch.randn(tuple(shape), dtype=torch.float32,
                     device=generator.device, generator=generator)
     return (w * 0.02).to(device=resolve_device(device), dtype=dtype)

@@ -38,7 +38,8 @@ WORD_COPIED = ("core/sla.py", "serving/event_wheel.py",
                "serving/fleet_sim.py", "serving/shard_sim.py",
                "serving/__init__.py", "train/fault_tolerance.py",
                "train/__init__.py", "api.py", "data/pipeline.py",
-               "data/__init__.py", "distributed/__init__.py")
+               "data/__init__.py", "distributed/__init__.py",
+               "roofline/hlo_parser.py", "roofline/__init__.py")
 
 
 def _renamed(text):
@@ -265,7 +266,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "configs/recurrentgemma_9b", "serving/fleet_sim",
                    "serving/replay", "api", "models/regnet",
                    "train/optimizer", "train/train_loop", "train/checkpoint",
-                   "distributed/compression", "data/pipeline"):
+                   "distributed/compression", "data/pipeline",
+                   "roofline/analysis", "launch/dryrun", "launch/perf"):
         assert f"src/repro_torch/{module}.py" in names
     assert len(files) > 40
     # ml_dtypes too: the card's machine does not have it (the checkpoint
