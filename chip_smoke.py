@@ -43,7 +43,22 @@ drives the port's serving paths, each at full published width:
     steps through a 4160-row cache, every layer's attention through the
     decode kernel; fp32 and int8-cache decodes are held to a one-machine
     forward and to the plain version (``decode_serve``), and 8 more steps
-    are profiled (``decode_profile``).
+    are profiled (``decode_profile``).  Then, on the same weights, the
+    28 groups are pipelined as 4 stages of 7 in 4 ranks on this card
+    (``distributed/pipeline.py::gpipe_forward`` over ``gloo``: NCCL
+    refuses two ranks on one GPU, so each hop goes through pinned host
+    memory): flash is first held to its plain version at the stages'
+    shape (2 x 2048 tokens, 28 query heads on 4 kv heads of 128, causal,
+    bf16); each rank copies its stage out of this process's memory
+    (CUDA IPC), checks its checksum and allocates at most its stage and
+    PIPE_RANK_MARGIN_BYTES, the ring all-gather of one
+    layer's 3584 x 18944 MLP weight is held to ``all_gather_into_tensor``
+    and to the weight, reduce-scatter + gather of integer-valued fp32 to
+    ``all_reduce``, and 4 microbatches of 2 x 2048 tokens through the
+    pipeline, 7 flash launches a microbatch on each stage, to the
+    sequential ``run_layer_range(0, 28)`` here, all to the bit; the
+    stages share the card's SMs, so this shows no speed-up (phase
+    ``pipeline_qwen2``).
   * Mixture-of-Experts (OLMoE-1B-7B, 16 MHA attention layers, 64 experts
     top-8, bf16), after Qwen2-7B's weights are freed: the flash kernel
     held to its plain version and timed at the MHA prefill layout, then
@@ -334,6 +349,25 @@ DECODE_BEFORE_MS = {
     "rg_shape": {"ms": 0.11321839690208435,
                  "raw_launch_ms": 0.11024159789085389}}
 SSD_BEFORE_MS = {"path": 8.187647819519043, "batch_1": 4.073232173919678}
+
+# The pipeline phase: Qwen2-7B's weights, still held after decode, as 4
+# stages of 7 groups in 4 ranks on this one card (gloo: NCCL refuses two
+# ranks on one GPU, so every hop goes through pinned host memory); 4
+# microbatches of 2 x 2048 tokens.  One layer's largest MLP weight (wi_up,
+# 3584 x 18944 bf16) is gathered row-sharded, and an fp32 tensor of its
+# shape with integer values (every sum exact) is reduced.
+PIPE_STAGES = 4
+PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 2, 2048
+PIPE_GATHERED = ("mlp", "wi_up")
+PIPE_GATHERED_SHAPE = (3584, 18944)
+PIPE_INT_RANGE = 1024
+# the world's time limit, ranks' start and every check included
+PIPE_TIMEOUT_S = 300
+# what a rank may allocate on the card beyond its own stage: the
+# collectives' buffers (at most ~1 GB at once) and one microbatch's
+# activations through 7 groups, 1.41-1.56 GB as measured on an H100.  One
+# more stage (3.26 GB) does not fit under it.
+PIPE_RANK_MARGIN_BYTES = 2 * 2 ** 30
 
 # Mixture-of-Experts (phases moe_serve, moe_decode): full-width
 # OLMoE-1B-7B, uncut (16 attention layers, MHA: 16 heads of 128 on 16 kv
@@ -2374,6 +2408,283 @@ def phase_decode_profile(cfg, params, tokens, cache) -> None:
     emit("decode_profile", **out)
 
 
+def tree_checksum(tree: dict) -> int:
+    """A checksum of every leaf's bytes, in leaf order: each chunk's
+    position-weighted byte sum on the card (int64, exact), folded on the
+    host.  Equal trees give equal sums on any process."""
+    total, chunk = 0, 1 << 24
+    for t in _leaves(tree):
+        flat = t.contiguous().reshape(-1).view(torch.uint8)
+        weight = torch.arange(chunk, device=flat.device, dtype=torch.int64)
+        weight = weight % 65521 + 1
+        for i in range(0, flat.numel(), chunk):
+            part = flat[i:i + chunk].to(torch.int64)
+            s = int((part * weight[:part.numel()]).sum())
+            total = (total * 1_000_003 + s) % (2 ** 61 - 1)
+    return total
+
+
+def _gb_per_s(nbytes: int, seconds: float) -> float:
+    return nbytes / seconds / 1e9
+
+
+def _pipeline_rank(rank, world_size, stages, checksums, cfg, micro_x, want,
+                   weight):
+    """One rank of ``pipeline_qwen2``: copy this stage's groups out of the
+    parent's memory, then the collectives and the pipeline, each held to
+    the bit.  Returns what it measured (host floats and ints).
+
+    ``stages`` arrive as CUDA IPC mappings of the parent's stacked leaves
+    (a slice maps its whole storage, so every stage is mapped); they stay
+    mapped until this function returns, since ``run_world`` holds the
+    arguments, and add nothing to this rank's allocations.  The rank
+    computes only from its own copy of its stage."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.pipeline import gpipe_forward
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tr
+
+    torch.cuda.set_device(0)
+    out = {"rank": rank}
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        # this stage's groups on this rank's own allocation
+        own = _tree_map(torch.clone, stages[rank])
+        torch.cuda.synchronize()
+        out["stage_bytes"] = _nbytes(own)
+        out["checksum_equal"] = tree_checksum(own) == checksums[rank]
+        mesh = Mesh((world_size,), ("stage",))
+        group = mesh.group("stage")
+
+        def timed(fn, *args):
+            dist.barrier(group=group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(*args)
+            torch.cuda.synchronize()
+            return y, time.perf_counter() - t0
+
+        # the library's collectives, through host memory as gloo needs
+        def all_gather(t):
+            res = torch.empty((world_size * t.shape[0],) + tuple(t.shape[1:]),
+                              dtype=t.dtype)
+            dist.all_gather_into_tensor(res, t.cpu(), group=group)
+            return res.cuda()
+
+        def all_reduce(t):
+            res = t.cpu()
+            dist.all_reduce(res, group=group)
+            return res.cuda()
+
+        # 1. the ring gather of one layer's wi_up, row-sharded
+        chunk = weight.shape[0] // world_size
+        shard = weight[rank * chunk:(rank + 1) * chunk].clone()
+        coll.ring_all_gather(shard, "stage", mesh=mesh)          # cold
+        stats = coll.HopStats()
+        ring, ring_s = timed(lambda: coll.ring_all_gather(
+            shard, "stage", mesh=mesh, stats=stats))
+        agt, agt_s = timed(all_gather, shard)
+        whole, make_s = timed(coll.make_ring_all_gather(mesh, "stage"),
+                              weight)
+        nbytes = weight.numel() * weight.element_size()
+        out["ring"] = {
+            "equal_all_gather": torch.equal(ring, agt),
+            "equal_unsharded": torch.equal(ring, weight),
+            "make_ring_equal_unsharded": torch.equal(whole, weight),
+            "bytes": nbytes, "hops": stats.hops, "hop_bytes": stats.bytes,
+            "host_copy_seconds": stats.host_copy_seconds,
+            "transfer_seconds": stats.transfer_seconds,
+            "seconds": ring_s, "gb_per_s": _gb_per_s(nbytes, ring_s),
+            "all_gather_seconds": agt_s,
+            "all_gather_gb_per_s": _gb_per_s(nbytes, agt_s),
+            "make_ring_seconds": make_s,
+            "make_ring_gb_per_s": _gb_per_s(nbytes, make_s)}
+        del ring, agt, whole, shard
+
+        # 2. reduce-scatter then gather, integer-valued fp32
+        gen = torch.Generator(device="cuda").manual_seed(SEED + rank)
+        ints = torch.randint(-PIPE_INT_RANGE, PIPE_INT_RANGE + 1,
+                             PIPE_GATHERED_SHAPE, generator=gen,
+                             device="cuda").float()
+        rsg, rsg_s = timed(lambda: coll.reduce_scatter_then_gather(
+            ints, "stage", mesh=mesh))
+        summed, ar_s = timed(all_reduce, ints)
+        nbytes = ints.numel() * ints.element_size()
+        out["reduce"] = {
+            "equal_all_reduce": torch.equal(rsg, summed), "bytes": nbytes,
+            "seconds": rsg_s, "gb_per_s": _gb_per_s(nbytes, rsg_s),
+            "all_reduce_seconds": ar_s,
+            "all_reduce_gb_per_s": _gb_per_s(nbytes, ar_s)}
+        del ints, rsg, summed
+
+        # 3. the pipeline: this rank's stage of 7 groups on flash
+        per = cfg.num_groups() // world_size
+        positions = torch.arange(micro_x.shape[2], device="cuda")
+        x = micro_x.clone()
+        # the stacked tree gpipe_forward takes, every stage's entry a view
+        # of this rank's own copy (it reads only its own)
+        params = _tree_map(lambda a: a.unsqueeze(0).expand(
+            (world_size,) + tuple(a.shape)), own)
+
+        def stage_fn(p, h):
+            return tr.run_layer_range(p, h, cfg, None, start_group=0,
+                                      stop_group=per, positions=positions,
+                                      kernels=ops.kernel_registry())
+
+        fa.launch_count = 0
+        got, cold_s = timed(lambda: gpipe_forward(
+            stage_fn, params, x, mesh=mesh, axis_name="stage"))
+        out["flash_launches"] = fa.launch_count
+        stats = coll.HopStats()
+        warm, warm_s = timed(lambda: gpipe_forward(
+            stage_fn, params, x, mesh=mesh, axis_name="stage", stats=stats))
+        out["pipeline"] = {
+            "equal_sequential": torch.equal(got, want),
+            "warm_equal_sequential": torch.equal(warm, want),
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "cold_seconds": cold_s, "warm_seconds": warm_s,
+            "hops": stats.hops, "hop_bytes": stats.bytes,
+            "host_copy_seconds": stats.host_copy_seconds,
+            "transfer_seconds": stats.transfer_seconds}
+        out["peak_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def pipeline_flash_check(cfg) -> dict:
+    """flash held to its plain version on the card at the shape each
+    stage gives it (PIPE_BATCH x PIPE_SEQ, causal, the config's heads,
+    bf16), on random inputs; raises outside FLASH_TOL.  The launch is a
+    comparison's, made before the phase sets the count to 0."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, S, D = PIPE_BATCH, PIPE_SEQ, cfg.resolved_head_dim()
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+
+    def n(heads):
+        return torch.randn((B * heads, S, D), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    q, k, v = n(Hq), n(Hkv), n(Hkv)
+    o = fa.flash_attention(q, k, v, causal=True, window=0)
+    want = fa.flash_attention_ref(q, k, v, causal=True, window=0)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    err = float((o.float() - want.float()).abs().max())
+    shape = [B, S, S, Hq, Hkv, D, True, 0]
+    if (o.dtype != torch.bfloat16 or not _within(o, want, atol, rtol)
+            or not bool(torch.isfinite(o).all())):
+        raise RuntimeError(f"flash_attention{tuple(shape)} bf16 disagrees "
+                           f"with its plain version: max|d|={err}")
+    return {"shape": shape, "dtype": "bfloat16", "max_abs_err": err,
+            "atol": atol, "rtol": rtol}
+
+
+def phase_pipeline_qwen2(cfg, params) -> None:
+    """Qwen2-7B's 28 groups pipelined as 4 stages of 7 in 4 ranks on this
+    card (``distributed/pipeline.py::gpipe_forward``, gloo), every rank's
+    outputs held to the bit to the sequential ``run_layer_range`` here
+    (flash first held to its plain version at the stages' shape);
+    the ring gather and reduce-scatter + gather of one layer's largest
+    MLP weight held to ``all_gather_into_tensor`` and ``all_reduce``."""
+    from repro_torch.distributed.pipeline import bubble_fraction
+    from repro_torch.distributed.world import run_world
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+
+    mode = tool_output(["nvidia-smi", "--query-gpu=compute_mode",
+                        "--format=csv,noheader"]).splitlines()[0].strip()
+    if mode != "Default":
+        raise RuntimeError(f"compute mode {mode!r}: {PIPE_STAGES} ranks "
+                           f"cannot share the card (needs 'Default')")
+    G, S = cfg.num_groups(), PIPE_STAGES
+    if G % S or cfg.tail_pattern():
+        raise RuntimeError(f"{G} groups and a tail do not split in {S}")
+    per = G // S
+    stages = [{"blocks": _tree_map(lambda a: a[s * per:(s + 1) * per],
+                                   params["blocks"])} for s in range(S)]
+    checksums = [tree_checksum(t) for t in stages]
+    weight = params["blocks"]["b0"][PIPE_GATHERED[0]][PIPE_GATHERED[1]][0]
+    if tuple(weight.shape) != PIPE_GATHERED_SHAPE:
+        raise RuntimeError(f"the gathered weight is {tuple(weight.shape)}")
+    flash = pipeline_flash_check(cfg)
+
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (PIPE_MICRO * PIPE_BATCH, PIPE_SEQ)).astype(
+            np.int32)).cuda()
+    micro_x = tr.embed_tokens(params, tokens, cfg).reshape(
+        PIPE_MICRO, PIPE_BATCH, PIPE_SEQ, cfg.d_model)
+    positions = torch.arange(PIPE_SEQ, device="cuda")
+
+    def sequential():
+        return torch.stack([tr.run_layer_range(
+            params, micro_x[m], cfg, None, start_group=0, stop_group=G,
+            positions=positions, kernels=ops.kernel_registry())
+            for m in range(PIPE_MICRO)])
+    fa.launch_count = 0
+    want = sequential()                                   # cold
+    seq_launches = fa.launch_count
+    if seq_launches != G * PIPE_MICRO:
+        raise RuntimeError(f"the sequential forward launched flash "
+                           f"{seq_launches} times")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = sequential()
+    torch.cuda.synchronize()
+    seq_warm = time.perf_counter() - t0
+    if not torch.equal(again, want):
+        raise RuntimeError("two sequential forwards differ")
+    del again
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        ranks = run_world(_pipeline_rank, S, (stages, checksums, cfg,
+                                              micro_x, want, weight),
+                          workdir=workdir, timeout=PIPE_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    hop_bytes = micro_x[0].numel() * micro_x.element_size()
+    whole_bytes = _nbytes(params)
+    emit("pipeline_qwen2", config=cfg.name, stages=S, groups_per_stage=per,
+         microbatches=PIPE_MICRO, microbatch=[PIPE_BATCH, PIPE_SEQ],
+         backend="gloo", compute_mode=mode,
+         bubble_fraction=bubble_fraction(PIPE_MICRO, S),
+         hop_bytes=hop_bytes, hops=(S - 1) * PIPE_MICRO,
+         hop_bytes_total=(S - 1) * PIPE_MICRO * hop_bytes,
+         sequential_seconds_warm=seq_warm,
+         sequential_flash_launches=seq_launches,
+         pipelined_seconds_warm=max(r["pipeline"]["warm_seconds"]
+                                    for r in ranks),
+         world_seconds=world_s, model_bytes=whole_bytes,
+         rank_margin_bytes=PIPE_RANK_MARGIN_BYTES, flash_check=flash,
+         ranks=ranks)
+    for r in ranks:
+        failed = [name for name, ok in (
+            ("stage checksum", r["checksum_equal"]),
+            ("ring gather vs all_gather_into_tensor",
+             r["ring"]["equal_all_gather"]),
+            ("ring gather vs the unsharded weight",
+             r["ring"]["equal_unsharded"]),
+            ("make_ring_all_gather vs the unsharded weight",
+             r["ring"]["make_ring_equal_unsharded"]),
+            ("reduce_scatter_then_gather vs all_reduce",
+             r["reduce"]["equal_all_reduce"]),
+            ("pipelined vs sequential forward",
+             r["pipeline"]["equal_sequential"]),
+            ("warm pipelined vs sequential forward",
+             r["pipeline"]["warm_equal_sequential"]),
+            (f"flash launched {r['flash_launches']} times, not "
+             f"{per * PIPE_MICRO}", r["flash_launches"] == per * PIPE_MICRO),
+            (f"the rank allocated {r['peak_memory_allocated_bytes']} B, "
+             f"more than its stage and {PIPE_RANK_MARGIN_BYTES} B",
+             r["peak_memory_allocated_bytes"]
+             < r["stage_bytes"] + PIPE_RANK_MARGIN_BYTES)) if not ok]
+        if failed:
+            raise RuntimeError(f"pipeline_qwen2, rank {r['rank']}: "
+                               f"{'; '.join(failed)}")
+
+
 class record_routing:
     """Within the block, every ``apply_moe`` call first records what its
     router does with the layer's input: ``moe.routing_stats`` (host
@@ -4270,9 +4581,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         decode_entry = phase_decode_kernels()
         measured = {}
-        phase_decode_profile(*phase_decode_serve(
-            decode_entry, lm_entries["flash_attention"], measured))
+        qwen2 = phase_decode_serve(decode_entry,
+                                   lm_entries["flash_attention"], measured)
+        phase_decode_profile(*qwen2)
+        qwen2 = qwen2[:2]            # its config and weights, cache freed
+        torch.cuda.empty_cache()
+        phase_pipeline_qwen2(*qwen2)
+        del qwen2
         gc.collect()                 # Qwen2-7B's 15 GB of weights
+        torch.cuda.ipc_collect()     # once the ranks released them
         torch.cuda.empty_cache()
         phase_moe_decode(*phase_moe_serve())
         gc.collect()                 # OLMoE-1B-7B's 13.8 GB of weights

@@ -1,0 +1,192 @@
+"""Explicit collective patterns on ``torch.distributed``.
+
+``ring_all_gather`` is the overlap-friendly building block: each of the
+N-1 steps moves one shard to the ring neighbor by one send and one
+receive, so a consumer that needs the gathered tensor shard-by-shard
+(e.g. a TP matmul against a weight panel) can overlap compute with the
+next hop — the schedule the §Perf collective analysis assumes for the TP
+psums.
+
+``reduce_scatter_then_gather`` decomposes an all-reduce into its two
+phases explicitly (what GSPMD does internally for ZeRO); useful when the
+intermediate (scattered) value is what you actually want to keep.
+
+The reference resolves an axis name inside ``shard_map``; here a function
+takes the mesh (``launch.mesh.Mesh``) and the axis name, or a process
+group, as keywords, and runs eagerly in each rank on its local shard.
+
+How a tensor travels depends on the group's backend.  With ``nccl`` a
+CUDA tensor goes as it is.  With ``gloo``, which moves host memory only, a
+CUDA tensor is copied into pinned host memory, sent, and the result
+copied back onto the tensor's device; a CPU tensor goes as it is.  No
+tensor changes device.  ``HopStats`` counts what the hops moved and
+splits their time between the host copies and the transfers.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass
+class HopStats:
+    """What a caller's hops moved: point-to-point sends, the bytes they
+    carried, and host seconds spent copying between the device and pinned
+    host memory (each copy timed after a device synchronise) apart from
+    the seconds in the transfers."""
+    hops: int = 0
+    bytes: int = 0
+    host_copy_seconds: float = 0.0
+    transfer_seconds: float = 0.0
+
+
+class Wire:
+    """How tensors like ``like`` travel on ``group``: on the device with
+    ``nccl``; through pinned host memory with ``gloo`` when ``like`` is
+    on a GPU."""
+
+    def __init__(self, group, like: torch.Tensor, stats: HopStats = None):
+        self.group = group
+        self.device = like.device
+        self.staged = like.is_cuda and dist.get_backend(group) != "nccl"
+        self.stats = stats
+
+    def _timed(self, field: str, fn, *args):
+        if self.stats is None:
+            return fn(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        setattr(self.stats, field,
+                getattr(self.stats, field) + time.perf_counter() - t0)
+        return out
+
+    def empty(self, shape, dtype) -> torch.Tensor:
+        """A buffer that can travel."""
+        if self.staged:
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def out(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as it travels (a pinned host copy, or ``t`` itself)."""
+        if not self.staged:
+            return t.contiguous()
+        host = self.empty(t.shape, t.dtype)
+        self._timed("host_copy_seconds", host.copy_, t)
+        return host
+
+    def back(self, w: torch.Tensor) -> torch.Tensor:
+        """A tensor that travelled, on the caller's device again."""
+        if not self.staged:
+            return w
+        return self._timed("host_copy_seconds", w.to, self.device)
+
+    def place(self, dst: torch.Tensor, w: torch.Tensor) -> None:
+        """Copy the travelled ``w`` into ``dst`` on the caller's device."""
+        if not self.staged:
+            dst.copy_(w)
+        else:
+            self._timed("host_copy_seconds", dst.copy_, w)
+
+    def exchange(self, send: torch.Tensor, dst: int, recv: torch.Tensor,
+                 src: int) -> None:
+        """Send ``send`` to global rank ``dst`` while ``recv`` is filled
+        from global rank ``src`` (travelling tensors)."""
+        self.wait(self.post([dist.P2POp(dist.isend, send, dst, self.group),
+                             dist.P2POp(dist.irecv, recv, src, self.group)],
+                            sent=send))
+
+    def post(self, ops, sent: torch.Tensor = None) -> list:
+        """Post ``ops`` as one batch; ``sent`` is the tensor a send among
+        them carries (counted as one hop)."""
+        if self.stats is not None and sent is not None:
+            self.stats.hops += 1
+            self.stats.bytes += sent.numel() * sent.element_size()
+        return dist.batch_isend_irecv(ops)
+
+    def wait(self, works: list) -> None:
+        def run():
+            for work in works:
+                work.wait()
+        self._timed("transfer_seconds", run)
+
+
+def global_rank(group, group_rank: int) -> int:
+    """The world rank of ``group``'s rank ``group_rank``."""
+    if group is None or group is dist.GroupMember.WORLD:
+        return group_rank
+    return dist.get_global_rank(group, group_rank)
+
+
+def resolve_group(axis_name, mesh, group):
+    """The process group a collective runs on: ``group`` if given, else
+    this rank's group along ``mesh``'s axis ``axis_name``."""
+    if group is None:
+        if mesh is None:
+            raise TypeError("pass mesh= (with the axis name) or group=")
+        group = mesh.group(axis_name)
+    if dist.get_rank(group) < 0:
+        raise ValueError("this rank is not in the collective's group")
+    return group
+
+
+def ring_all_gather(x: torch.Tensor, axis_name: str = None, *, mesh=None,
+                    group=None, stats: HopStats = None) -> torch.Tensor:
+    """Gather every rank's shard ``x`` (chunk, ...) over the group with
+    N-1 sends to the ring neighbor.  Returns (N*chunk, ...), shard ``i``
+    from group rank ``i`` — bitwise equal to ``all_gather_into_tensor``."""
+    group = resolve_group(axis_name, mesh, group)
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    dst = global_rank(group, (idx + 1) % n)
+    src = global_rank(group, (idx - 1) % n)
+    wire = Wire(group, x, stats)
+    cur = wire.out(x)
+    pieces = [cur]
+    for _ in range(n - 1):
+        nxt = wire.empty(cur.shape, cur.dtype)
+        wire.exchange(cur, dst, nxt, src)
+        pieces.append(nxt)
+        cur = nxt
+    # piece j arrived from group rank (idx - j) mod n; put it in its rows
+    chunk = x.shape[0]
+    out = torch.empty((n * chunk,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    for j, piece in enumerate(pieces):
+        owner = (idx - j) % n
+        wire.place(out[owner * chunk:(owner + 1) * chunk], piece)
+    return out
+
+
+def reduce_scatter_then_gather(x: torch.Tensor, axis_name: str = None, *,
+                               mesh=None, group=None) -> torch.Tensor:
+    """all_reduce(x) == all_gather(reduce_scatter(x)); explicit phases."""
+    group = resolve_group(axis_name, mesh, group)
+    n = dist.get_world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows do not split over {n} ranks")
+    wire = Wire(group, x)
+    w = wire.out(x)
+    scattered = wire.empty((x.shape[0] // n,) + tuple(x.shape[1:]), x.dtype)
+    dist.reduce_scatter_tensor(scattered, w, group=group)
+    gathered = wire.empty(w.shape, w.dtype)
+    dist.all_gather_into_tensor(gathered, scattered, group=group)
+    return wire.back(gathered)
+
+
+def make_ring_all_gather(mesh, axis_name: str):
+    """Global-array wrapper around ring_all_gather: given the whole ``x``
+    on every rank, each rank gathers from its own row block (its
+    coordinate along ``axis_name``) and gets the whole of ``x`` back."""
+    def fn(x):
+        n = mesh.shape[axis_name]
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not split over {n}")
+        chunk = x.shape[0] // n
+        i = mesh.axis_index(axis_name)
+        return ring_all_gather(x[i * chunk:(i + 1) * chunk], axis_name,
+                               mesh=mesh)
+    return fn

@@ -267,7 +267,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "serving/replay", "api", "models/regnet",
                    "train/optimizer", "train/train_loop", "train/checkpoint",
                    "distributed/compression", "data/pipeline",
-                   "roofline/analysis", "launch/dryrun", "launch/perf"):
+                   "roofline/analysis", "launch/dryrun", "launch/perf",
+                   "launch/mesh", "distributed/collectives",
+                   "distributed/pipeline", "distributed/world"):
         assert f"src/repro_torch/{module}.py" in names
     assert len(files) > 40
     # ml_dtypes too: the card's machine does not have it (the checkpoint
