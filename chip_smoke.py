@@ -73,7 +73,18 @@ drives the port's serving paths, each at full published width:
     32 steps (drops at 4 tokens a step), the decode kernel held to its
     plain version and timed on that cache, and request 0 decoded at
     capacity factor 16 in bf16 and fp32 against the one-machine forward
-    at the same factor (``moe_decode``).
+    at the same factor (``moe_decode``).  Then, on the same weights, the
+    MoE layers are cut over the model axis of a mesh of 4 ``gloo`` ranks
+    on this card (``distributed/sharding.py``'s specs, MoE leaves only,
+    placed by ``train/checkpoint.py::reshard`` from CUDA IPC mappings):
+    ``ep`` and ``tp`` on a (1, 4) mesh, ``ep`` on (2, 2), 2 x 2048 tokens
+    through ``run_layer_range(0, 16)`` on flash; each rank's last hidden
+    held to the one-process forward of its data shard's tokens (bf16,
+    relative L2) and to the bit to the one process computing each MoE
+    layer as the ranks do, layer 0's keep masks to the one process's,
+    one fp32 layer to ``apply_moe`` on one device, every rank's aux to
+    data shard 0's, each rank's peak to its blocks + 2 GiB, the sums over
+    the model axis counted and timed (``moe_sharded``).
   * the encoder-decoder (seamless-m4t-medium, 12 encoder and 12 decoder
     layers, MHA: 16 heads of 64, bf16), after OLMoE's weights are freed:
     the flash kernel held to its plain version and timed at the
@@ -394,6 +405,42 @@ MOE_LAYER_REL_L2 = 5e-5
 # tests/test_models.py does: the capacity depends on the tokens in the
 # call, so at 1.25 a decode step may drop a choice the forward keeps
 MOE_CHECK_FACTOR = 16.0
+
+# The sharded Mixture-of-Experts phase (moe_sharded): OLMoE-1B-7B's
+# weights, still held after moe_decode, in 4 gloo ranks on this card, the
+# MoE layers cut over the model axis of a (data, model) mesh by
+# distributed/sharding.py (moe_only_specs: attention and the embeddings
+# stay whole) and placed by train/checkpoint.py::reshard: ep and tp on
+# (1, 4), ep on (2, 2); 2 x 2048 tokens (ep: 16 of 64 experts a rank,
+# capacity 640 a layer; tp: 256 of each expert's 1024)
+MOE_SHARDED = (("ep_1x4", (1, 4), "ep"), ("tp_1x4", (1, 4), "tp"),
+               ("ep_2x2", (2, 2), "ep"))
+MOE_SHARDED_BATCH, MOE_SHARDED_SEQ = 2, 2048
+# the bf16 forward's last hidden on each rank against the one-process
+# forward of its data shard's tokens, as a relative L2 (set before the
+# first run, PERF.md §6).  Each layer's output differs from the one
+# process's by the rounding of the rank's partial sum to bf16 before the
+# sum over the model axis (the reference's algorithm); a one-process
+# emulation of that rounding at narrower widths (d 256-1024, 16 layers)
+# moved the last hidden 1.6e-2-2.1e-2, through routing flips in the
+# early layers; on an H100 (80GB HBM3, 700 W) over 6 token seeds,
+# 1.61e-2-1.99e-2.  This limit has little room: the per-layer check
+# below is the stable one
+MOE_SHARDED_REL_L2 = 2e-2
+# each layer alone, fed the one-process forward's input to that layer
+# (bf16): the routing equal to the bit (the same input, the same router),
+# the layer's output against the one process's as a relative L2.  What
+# is left is the rounding of the ranks' partial sums alone, with no
+# routing flip to carry it.  On an H100 (80GB HBM3, 700 W) over 6 token
+# seeds (moe_sharded_seeds.py, PERF.md §6) a layer's largest reading was
+# 2.54e-3-2.80e-3 in ep and 4.26e-3-4.28e-3 in tp (layer 0 each time):
+# the limit is twice the largest, rounded up
+MOE_SHARDED_LAYER_REL_L2 = 9e-3
+# one MoE layer in fp32 (layer 0's weights upcast), request-sized input
+# (1 x 2048, random): every rank's output against apply_moe on one device
+MOE_SHARDED_FP32_REL_L2 = 1e-5
+# the world's time limit, ranks' start and every check included
+MOE_SHARDED_TIMEOUT_S = 300
 
 # The encoder-decoder (phases encdec_kernels, encdec_serve,
 # encdec_decode): full-width seamless-m4t-medium, uncut (12 encoder and
@@ -2553,14 +2600,15 @@ def _pipeline_rank(rank, world_size, stages, checksums, cfg, micro_x, want,
     return out
 
 
-def pipeline_flash_check(cfg) -> dict:
-    """flash held to its plain version on the card at the shape each
-    stage gives it (PIPE_BATCH x PIPE_SEQ, causal, the config's heads,
-    bf16), on random inputs; raises outside FLASH_TOL.  The launch is a
+def pipeline_flash_check(cfg, batch: int = PIPE_BATCH,
+                         seq: int = PIPE_SEQ) -> dict:
+    """flash held to its plain version on the card at the shape a phase's
+    ranks give it (``batch`` x ``seq``, causal, the config's heads, bf16),
+    on random inputs; raises outside FLASH_TOL.  The launch is a
     comparison's, made before the phase sets the count to 0."""
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    B, S, D = PIPE_BATCH, PIPE_SEQ, cfg.resolved_head_dim()
+    B, S, D = batch, seq, cfg.resolved_head_dim()
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
 
     def n(heads):
@@ -2994,6 +3042,453 @@ def phase_moe_decode(cfg, params, prompts) -> None:
     phase_model_decode("moe_decode", cfg16, params, prompts,
                        served=record, decode_attention_mha=kernel,
                        check_capacity_factor=MOE_CHECK_FACTOR)
+
+
+class moe_recorder:
+    """Within the block, what every ``apply_moe`` call does: the keep mask
+    of its first dispatch (``keeps``, on the host), each call's router
+    choices (``ids``, on the device), its aux losses from its own router
+    (``local_aux``) and as returned (``aux``), as host floats."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe = moe
+        self._plain = moe._slots, moe._route, moe.apply_moe
+        slots, route, apply = self._plain
+        self.keeps, self.ids, self.local_aux, self.aux = [], [], [], []
+
+        def recorded_slots(*args):
+            out = slots(*args)
+            if not self.keeps:
+                self.keeps.append(out[1].cpu())
+            return out
+
+        def recorded_route(*args):
+            out = route(*args)
+            self.ids.append(out[1])
+            self.local_aux.append([float(v) for v in out[2].values()])
+            return out
+
+        def recorded_apply(*args, **kwargs):
+            y, aux = apply(*args, **kwargs)
+            self.aux.append([float(v) for v in aux.values()])
+            return y, aux
+        moe._slots, moe._route, moe.apply_moe = (
+            recorded_slots, recorded_route, recorded_apply)
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._slots, self._moe._route, self._moe.apply_moe = self._plain
+        return False
+
+
+@contextlib.contextmanager
+def counted_all_reduce(stats):
+    """Within the block, ``collectives.all_reduce`` counts into ``stats``
+    (``HopStats``): the sums over the model axis of ``models/moe.py``."""
+    from repro_torch.distributed import collectives as coll
+    plain = coll.all_reduce
+
+    def counted(*args, **kwargs):
+        return plain(*args, stats=stats, **kwargs)
+    coll.all_reduce = counted
+    try:
+        yield
+    finally:
+        coll.all_reduce = plain
+
+
+@contextlib.contextmanager
+def moe_as_ranks(model_size: int):
+    """Within the block, ``apply_moe`` computes in this one process what
+    ``model_size`` ranks of the model axis compute: each rank's partial
+    output from its contiguous block (as ``reshard`` cuts it) in the
+    config's mode, the partials summed in fp32 and rounded once (as
+    ``moe._psum``).  A yardstick for the sharded forward: it carries the
+    ranks' rounding without the collectives."""
+    from repro_torch.models import moe
+    plain = moe.apply_moe
+
+    def apply(p, x, cfg, ctx=moe.LOCAL_CTX):
+        m, (B, S, d) = cfg.moe, x.shape
+        x2d = x.reshape(B * S, d)
+        gates, ids, aux = moe._route(x2d, p["router"], m.top_k)
+        cap = moe._capacity(B * S, m.top_k, m.num_experts,
+                            m.capacity_factor)
+        total = None
+        for r in range(model_size):
+            if m.partitioning == "ep":
+                n = m.num_experts // model_size
+                block = {k: v if k == "router" else
+                         v[r * n:(r + 1) * n].contiguous()
+                         for k, v in p.items()}
+                part = moe._dispatch_compute_combine(
+                    block, x2d, gates, ids, cap, cfg.activation,
+                    expert_offset=r * n, n_local_experts=n)
+            else:
+                f = m.d_ff // model_size
+                block = {k: v if k == "router" else
+                         (v[:, r * f:(r + 1) * f] if k == "w_down"
+                          else v[..., r * f:(r + 1) * f]).contiguous()
+                         for k, v in p.items()}
+                part = moe._dispatch_compute_combine(
+                    block, x2d, gates, ids, cap, cfg.activation)
+            total = part.float() if total is None else total + part.float()
+        return total.to(x.dtype).reshape(B, S, d), aux
+    moe.apply_moe = apply
+    try:
+        yield
+    finally:
+        moe.apply_moe = plain
+
+
+def _moe_sharded_rank(rank, world_size, cfg, params, tokens, layer_io, ids,
+                      as_ranks, x32, want32):
+    """One rank of ``moe_sharded``: for each mesh of MOE_SHARDED, its
+    blocks cut out of the parent's memory (CUDA IPC mappings of the whole
+    tree) by ``reshard``, then the bf16 forward twice (cold, recorded;
+    warm, timed, its sums counted), each layer alone on the one-process
+    forward's input to it (``layer_io``: (data shards, G + 1, ...), the
+    inputs and the last output; ``ids``: that forward's router choices)
+    and, on a (1, 4) mesh, one fp32 MoE layer.  Returns what it measured
+    (host values); the parent checks.  The rank computes only from its
+    own blocks, freed before the next mesh's."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import checkpoint
+
+    torch.cuda.set_device(0)
+    kernels = ops.kernel_registry()
+    out = {"rank": rank, "meshes": {}}
+
+    def timed(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        for name, shape, mode in MOE_SHARDED:
+            c = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, partitioning=mode))
+            mesh = Mesh(shape, ("data", "model"))
+            ctx = shd.make_ctx(mesh)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            own = checkpoint.reshard(params, shd.named(
+                mesh, shd.moe_only_specs(params, c, mesh)), device="cuda")
+            torch.cuda.synchronize()
+            toks = shd.local_shard(tokens, shd.P(ctx.data_axes, None), mesh)
+            positions = torch.arange(toks.shape[1], device="cuda")
+
+            def forward():
+                return tr.run_layer_range(
+                    own, tr.embed_tokens(own, toks, c), c, ctx,
+                    start_group=0, stop_group=c.num_groups(),
+                    positions=positions, kernels=kernels)
+
+            fa.launch_count = 0
+            with moe_recorder() as rec:
+                y, cold_s = timed(forward)
+            flash = fa.launch_count
+            stats = coll.HopStats()
+            with counted_all_reduce(stats):
+                warm, warm_s = timed(forward)
+            d = mesh.axis_index("data")
+            io = layer_io[name][d]
+            ref = io[-1].float()
+            diff = y.float() - ref
+            emulated = as_ranks[name][d]
+            r = {"data_index": d, "model_index": mesh.axis_index("model"),
+                 "equal_one_process_as_ranks": torch.equal(y, emulated),
+                 "rel_l2_one_process_as_ranks": float(
+                     (y.float() - emulated.float()).norm()
+                     / emulated.float().norm()),
+                 "blocks_bytes": _nbytes(own), "flash_launches": flash,
+                 "cold_seconds": cold_s, "warm_seconds": warm_s,
+                 "warm_equal_cold": torch.equal(warm, y),
+                 "finite": bool(torch.isfinite(y).all()),
+                 "rel_l2": float(diff.norm() / ref.norm()),
+                 "max_abs_err": float(diff.abs().max()),
+                 "all_reduce": dataclasses.asdict(stats),
+                 "keep0": np.packbits(rec.keeps[0].numpy()),
+                 "local_aux": rec.local_aux, "aux": rec.aux}
+            del y, warm, diff, ref
+            # each layer on the one process's input to it: the same routes,
+            # and the output as far from the one process's as the ranks'
+            # rounding alone puts it
+            r["layer_rel_l2"], r["layer_routing_equal"] = [], []
+            for g in range(c.num_groups()):
+                with moe_recorder() as lrec:
+                    yg = tr.run_layer_range(
+                        own, io[g], c, ctx, start_group=g, stop_group=g + 1,
+                        positions=positions, kernels=kernels)
+                ref_g = io[g + 1].float()
+                r["layer_rel_l2"].append(float((yg.float() - ref_g).norm()
+                                               / ref_g.norm()))
+                r["layer_routing_equal"].append(
+                    torch.equal(lrec.ids[0], ids[name][d][g]))
+                del yg, ref_g
+            if shape[0] == 1:
+                p32 = _tree_map(lambda t: t[0].float(),
+                                own["blocks"]["b0"]["moe"])
+                y32, _ = moe.apply_moe(p32, x32, c, ctx)
+                r["fp32_rel_l2"] = float((y32 - want32).norm()
+                                         / want32.norm())
+                del p32, y32
+            torch.cuda.synchronize()
+            r["peak_memory_allocated_bytes"] = (
+                torch.cuda.max_memory_allocated())
+            del own
+            out["meshes"][name] = r
+    return out
+
+
+def phase_moe_sharded(cfg, params) -> None:
+    """``moe_sharded`` on tokens drawn from SEED + 4; raises if a check
+    failed."""
+    failed = moe_sharded(cfg, params, SEED + 4)
+    if failed:
+        raise RuntimeError("moe_sharded: " + "; ".join(failed))
+
+
+def moe_sharded(cfg, params, token_seed: int) -> list:
+    """OLMoE-1B-7B's MoE layers over a mesh of 4 gloo ranks on this card
+    (``models/moe.py``'s ``ep`` and ``tp``), flash first held to its
+    plain version at the ranks' shapes.  Each rank's forward is held to
+    the one-process forward of its data shard's tokens (bf16, relative
+    L2), and each layer alone, fed the one process's input to it, to that
+    layer's output there (the routing to the bit, a relative L2); to the
+    bit, to the one process computing each MoE layer as the ranks do
+    (``moe_as_ranks``); layer 0's keep masks to the one process's to the
+    bit, one fp32 layer to ``apply_moe`` on one device, every rank's aux
+    to data shard 0's, each rank's memory to its blocks, and every block
+    sent to the ranks freed once they are gone; the sums over the model
+    axis counted and timed.  Prints the phase's line; returns the checks
+    that failed."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.world import run_world
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+
+    mode = tool_output(["nvidia-smi", "--query-gpu=compute_mode",
+                        "--format=csv,noheader"]).splitlines()[0].strip()
+    if mode != "Default":
+        raise RuntimeError(f"compute mode {mode!r}: 4 ranks cannot share "
+                           f"the card (needs 'Default')")
+    t_phase = time.perf_counter()
+    G, T = cfg.num_groups(), MOE_SHARDED_BATCH * MOE_SHARDED_SEQ
+    # the ranks' attention shapes: the whole batch on (1, 4), a row on (2, 2)
+    flash_checks = [pipeline_flash_check(cfg, b, MOE_SHARDED_SEQ)
+                    for b in sorted({MOE_SHARDED_BATCH // D
+                                     for _, (D, _), _ in MOE_SHARDED})]
+    kernels = ops.kernel_registry()
+    tokens = torch.from_numpy(np.random.default_rng(token_seed).integers(
+        0, cfg.vocab_size, (MOE_SHARDED_BATCH, MOE_SHARDED_SEQ)).astype(
+            np.int32)).cuda()
+    positions = torch.arange(MOE_SHARDED_SEQ, device="cuda")
+
+    def one_process(toks):
+        """Layer by layer: (each layer's input and the last output,
+        stacked; each layer's router choices, stacked; the recorder)."""
+        fa.launch_count = 0
+        xs = [tr.embed_tokens(params, toks, cfg)]
+        with moe_recorder() as rec:
+            for g in range(G):
+                xs.append(tr.run_layer_range(
+                    params, xs[-1], cfg, moe.LOCAL_CTX, start_group=g,
+                    stop_group=g + 1, positions=positions, kernels=kernels))
+        if fa.launch_count != G:
+            raise RuntimeError(f"the one-process forward launched flash "
+                               f"{fa.launch_count} times, not {G}")
+        return torch.stack(xs), torch.stack(rec.ids), rec
+
+    whole_io, whole_ids, whole_rec = one_process(tokens)
+    whole = whole_io[G]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = tr.run_layer_range(
+        params, tr.embed_tokens(params, tokens, cfg), cfg, moe.LOCAL_CTX,
+        start_group=0, stop_group=G, positions=positions, kernels=kernels)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    if not torch.equal(again, whole):
+        raise RuntimeError("the one-process forward layer by layer and "
+                           "over the whole range differ")
+    del again
+    shards = [one_process(tokens[d:d + 1]) for d in range(2)]
+    layer_io = {"ep_1x4": whole_io[None], "tp_1x4": whole_io[None],
+                "ep_2x2": torch.stack([io for io, _, _ in shards])}
+    ids = {"ep_1x4": whole_ids[None], "tp_1x4": whole_ids[None],
+           "ep_2x2": torch.stack([i for _, i, _ in shards])}
+    want = {name: io[:, G] for name, io in layer_io.items()}
+    # the same forwards with each MoE layer computed as the ranks compute
+    # it (moe_as_ranks), and how far that rounding alone moves them
+    as_ranks, as_ranks_rel_l2 = {}, {}
+    for name, (D, M), mode_ in MOE_SHARDED:
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, partitioning=mode_))
+        with moe_as_ranks(M):
+            as_ranks[name] = torch.stack([tr.run_layer_range(
+                params, tr.embed_tokens(params, tokens[
+                    d * (MOE_SHARDED_BATCH // D):
+                    (d + 1) * (MOE_SHARDED_BATCH // D)], c), c,
+                moe.LOCAL_CTX, start_group=0, stop_group=G,
+                positions=positions, kernels=kernels) for d in range(D)])
+        as_ranks_rel_l2[name] = float(
+            (as_ranks[name].float() - want[name].float()).norm()
+            / want[name].float().norm())
+    want_keeps = {"ep_1x4": [whole_rec.keeps[0]],
+                  "tp_1x4": [whole_rec.keeps[0]],
+                  "ep_2x2": [rec.keeps[0] for _, _, rec in shards]}
+    want_aux0 = {"ep_1x4": whole_rec.local_aux[0],
+                 "tp_1x4": whole_rec.local_aux[0],
+                 "ep_2x2": shards[0][2].local_aux[0]}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x32 = torch.randn((1, MOE_SHARDED_SEQ, cfg.d_model), generator=gen,
+                      device="cuda")
+    want32, _ = moe.apply_moe(_tree_map(
+        lambda t: t[0].float(), params["blocks"]["b0"]["moe"]), x32, cfg)
+    # each mesh's blocks, by arithmetic on the specs (rank 0's views)
+    blocks = {}
+    for name, shape, mode_ in MOE_SHARDED:
+        mesh = Mesh(shape, ("data", "model"))
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, partitioning=mode_))
+        specs = shd.moe_only_specs(params, c, mesh)
+        blocks[name] = sum(
+            shd.local_shard(t, s, mesh, rank=0).numel() * t.element_size()
+            for t, s in zip(_leaves(params), _leaves(specs)))
+    del shards, whole_rec
+    # the blocks the ranks map (the parameters apart, freed by main)
+    sent = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in (tokens, x32, want32, *layer_io.values(),
+                      *ids.values(), *as_ranks.values())}
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        ranks = run_world(_moe_sharded_rank, 4,
+                          (cfg, params, tokens, layer_io, ids, as_ranks,
+                           x32, want32),
+                          workdir=workdir, timeout=MOE_SHARDED_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    # what this phase sent the ranks is freed once every rank released it
+    del (tokens, want, layer_io, ids, as_ranks, x32, want32, whole,
+         whole_io, whole_ids)
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.synchronize()
+    freed = allocated_before - torch.cuda.memory_allocated()
+
+    failed, meshes = [], {}
+    if freed < sum(sent.values()):
+        failed.append(f"{freed} B freed of the {sum(sent.values())} B sent "
+                      f"to the ranks: a rank kept a block it mapped")
+    for name, shape, mode_ in MOE_SHARDED:
+        D, M = shape
+        rs = [r["meshes"][name] for r in ranks]
+        t_local = T // D
+        want_bytes = G * t_local * cfg.d_model * 4
+        for i, r in enumerate(rs):
+            checks = [
+                ("non-finite output", r["finite"]),
+                ("not bit-equal to the one process computing as the ranks",
+                 r["equal_one_process_as_ranks"]),
+                (f"rel L2 {r['rel_l2']} > {MOE_SHARDED_REL_L2}",
+                 r["rel_l2"] <= MOE_SHARDED_REL_L2),
+                (f"flash launched {r['flash_launches']} times, not {G}",
+                 r["flash_launches"] == G),
+                (f"blocks of {r['blocks_bytes']} B, not {blocks[name]}",
+                 r["blocks_bytes"] == blocks[name]),
+                (f"peak {r['peak_memory_allocated_bytes']} B over its "
+                 f"blocks + {PIPE_RANK_MARGIN_BYTES}",
+                 r["peak_memory_allocated_bytes"]
+                 < blocks[name] + PIPE_RANK_MARGIN_BYTES),
+                (f"summed {r['all_reduce']} over the model axis, not {G} "
+                 f"sums of {want_bytes // G} B",
+                 (r["all_reduce"]["hops"], r["all_reduce"]["bytes"])
+                 == ((G, want_bytes) if M > 1 else (0, 0))),
+                (f"{len(r['aux'])} aux records, not {G}",
+                 len(r["aux"]) == len(r["local_aux"]) == G),
+                ("a layer fed the one process's input routed otherwise",
+                 len(r["layer_routing_equal"]) == G
+                 and all(r["layer_routing_equal"])),
+                (f"a layer's rel L2 {max(r['layer_rel_l2'])} > "
+                 f"{MOE_SHARDED_LAYER_REL_L2}",
+                 max(r["layer_rel_l2"]) <= MOE_SHARDED_LAYER_REL_L2)]
+            if D == 1:
+                checks.append((f"fp32 layer rel L2 {r['fp32_rel_l2']} > "
+                               f"{MOE_SHARDED_FP32_REL_L2}",
+                               r["fp32_rel_l2"] <= MOE_SHARDED_FP32_REL_L2))
+            # every rank returns data shard 0's aux, bit for bit
+            source = next(s for s in rs if s["data_index"] == 0
+                          and s["model_index"] == r["model_index"])
+            checks.append(("aux is not data shard 0's",
+                           r["aux"] == source["local_aux"]))
+            failed += [f"{name}, rank {i}: {what}"
+                       for what, ok in checks if not ok]
+        keep_rows = []
+        for d in range(D):
+            masks = np.stack([np.unpackbits(r["keep0"])[:T // D * cfg.moe.top_k]
+                              for r in rs if r["data_index"] == d]).astype(bool)
+            keep = want_keeps[name][d].numpy()
+            keep_rows.append({"data_index": d, "kept": int(keep.sum()),
+                              "choices": int(keep.size)})
+            if not np.array_equal(masks.any(0), keep):
+                failed.append(f"{name}, data shard {d}: the ranks' layer-0 "
+                              f"keep masks do not union to the one "
+                              f"process's")
+            if mode_ == "ep" and (masks.sum(0) > 1).any():
+                failed.append(f"{name}, data shard {d}: a choice kept on "
+                              f"two ranks")
+        aux0 = next(r for r in rs if r["data_index"] == 0)["local_aux"][0]
+        if not all(math.isclose(a, b, rel_tol=1e-5)
+                   for a, b in zip(aux0, want_aux0[name])):
+            failed.append(f"{name}: layer 0's aux {aux0} is not the one "
+                          f"process's {want_aux0[name]}")
+        if D > 1 and all(r["local_aux"] == rs[0]["local_aux"] for r in rs):
+            failed.append(f"{name}: the data shards' own aux agree, so the "
+                          f"broadcast of shard 0's went unseen")
+        meshes[name] = {
+            "mesh": list(shape), "mode": mode_, "blocks_bytes": blocks[name],
+            "capacity": moe._capacity(t_local, cfg.moe.top_k,
+                                      cfg.moe.num_experts,
+                                      cfg.moe.capacity_factor),
+            "all_reduce_bytes_expected": want_bytes if M > 1 else 0,
+            "one_process_as_ranks_rel_l2": as_ranks_rel_l2[name],
+            "rel_l2_max": max(r["rel_l2"] for r in rs),
+            "layer_rel_l2_max": max(max(r["layer_rel_l2"]) for r in rs),
+            "warm_seconds_max": max(r["warm_seconds"] for r in rs),
+            "keep0": keep_rows,
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("keep0", "local_aux", "aux",
+                                    "layer_routing_equal")}
+                      | {"aux_layer0": r["aux"][0]} for r in rs]}
+    emit("moe_sharded", config=cfg.name, batch=MOE_SHARDED_BATCH,
+         seq=MOE_SHARDED_SEQ, token_seed=token_seed, groups=G,
+         backend="gloo", compute_mode=mode, flash_checks=flash_checks,
+         one_process_seconds_warm=one_s, model_bytes=_nbytes(params),
+         rank_margin_bytes=PIPE_RANK_MARGIN_BYTES,
+         limit_rel_l2=MOE_SHARDED_REL_L2,
+         limit_layer_rel_l2=MOE_SHARDED_LAYER_REL_L2,
+         limit_fp32_rel_l2=MOE_SHARDED_FP32_REL_L2, world_seconds=world_s,
+         sent_bytes=sum(sent.values()), freed_after_world_bytes=freed,
+         meshes=meshes,
+         failed=failed, seconds=time.perf_counter() - t_phase)
+    return failed
 
 
 def encdec_shapes():
@@ -4591,8 +5086,13 @@ def main() -> int:
         gc.collect()                 # Qwen2-7B's 15 GB of weights
         torch.cuda.ipc_collect()     # once the ranks released them
         torch.cuda.empty_cache()
-        phase_moe_decode(*phase_moe_serve())
+        olmoe = phase_moe_serve()
+        phase_moe_decode(*olmoe)
+        torch.cuda.empty_cache()
+        phase_moe_sharded(*olmoe[:2])
+        del olmoe
         gc.collect()                 # OLMoE-1B-7B's 13.8 GB of weights
+        torch.cuda.ipc_collect()     # once the ranks released them
         torch.cuda.empty_cache()
         encdec_entries = phase_encdec_kernels()
         phase_encdec_decode(*phase_encdec_serve(encdec_entries),

@@ -17,6 +17,14 @@ import torch
 from repro_torch.compat import DeviceLike, resolve_device
 
 
+IsLeaf = Optional[Callable[[Any], bool]]
+
+
+def _is_node(x: Any, is_leaf: IsLeaf) -> bool:
+    return (isinstance(x, (dict, list, tuple))
+            and not (is_leaf is not None and is_leaf(x)))
+
+
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     """Map ``fn`` over the leaves of a nested dict/list/tuple, keeping
     ``None`` leaves and the nesting as they are."""
@@ -29,27 +37,29 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
-def tree_leaves_with_path(tree: Any) -> List[Tuple[tuple, Any]]:
+def tree_leaves_with_path(tree: Any,
+                          is_leaf: IsLeaf = None) -> List[Tuple[tuple, Any]]:
     """(path, leaf) pairs in ``jax.tree_util``'s order: dict keys sorted,
-    list and tuple items in order, ``None`` an empty subtree.  A path is
-    the tuple of keys and indices from the root."""
+    list and tuple items in order, ``None`` an empty subtree, and a node
+    for which ``is_leaf`` is true a leaf (as jax's ``is_leaf``).  A path
+    is the tuple of keys and indices from the root."""
     if tree is None:
         return []
-    if isinstance(tree, dict):
-        return [((k,) + path, leaf) for k in sorted(tree)
-                for path, leaf in tree_leaves_with_path(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [((i,) + path, leaf) for i, v in enumerate(tree)
-                for path, leaf in tree_leaves_with_path(v)]
-    return [((), tree)]
+    if not _is_node(tree, is_leaf):
+        return [((), tree)]
+    items = ([(k, tree[k]) for k in sorted(tree)] if isinstance(tree, dict)
+             else list(enumerate(tree)))
+    return [((k,) + path, leaf) for k, v in items
+            for path, leaf in tree_leaves_with_path(v, is_leaf)]
 
 
-def tree_leaves(tree: Any) -> List[Any]:
+def tree_leaves(tree: Any, is_leaf: IsLeaf = None) -> List[Any]:
     """The leaves in ``jax.tree_util``'s order."""
-    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+    return [leaf for _, leaf in tree_leaves_with_path(tree, is_leaf)]
 
 
-def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
+def tree_unflatten(template: Any, leaves: List[Any],
+                   is_leaf: IsLeaf = None) -> Any:
     """``template``'s nesting with its leaves replaced, in
     ``tree_leaves``' order, by ``leaves``."""
     it = iter(leaves)
@@ -57,12 +67,12 @@ def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
     def build(node):
         if node is None:
             return None
+        if not _is_node(node, is_leaf):
+            return next(it)
         if isinstance(node, dict):
             built = {k: build(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
+        return type(node)(build(v) for v in node)
     out = build(template)
     if next(it, None) is not None:
         raise ValueError("more leaves than the template holds")

@@ -11,6 +11,10 @@ psums.
 phases explicitly (what GSPMD does internally for ZeRO); useful when the
 intermediate (scattered) value is what you actually want to keep.
 
+``all_reduce`` is the reference's ``jax.lax.psum`` (the sum that
+combines the Mixture-of-Experts layer's partial outputs), and
+``broadcast`` hands every rank of a group its first rank's tensor.
+
 The reference resolves an axis name inside ``shard_map``; here a function
 takes the mesh (``launch.mesh.Mesh``) and the axis name, or a process
 group, as keywords, and runs eagerly in each rank on its local shard.
@@ -33,7 +37,8 @@ import torch.distributed as dist
 
 @dataclasses.dataclass
 class HopStats:
-    """What a caller's hops moved: point-to-point sends, the bytes they
+    """What a caller's hops moved: point-to-point sends and collectives
+    (each collective one hop of its tensor's bytes), the bytes they
     carried, and host seconds spent copying between the device and pinned
     host memory (each copy timed after a device synchronise) apart from
     the seconds in the transfers."""
@@ -108,6 +113,14 @@ class Wire:
             self.stats.bytes += sent.numel() * sent.element_size()
         return dist.batch_isend_irecv(ops)
 
+    def collective(self, op, w: torch.Tensor, **kwargs) -> None:
+        """Run ``op`` (``dist.all_reduce``, ``dist.broadcast``) on the
+        travelling ``w`` in place, counted as one hop of its bytes."""
+        if self.stats is not None:
+            self.stats.hops += 1
+            self.stats.bytes += w.numel() * w.element_size()
+        self.wait([op(w, group=self.group, async_op=True, **kwargs)])
+
     def wait(self, works: list) -> None:
         def run():
             for work in works:
@@ -175,6 +188,39 @@ def reduce_scatter_then_gather(x: torch.Tensor, axis_name: str = None, *,
     gathered = wire.empty(w.shape, w.dtype)
     dist.all_gather_into_tensor(gathered, scattered, group=group)
     return wire.back(gathered)
+
+
+def _travelling_copy(wire: Wire, x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` that can travel, never ``x`` itself (the
+    collectives below write it in place)."""
+    if wire.staged:
+        return wire.out(x)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def all_reduce(x: torch.Tensor, axis_name: str = None, *, mesh=None,
+               group=None, stats: HopStats = None) -> torch.Tensor:
+    """The sum of every rank's ``x`` over the group, as ``jax.lax.psum``:
+    a new tensor of ``x``'s dtype on ``x``'s device, summed in that dtype
+    (gloo rounds a bf16 sum after every add, where XLA rounds its bf16
+    psum once: sum a bf16 tensor as fp32 to match it)."""
+    group = resolve_group(axis_name, mesh, group)
+    wire = Wire(group, x, stats)
+    w = _travelling_copy(wire, x)
+    wire.collective(dist.all_reduce, w)
+    return wire.back(w)
+
+
+def broadcast(x: torch.Tensor, axis_name: str = None, *, mesh=None,
+              group=None, stats: HopStats = None) -> torch.Tensor:
+    """The group's first rank's ``x`` on every rank of the group, as a new
+    tensor on the caller's device; ``x`` has the same shape and dtype on
+    every rank."""
+    group = resolve_group(axis_name, mesh, group)
+    wire = Wire(group, x, stats)
+    w = _travelling_copy(wire, x)
+    wire.collective(dist.broadcast, w, src=global_rank(group, 0))
+    return wire.back(w)
 
 
 def make_ring_all_gather(mesh, axis_name: str):

@@ -1,11 +1,28 @@
 """Mixture-of-Experts layer: top-k token-choice routing, capacity dispatch.
 
-Counterpart of ``repro/models/moe.py`` on one device (``LOCAL_CTX``, or
-any ``ShardCtx`` without a mesh): the router, the capacity dispatch, the
-experts' FFNs and the combine are ported.  The reference's two sharded
-modes over a mesh, ``tp`` (each expert's ``d_ff`` sliced over the model
-axis) and ``ep`` (experts sliced over it), wait for ROADMAP A10, which
-ports them on ``torch.distributed``; ``apply_moe`` raises on a mesh.
+Counterpart of ``repro/models/moe.py``.  Without a mesh (``LOCAL_CTX``,
+or any ``ShardCtx`` whose mesh is ``None``) the layer runs on one device.
+Over a mesh (a ``launch.mesh.Mesh`` of ``torch.distributed`` ranks) it
+runs eagerly in each rank, on this rank's block of the layer's
+parameters (cut by ``distributed/sharding.py``'s specs, as the
+reference's ``shard_map`` cuts them) and this rank's data shard of the
+tokens, in the reference's two modes:
+
+  * ``tp`` — every rank holds all experts with each expert's hidden width
+    ``d_ff`` sliced over the model axis (any expert count);
+  * ``ep`` — experts sliced over the model axis; each rank computes only
+    the choices routed to its local experts, ``num_experts`` divisible by
+    the model axis (olmoe: 64).
+
+In both the only collective is one sum of the (tokens, d_model) output
+over the model axis, the reference's ``psum``
+(``distributed/collectives.py::all_reduce``), in fp32 and rounded once
+to the output's dtype, as XLA rounds a bf16 psum (``_psum``).  As in the
+reference, the capacity is counted from the rank's own tokens (a data
+shard's, not the whole batch's), and every rank returns data shard 0's
+aux losses (its ``out_specs`` ``P()`` with ``check_vma=False``).  There
+is no backward through the sum: training over a mesh comes with the
+launcher (ROADMAP A10.2), and autograd here raises.
 
 Dispatch uses the capacity trick: scatter into an (E, C+1, d) buffer where
 row C is the overflow sink for capacity-dropped tokens, then slice it off.
@@ -30,6 +47,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.distributed import collectives
 from repro_torch.models.common import dense_init, pdtype
 
 
@@ -163,19 +181,84 @@ def _capacity(n_tokens: int, top_k: int, n_experts: int, factor: float) -> int:
     return max(1, int(n_tokens * top_k / n_experts * factor + 0.999))
 
 
-def apply_moe(p, x, cfg, ctx: ShardCtx = LOCAL_CTX):
-    """x: (B, S, d) -> (y (B,S,d), aux dict of scalars)."""
-    if ctx.mesh is not None:
+def _check_sharded(p, x, cfg, ctx: ShardCtx) -> None:
+    """Refuse what the sharded layer cannot compute right."""
+    m = cfg.moe
+    if not (hasattr(ctx.mesh, "axis_index") and hasattr(ctx.mesh, "group")):
         raise NotImplementedError(
-            "sharded Mixture-of-Experts (tp / ep over a mesh) is not ported "
-            "yet (ROADMAP A10)")
+            f"sharded Mixture-of-Experts runs over a mesh of "
+            f"torch.distributed ranks (launch.mesh.Mesh: axis_index, group), "
+            f"not a {type(ctx.mesh).__name__} (ROADMAP A10)")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x, *p.values()]):
+        raise RuntimeError(
+            "sharded Mixture-of-Experts has no backward through its sum "
+            "over the model axis; training over a mesh comes with the "
+            "launcher (ROADMAP A10.2): run it under torch.no_grad() or "
+            "torch.inference_mode()")
+    size = ctx.model_size
+    if size == 1:
+        return
+    if m.partitioning == "ep":
+        if m.num_experts % size:
+            raise ValueError(f"ep: {m.num_experts} experts do not split over "
+                             f"a model axis of {size}")
+        have, want = p["w_down"].shape[0], m.num_experts // size
+    else:
+        have, want = p["w_down"].shape[1] * size, m.d_ff
+    if have != want:
+        raise ValueError(f"{m.partitioning}: w_down {tuple(p['w_down'].shape)}"
+                         f" is not this rank's block of a model axis of "
+                         f"{size} (cut it by distributed/sharding.py)")
+
+
+def _psum(y, ctx: ShardCtx):
+    """The reference's ``psum`` of the layer's output over the model axis.
+    XLA rounds a bf16 psum once: over 4 CPU devices [256, 1, 1, 1] sums to
+    260, the nearest bf16 to 259.  gloo's bf16 all-reduce rounds after
+    every add (256 or 260, by the ranks' order), up to 4 bf16 ulps from
+    the reference's when tp's partial sums cancel.  So the sum runs in
+    fp32 and is rounded to ``y``'s dtype once; it moves twice the bytes
+    of a bf16 sum."""
+    return collectives.all_reduce(y.float(), ctx.model_axis,
+                                  mesh=ctx.mesh).to(y.dtype)
+
+
+def apply_moe(p, x, cfg, ctx: ShardCtx = LOCAL_CTX):
+    """x: (B, S, d) -> (y (B,S,d), aux dict of scalars).
+
+    Over a mesh, ``p`` is this rank's block and ``x`` its data shard; ``y``
+    is the rank's data shard of the output, summed over the model axis,
+    and ``aux`` data shard 0's."""
+    if ctx.mesh is not None:
+        _check_sharded(p, x, cfg, ctx)
     m = cfg.moe
     B, S, d = x.shape
+    mdl_size = ctx.model_size
     x2d = x.reshape(B * S, d)
     with record_function("moe_dispatch"):
         gates, ids, aux = _route(x2d, p["router"], m.top_k)
         cap = _capacity(B * S, m.top_k, m.num_experts, m.capacity_factor)
-        y = _dispatch_compute_combine(p, x2d, gates, ids, cap, cfg.activation)
+        if m.partitioning == "ep" and mdl_size > 1:
+            n_local = m.num_experts // mdl_size
+            idx = ctx.mesh.axis_index(ctx.model_axis)
+            y = _dispatch_compute_combine(
+                p, x2d, gates, ids, cap, cfg.activation,
+                expert_offset=idx * n_local, n_local_experts=n_local)
+        else:
+            y = _dispatch_compute_combine(p, x2d, gates, ids, cap,
+                                          cfg.activation)
+    if ctx.mesh is not None:
+        if mdl_size > 1:
+            # tp: partial sums over f slices; ep: per-token expert
+            # contributions
+            y = _psum(y, ctx)
+        # the reference's aux out_specs P(): data shard 0's values
+        values = torch.stack(list(aux.values()))
+        for axis in ctx.data_axes:
+            if ctx.mesh.shape[axis] > 1:
+                values = collectives.broadcast(values, axis, mesh=ctx.mesh)
+        aux = dict(zip(aux, values.unbind()))
     return y.reshape(B, S, d), aux
 
 

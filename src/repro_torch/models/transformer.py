@@ -33,20 +33,22 @@ its einsum attention.
 
 Ported so far: attention (self- and cross-attention), RG-LRU and SSD
 (Mamba-2) blocks, dense MLPs and Mixture-of-Experts FFNs
-(``models/moe.py``, on one device), the encoder, decode over all of
+(``models/moe.py``, on one device and in its ``tp`` / ``ep`` modes over
+a mesh of ranks), the encoder, decode over all of
 them, the modality frontends of decoder-only models (a prefix of the
 sequence), and training: ``lm_loss`` and ``train_forward``, with each
 group's blocks recomputed in the backward pass.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.compat import DeviceLike, resolve_device
-from repro_torch.convert import tree_map
+from repro_torch.convert import keystr, tree_leaves_with_path, tree_map
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -219,11 +221,48 @@ def _qkv(p, h, cfg, positions, ctx=None):
     return q, k, v
 
 
+@functools.lru_cache(maxsize=None)
+def _block_shapes(kind: str, cfg, cross: bool) -> Dict[str, tuple]:
+    """{path: shape} of one block of ``kind`` as ``cfg`` lays it out
+    (drawn on the ``meta`` device: no memory, no numbers)."""
+    tree = init_block(kind, torch.Generator(), cfg, cross=cross,
+                      device="meta")
+    return {keystr(path): tuple(t.shape)
+            for path, t in tree_leaves_with_path(tree)}
+
+
+def _refuse_dense_shards(kind, p, cfg, ctx) -> None:
+    """Every block but its Mixture-of-Experts layer computes with whole
+    weights whatever the mesh: attention, the dense MLP, the RG-LRU and
+    the SSD ignore ``ctx``, and the reference's dense tensor parallelism
+    comes from GSPMD, which the port has not written (ROADMAP A10.2).
+    Under a model axis above 1, a block whose leaves outside ``['moe']``
+    are not the config's whole shapes (a slice cut by
+    ``distributed/sharding.py::param_specs``) would give wrong answers
+    without a word, so it raises; ``sharding.moe_only_specs`` cuts only
+    the MoE layer."""
+    if ctx is None or ctx.mesh is None or ctx.model_size == 1:
+        return
+    want = _block_shapes(kind, cfg, "xwq" in p)
+    for path, t in tree_leaves_with_path(p):
+        key = keystr(path)
+        if not key.startswith("['moe']") and tuple(t.shape) != want.get(key):
+            raise NotImplementedError(
+                f"{kind} block leaf {key} of shape {tuple(t.shape)}, not "
+                f"the config's {want.get(key)}: a block's weights cut over "
+                f"the model axis need dense tensor parallelism, which is "
+                f"not ported (ROADMAP A10.2); cut only the MoE layer "
+                f"(distributed/sharding.py::moe_only_specs)")
+
+
 def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
                          enc_out=None, return_kv=False):
     """Full-sequence attention block.  Returns (x, aux, kv | None).  A
     block with cross-attention weights attends to ``enc_out`` when it is
-    given (no RoPE on that branch), and skips the branch when not."""
+    given (no RoPE on that branch), and skips the branch when not.  Over a
+    mesh only the MoE layer may hold a block of its weights
+    (``_refuse_dense_shards``)."""
+    _refuse_dense_shards("attn", p, cfg, ctx)
     h = apply_norm(p["norm1"], x)
     q, k, v = _qkv(p, h, cfg, positions, ctx)
     window = cfg.window if cfg.attention_kind == "swa" else 0
@@ -256,6 +295,8 @@ def apply_block_seq(kind, p, x, cfg, ctx, *, positions, state=None,
         return apply_attn_block_seq(
             p, x, cfg, ctx, positions=positions, enc_out=enc_out,
             return_kv=return_cache)
+    if kind in ("rec", "ssd"):
+        _refuse_dense_shards(kind, p, cfg, ctx)
     if kind == "rec":
         h = apply_norm(p["norm1"], x)
         y, new_state = rglru_lib.apply_rglru_block(

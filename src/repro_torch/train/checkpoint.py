@@ -15,8 +15,11 @@ torch reads the view back without ``ml_dtypes``.
 
 Writes go to ``step_<N>.tmp`` and are renamed only after every volume is
 flushed, so a crash mid-save never corrupts the restore path.
-``restore`` returns a tree of CPU tensors; placing it on a mesh
-(``reshard``) is the distributed layer's (ROADMAP A10).
+``restore`` returns a tree of CPU tensors.  ``reshard`` places a tree
+on a mesh of ranks: where the reference's returns global arrays that jax
+lays out over its devices, the port's returns this rank's own blocks
+(``distributed/sharding.py::local_shard``), each a fresh tensor on the
+rank's device.
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.convert import keystr, tree_leaves_with_path, tree_unflatten
+from repro_torch.distributed import sharding
 
 _VOLUME_BYTES = 512 * 1024 * 1024
 # the dtypes numpy cannot store, by the name the manifest gives them: the
@@ -141,6 +146,21 @@ def restore(ckpt_dir: str, template: Any,
     tree = tree_unflatten(template, [
         flat[keystr(path)] for path, _ in tree_leaves_with_path(template)])
     return step, tree, manifest["metadata"]
+
+
+def reshard(tree, shardings, device: DeviceLike = None):
+    """This rank's blocks of ``tree`` (host or device tensors, whole) by
+    ``shardings`` (a ``sharding.named`` tree of the same nesting): each a
+    fresh, contiguous tensor on ``device`` (``None`` = the GPU), sharing
+    no memory with ``tree``, so the whole tree can be dropped (elastic
+    restore onto a different mesh)."""
+    dev = resolve_device(device)
+
+    def one(path, x, s):
+        block = sharding.local_shard(x, s.spec, s.mesh)
+        out = torch.empty(block.shape, dtype=block.dtype, device=dev)
+        return out.copy_(block)
+    return sharding.tree_map_with_path(one, tree, shardings)
 
 
 def prune_old(ckpt_dir: str, keep: int = 3) -> None:
