@@ -112,9 +112,10 @@ drives the port's serving paths, each at full published width:
     forward of the same batch, and request 0 prefilled and decoded 8
     steps in bf16 and fp32, the fp32 decode held to the fp32 forward
     (phase ``frontend_serve``);
-  * sliding-window decode through a ring cache (h2o-danube-1.8b, 24
-    attention layers, 32 query heads on 8 kv heads of 80, window 4096,
-    bf16), after internvl2-1b's weights are freed: 4 sequences decoded
+  * sliding-window decode through a ring cache (h2o-danube-1.8b at full
+    width, its first 8 of 24 attention layers, 32 query heads on 8 kv
+    heads of 80, window 4096, bf16), after internvl2-1b's weights are
+    freed: 4 sequences decoded
     4160 teacher-forced steps from an empty ring of 4096 rows, so that it
     wraps, every step's attention on the decode kernel; the 64 steps past
     the window held to prefill of the first 4096 tokens into a linear
@@ -148,7 +149,18 @@ drives the port's serving paths, each at full published width:
     ``train/checkpoint.py``, restored and held to the bit, and the
     training launcher ``launch/train.py`` run twice on one checkpoint
     directory (100 steps of 8 x 2048 tokens each), the second run resuming
-    at step 100 from the first's checkpoint (``train_cli``);
+    at step 100 from the first's checkpoint (``train_cli``); then the
+    launcher trains it 10 steps of 8 x 2048 tokens on one device and
+    again with ``--data-parallel 2``: 2 ``gloo`` ranks on this card, each
+    on 4 of the 8 rows, the gradients summed in fp32, the AdamW state cut
+    by ZeRO-1, the new parameters gathered; flash first held to its
+    plain version at the ranks' shape (4 x 2048, 9 query heads on 3 kv
+    heads of 64, causal, bf16), forward and backward; the 2-rank loss and
+    gradient norm held to the one-device run's, every rank's parameters
+    to each other's by checksum, each rank's optimizer state to half the
+    one-device state's, each rank's flash launches counted; the sum's and
+    the gather's bytes and rates printed; the ranks share the card's SMs,
+    so no speed-up is claimed (``train_dp``);
   * calibration (phase ``calibrate``): the port's dry run
     (``launch/dryrun.py``) over every architecture and shape cell, host
     arithmetic on meta tensors, then four steps timed above -- Qwen2-7B's
@@ -520,10 +532,14 @@ TRAIN_FP32_GRAD_REL_L2 = 2e-4
 # at LM_PLAIN_REL_L2; the last RING_PLAIN_STEPS steps of the ring once
 # more through decode attention's plain version
 RING_BATCH, RING_PAST, RING_PLAIN_STEPS = 4, 64, 8
-# 24 layers x (k, v) x 4 x 4096 rows x 8 kv heads x 80 x 2 B, and the
-# linear cache of 4160 rows
-RING_CACHE_BYTES = 1_006_632_960
-RING_LINEAR_CACHE_BYTES = 1_022_361_600
+# the phase runs the first RING_LAYERS of the model's 24 layers, its
+# widths uncut: each decode step is paced by the host, layer by layer,
+# and at 24 layers the phase took 199-267 s of the script's time
+RING_LAYERS = 8
+# RING_LAYERS layers x (k, v) x 4 x 4096 rows x 8 kv heads x 80 x 2 B,
+# and the linear cache of 4160 rows
+RING_CACHE_BYTES = 335_544_320
+RING_LINEAR_CACHE_BYTES = 340_787_200
 # the fp32 ring (parameters cast to fp32, batch 1) at a narrowed window,
 # RING_PAST steps past it, held to a linear cache and to the fp32 forward
 # at DECODE_FP32_REL_L2
@@ -558,6 +574,21 @@ CLI_ARCH = "smollm-135m"
 CLI_PARAMETERS = 134_515_008
 CLI_PARAMETER_BYTES = 269_100_288
 CLI_BATCH, CLI_SEQ, CLI_STEPS = 8, 2048, 100
+
+# Data parallelism through the launcher: full-width smollm-135m, DP_STEPS
+# steps of CLI_BATCH x CLI_SEQ tokens on one device and again over
+# DP_RANKS gloo ranks on this card (each rank CLI_BATCH / DP_RANKS rows,
+# the gradient summed in fp32, the AdamW state cut by ZeRO-1), from the
+# same seed, batches and schedule.  The 2-rank run's logged loss and
+# gradient norm against the one-device run's, relative: the ranks'
+# matmuls run on half the rows and their bf16 gradients are summed in
+# fp32, where one device sums all rows inside its bf16 products.  Set
+# from the first run on an H100 (step-0 loss equal to the bit, step-0
+# gradient norm 1.40e-3, step-9 loss 1.9e-6), down from 1e-3, 1e-2, 1e-2
+DP_RANKS, DP_STEPS = 2, 10
+DP_LOSS0_RTOL, DP_GNORM0_RTOL, DP_LOSS9_RTOL = 1e-5, 3e-3, 1e-4
+# the one-device AdamW state: masters, m and v, fp32, 3 x 538,060,032 B
+DP_ONE_DEVICE_STATE_BYTES = 1_614_180_096
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -4121,8 +4152,8 @@ def ring_kernel_entry(ring, cfg) -> dict:
 
 
 def phase_swa_ring_decode() -> None:
-    """h2o-danube-1.8b at full width decoded past its window through a
-    ring cache: RING_BATCH sequences of window + RING_PAST teacher-forced
+    """h2o-danube-1.8b at full width, its first RING_LAYERS layers,
+    decoded past its window through a ring cache: RING_BATCH sequences of window + RING_PAST teacher-forced
     steps from an empty ring of window rows (the launch counts set to 0
     just before and read just after), held to prefill of the window's
     tokens into a linear cache and RING_PAST steps through the window
@@ -4140,6 +4171,10 @@ def phase_swa_ring_decode() -> None:
     torch.cuda.reset_peak_memory_stats()
     cfg, params, info = init_full_width(DANUBE_ARCH, DANUBE_PARAMETERS,
                                         DANUBE_PARAMETER_BYTES)
+    cfg = dataclasses.replace(cfg, num_layers=RING_LAYERS)
+    params = dict(params, blocks=_tree_map(lambda t: t[:RING_LAYERS].clone(),
+                                           params["blocks"]))
+    info["layers"] = RING_LAYERS
     W, V = cfg.window, cfg.vocab_size
     T = W + RING_PAST
     cut = T - RING_PLAIN_STEPS
@@ -4739,6 +4774,134 @@ def phase_train_cli() -> None:
         raise RuntimeError(f"train_cli: missed {misses}")
 
 
+def train_dp_report(rank, loop, params, opt_state) -> dict:
+    """What ``train_dp`` reads of a rank (``launch.train.main``'s
+    ``rank_report``, called in each rank after its last step, or in this
+    process on one device): the parameters' checksum, the optimizer
+    state's bytes and the leaves it holds whole (a master of the
+    parameter's shape), the kernel launches, the peak memory, and the
+    bytes and seconds of the step's hops."""
+    state = {k: opt_state[k] for k in ("master", "m", "v")}
+    shapes = dict(_paths(params))
+    whole = [path for path, t in _paths(state["master"])
+             if t.shape == shapes[path].shape]
+    return {"rank": rank, "checksum": tree_checksum(params),
+            "state_bytes": _nbytes(state), "whole_leaves": whole,
+            "whole_bytes": 3 * sum(4 * shapes[p].numel() for p in whole),
+            "launches": launch_counts(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "hops": {k: dataclasses.asdict(v)
+                     for k, v in loop.hop_stats.items()}}
+
+
+def phase_train_dp() -> None:
+    """smollm-135m at full width through ``launch/train.py``: DP_STEPS
+    steps on one device, then the same over DP_RANKS data ranks on this
+    card (``--data-parallel``: the launcher starts the gloo ranks; ZeRO-1
+    state, the gradient summed in fp32, the parameters gathered).  First
+    flash is held to its plain version at the ranks' shape, forward and
+    backward.  Checks: the printed steps and summary, the 2-rank run's
+    loss and gradient norm at steps 0 and DP_STEPS - 1 against the
+    one-device run's, every rank's parameters bit-equal, each rank's
+    optimizer state at half the one-device state's plus the leaves held
+    whole, the flash launches of each rank.  Raises on any miss, after
+    printing its line.  One card time-shares its SMs between the ranks,
+    and gloo moves every hop through pinned host memory: no speed-up is
+    expected or claimed."""
+    from repro_torch.launch import train as launch
+    t_phase = time.perf_counter()
+    cfg, params, info = init_full_width(CLI_ARCH, CLI_PARAMETERS,
+                                        CLI_PARAMETER_BYTES)
+    del params
+    rows = CLI_BATCH // DP_RANKS
+    shape = (rows, CLI_SEQ, CLI_SEQ, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim(), True, 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flash = {"forward": flash_layout_check(gen, shape, "smollm_rank",
+                                           lse=True),
+             "backward": flash_backward_entry(gen, shape, "smollm_rank")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = _train_launches(cfg)
+    runs = {}
+    for name, extra in (("one_device", []),
+                        ("data_parallel", ["--data-parallel",
+                                           str(DP_RANKS)])):
+        argv = ["--arch", CLI_ARCH, "--full", "--steps", str(DP_STEPS),
+                "--batch", str(CLI_BATCH), "--seq", str(CLI_SEQ),
+                "--device", "cuda"] + extra
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            hist, reports = launch.main(argv, rank_report=train_dp_report)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = printed.getvalue().splitlines()
+        step_s = ((hist[-1]["wall_s"] - hist[0]["wall_s"])
+                  / (hist[-1]["step"] - hist[0]["step"]))
+        for r in reports:
+            for hop in r["hops"].values():
+                seconds = hop["host_copy_seconds"] + hop["transfer_seconds"]
+                hop["bytes_per_step"] = hop["bytes"] / DP_STEPS
+                hop["gb_per_s"] = (_gb_per_s(hop["bytes"], seconds)
+                                   if seconds else None)
+        runs[name] = {
+            "seconds": wall, "step_seconds": step_s,
+            "tokens_per_second": CLI_BATCH * CLI_SEQ / step_s,
+            "printed_steps": [int(ln.split()[1]) for ln in lines
+                              if ln.startswith("step ")],
+            "summary": lines[-1],
+            "history": [{k: h[k] for k in ("step", "loss", "grad_norm",
+                                          "lr")} for h in hist],
+            "ranks": reports}
+        gc.collect()
+        torch.cuda.empty_cache()
+    one, dp = runs["one_device"], runs["data_parallel"]
+
+    def rel(key, i):
+        a, b = dp["history"][i][key], one["history"][i][key]
+        return abs(a - b) / abs(b)
+    diffs = {"loss_0": rel("loss", 0), "grad_norm_0": rel("grad_norm", 0),
+             f"loss_{DP_STEPS - 1}": rel("loss", -1)}
+    limits = {"loss_0": DP_LOSS0_RTOL, "grad_norm_0": DP_GNORM0_RTOL,
+              f"loss_{DP_STEPS - 1}": DP_LOSS9_RTOL}
+    one_state = one["ranks"][0]["state_bytes"]
+    expected = {k: DP_STEPS * v for k, v in per_step.items()}
+    logged = [0, DP_STEPS - 1]
+    emit("train_dp", **info, ranks=DP_RANKS, batch=CLI_BATCH, seq=CLI_SEQ,
+         steps=DP_STEPS, flash=flash, launches_per_step=per_step,
+         runs=runs, rel_diffs=diffs, limits=limits,
+         one_device_state_bytes=one_state,
+         seconds=time.perf_counter() - t_phase)
+    misses = [what for what, ok in (
+        ("printed steps", one["printed_steps"] == logged
+         and dp["printed_steps"] == logged),
+        ("summaries", one["summary"].endswith(
+            "on mesh {'data': 1, 'model': 1}") and dp["summary"].endswith(
+            f"on mesh {{'data': {DP_RANKS}, 'model': 1}}")),
+        ("ranks", [r["rank"] for r in dp["ranks"]] == list(range(DP_RANKS))),
+        ("loss and gradient norm", all(diffs[k] <= limits[k]
+                                       for k in limits)),
+        ("finite", all(math.isfinite(h[k]) for run in runs.values()
+                       for h in run["history"] for k in ("loss",
+                                                         "grad_norm"))),
+        ("parameters bit-equal", len({r["checksum"] for r in dp["ranks"]})
+         == 1),
+        ("one-device state", one_state == DP_ONE_DEVICE_STATE_BYTES),
+        ("ZeRO-1 state", all(
+            DP_RANKS * (r["state_bytes"] - r["whole_bytes"])
+            + r["whole_bytes"] == one_state for r in dp["ranks"])),
+        ("launches", one["ranks"][0]["launches"] == expected and all(
+            r["launches"] == expected for r in dp["ranks"])),
+        ("gradient sum", all(r["hops"]["grad_sum"]["hops"] == DP_STEPS
+                             for r in dp["ranks"]))) if not ok]
+    if misses:
+        raise RuntimeError(f"train_dp: missed {misses}")
+
+
 def phase_replay(params, cfg) -> None:
     """The paper's scheduler end to end: the port's fleet simulator
     records the golden workload's decision trace, every plan is
@@ -5116,6 +5279,7 @@ def main() -> int:
         "train_mamba", TRAIN_SSD_ARCH, SSD_PARAMETERS, SSD_PARAMETER_BYTES,
         "ssd_scan")
     phase_train_cli()
+    phase_train_dp()
     phase_calibrate(measured, smi)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels_line(

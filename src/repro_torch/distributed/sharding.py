@@ -310,7 +310,7 @@ def moe_only_specs(params, cfg, mesh: Mesh, model_axis: str = "model"):
     its MoE layer computes on blocks (``models/moe.py``: ``tp`` and ``ep``
     over the model axis).  Attention and the dense MLP compute with whole
     weights: the reference gets dense tensor parallelism from GSPMD, which
-    the port has not written yet (ROADMAP A10.2).  A tree cut wholly by
+    the port has not written yet (ROADMAP A10.2c).  A tree cut wholly by
     ``param_specs`` would hand attention a slice of its heads, which
     ``apply_attn_block_seq`` refuses."""
     specs = param_specs(params, cfg, mesh, model_axis)

@@ -5,22 +5,58 @@ It trains the reduced config (`--full`: the registry config) for
 summary in the reference launcher's format.  With `--ckpt-dir` it writes
 a checkpoint every 100 steps and a second run resumes from the newest.
 It runs on the GPU unless `--device cpu` is given; without a GPU it
-stops with an error.  It trains on one device: `--data-parallel` or
-`--model-parallel` above 1 raise (a mesh is ROADMAP A10).
+stops with an error.
+
+`--data-parallel N` trains on a mesh of N data ranks: the launcher starts
+the N processes itself (`distributed/world.py::run_world`, `gloo`, a
+rendezvous directory under a fresh temporary directory that it removes,
+a time limit of WORLD_TIMEOUT_S), each builds `make_host_mesh(N, 1)` and
+its ctx and runs `TrainLoop` on `--device` (with `cuda`, every rank on
+the one visible card).  Each rank takes its rows of the global batch,
+the gradients are summed over the ranks in fp32, and the optimizer state
+is cut by ZeRO-1 (`train/train_loop.py`).  The lines printed are rank
+0's history, the summary ending `on mesh {'data': N, 'model': 1}`.
+`--model-parallel` above 1 (dense tensor parallelism, ROADMAP A10.2c)
+and a Mixture-of-Experts model over a data mesh (ROADMAP A10.2b-moe)
+raise before any rank starts.
 """
 import argparse
-from typing import Optional, Sequence
+import tempfile
+from typing import Callable, Optional, Sequence
 
 from repro_torch.compat import resolve_device
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.distributed import sharding
+from repro_torch.distributed.world import run_world
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_loop import TrainConfig, TrainLoop
 
+#: a world of ranks not done after this many seconds is killed (a hung
+#: collective raises in its rank after ``world.COLLECTIVE_TIMEOUT_S``)
+WORLD_TIMEOUT_S = 24 * 3600
 
-def main(argv: Optional[Sequence[str]] = None):
+
+def _train_rank(rank: int, world_size: int, cfg, dc, tc, mesh_shape,
+                device: str, steps: int, rank_report: Optional[Callable]):
+    """One rank of a data mesh: (its history, ``rank_report``'s)."""
+    ctx = sharding.make_ctx(make_host_mesh(*mesh_shape))
+    loop = TrainLoop(cfg, dc, tc, ctx=ctx, device=device)
+    params, opt_state, hist = loop.run(steps)
+    report = (None if rank_report is None
+              else rank_report(rank, loop, params, opt_state))
+    return hist, report
+
+
+def main(argv: Optional[Sequence[str]] = None, *,
+         rank_report: Optional[Callable] = None):
     """Parses ``argv`` (default: the command line), trains, prints, and
-    returns the loop's history (the logged steps' metric dicts)."""
+    returns the loop's history (the logged steps' metric dicts; rank 0's
+    on a mesh).  With ``rank_report``, a module-level function
+    ``rank_report(rank, loop, params, opt_state)`` called in each rank
+    (in this process on one device) after the last step, it returns
+    (history, [each rank's report])."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--steps", type=int, default=100)
@@ -36,27 +72,45 @@ def main(argv: Optional[Sequence[str]] = None):
     args = ap.parse_args(argv)
 
     mesh = {"data": args.data_parallel, "model": args.model_parallel}
-    if mesh != {"data": 1, "model": 1}:
+    if args.model_parallel > 1:
         raise NotImplementedError(
-            f"mesh {mesh}: this launcher trains on one device; data and "
-            "model parallelism are ROADMAP A10")
-    dev = resolve_device(args.device)
+            f"mesh {mesh}: a model axis above 1 needs dense tensor "
+            "parallelism, which is not ported (ROADMAP A10.2c)")
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
+    if args.data_parallel > 1 and cfg.moe is not None:
+        raise NotImplementedError(
+            f"mesh {mesh}: Mixture-of-Experts training over a data mesh is "
+            "ROADMAP A10.2b-moe")
+    dev = resolve_device(args.device)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     global_batch=args.batch)
     tc = TrainConfig(
         optimizer=AdamWConfig(peak_lr=args.lr, warmup_steps=20,
                               total_steps=args.steps),
         checkpoint_dir=args.ckpt_dir, checkpoint_every=100, log_every=10)
-    loop = TrainLoop(cfg, dc, tc, device=dev)
-    _, _, hist = loop.run(args.steps)
+    if args.data_parallel == 1:
+        loop = TrainLoop(cfg, dc, tc, device=dev)
+        params, opt_state, hist = loop.run(args.steps)
+        reports = (None if rank_report is None
+                   else [rank_report(0, loop, params, opt_state)])
+    else:
+        if dev.type == "cuda":
+            from repro_torch.kernels import _build
+            _build.build_library()     # once, before the ranks load it
+        with tempfile.TemporaryDirectory(prefix="train_world_") as workdir:
+            results = run_world(
+                _train_rank, args.data_parallel,
+                (cfg, dc, tc, (args.data_parallel, 1), str(dev), args.steps,
+                 rank_report), workdir=workdir, timeout=WORLD_TIMEOUT_S)
+        hist = results[0][0]
+        reports = [r for _, r in results]
     for h in hist:
         print(f"step {h['step']:5d} loss {h['loss']:.4f} "
               f"gnorm {h['grad_norm']:.3f} lr {h['lr']:.2e}")
     print(f"\n{cfg.name}: loss {hist[0]['loss']:.3f} -> "
           f"{hist[-1]['loss']:.3f} over {args.steps} steps on "
           f"mesh {mesh}")
-    return hist
+    return hist if rank_report is None else (hist, reports)
 
 
 if __name__ == "__main__":

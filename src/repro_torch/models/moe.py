@@ -21,8 +21,9 @@ to the output's dtype, as XLA rounds a bf16 psum (``_psum``).  As in the
 reference, the capacity is counted from the rank's own tokens (a data
 shard's, not the whole batch's), and every rank returns data shard 0's
 aux losses (its ``out_specs`` ``P()`` with ``check_vma=False``).  There
-is no backward through the sum: training over a mesh comes with the
-launcher (ROADMAP A10.2), and autograd here raises.
+is no backward through the sum, and autograd here raises:
+Mixture-of-Experts training over a mesh is ROADMAP A10.2b-moe (the
+launcher trains dense and SSD models over a data mesh).
 
 Dispatch uses the capacity trick: scatter into an (E, C+1, d) buffer where
 row C is the overflow sink for capacity-dropped tokens, then slice it off.
@@ -193,8 +194,8 @@ def _check_sharded(p, x, cfg, ctx: ShardCtx) -> None:
             t.requires_grad for t in [x, *p.values()]):
         raise RuntimeError(
             "sharded Mixture-of-Experts has no backward through its sum "
-            "over the model axis; training over a mesh comes with the "
-            "launcher (ROADMAP A10.2): run it under torch.no_grad() or "
+            "over the model axis; Mixture-of-Experts training over a mesh "
+            "is ROADMAP A10.2b-moe: run it under torch.no_grad() or "
             "torch.inference_mode()")
     size = ctx.model_size
     if size == 1:

@@ -235,7 +235,7 @@ def _refuse_dense_shards(kind, p, cfg, ctx) -> None:
     """Every block but its Mixture-of-Experts layer computes with whole
     weights whatever the mesh: attention, the dense MLP, the RG-LRU and
     the SSD ignore ``ctx``, and the reference's dense tensor parallelism
-    comes from GSPMD, which the port has not written (ROADMAP A10.2).
+    comes from GSPMD, which the port has not written (ROADMAP A10.2c).
     Under a model axis above 1, a block whose leaves outside ``['moe']``
     are not the config's whole shapes (a slice cut by
     ``distributed/sharding.py::param_specs``) would give wrong answers
@@ -251,8 +251,39 @@ def _refuse_dense_shards(kind, p, cfg, ctx) -> None:
                 f"{kind} block leaf {key} of shape {tuple(t.shape)}, not "
                 f"the config's {want.get(key)}: a block's weights cut over "
                 f"the model axis need dense tensor parallelism, which is "
-                f"not ported (ROADMAP A10.2); cut only the MoE layer "
+                f"not ported (ROADMAP A10.2c); cut only the MoE layer "
                 f"(distributed/sharding.py::moe_only_specs)")
+
+
+def _refuse_cut_blocks(params, cfg, ctx) -> None:
+    """Without a model axis above 1, prefill and decode compute every
+    block with whole weights, its Mixture-of-Experts layer included: a
+    rank's cut block would give wrong answers without a word (ROADMAP
+    C2).  So each block of ``params`` (the stacked groups, the tail, an
+    encoder's stack) must hold the config's whole shapes, or this raises.
+    One walk of the stacked tree a call, against ``_block_shapes``."""
+    if ctx is not None and ctx.model_size > 1:
+        return
+    G = cfg.num_groups()
+    stacks = [(kind, params["blocks"][f"b{i}"], (G,))
+              for i, kind in enumerate(cfg.block_pattern)]
+    stacks += [(kind, params["tail"][f"t{i}"], ())
+               for i, kind in enumerate(cfg.tail_pattern())]
+    if cfg.encoder_layers:
+        stacks.append(("attn", params["encoder"]["blocks"],
+                       (cfg.encoder_layers,)))
+    for kind, p, lead in stacks:
+        want = _block_shapes(kind, cfg, "xwq" in p)
+        for path, t in tree_leaves_with_path(p):
+            key = keystr(path)
+            whole = want.get(key)
+            if whole is None or tuple(t.shape) != lead + whole:
+                raise NotImplementedError(
+                    f"{kind} block leaf {key} of shape {tuple(t.shape)}, "
+                    f"not the config's {lead + whole if whole else None}: "
+                    f"without a model axis above 1 every block computes "
+                    f"with whole weights, and a block cut over one needs "
+                    f"dense tensor parallelism (ROADMAP A10.2c)")
 
 
 def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
@@ -557,6 +588,7 @@ def prefill(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *, kernels=None,
     layers' cross-attention K/V, which decode reads and never grows;
     like the reference, it projects them again from the encoder's output
     after the blocks have done so."""
+    _refuse_cut_blocks(params, cfg, ctx)
     hidden, _, caches = forward_hidden(
         params, batch, cfg, ctx, return_cache=True, remat=False,
         kernels=kernels)
@@ -592,7 +624,7 @@ def pad_kv_caches(caches, pad_to: int):
     return {k: (fix(v) if k != "enc_kv" else v) for k, v in caches.items()}
 
 
-def _decode_attn(p, x, cfg, cache, position: int, enc_kv=None):
+def _decode_attn(p, x, cfg, ctx, cache, position: int, enc_kv=None):
     """One-token attention block.  x (B,1,d); ``cache`` is updated in
     place and returned.  The reference's position masks become the rows
     [lo, lo + n) of the cache every sequence attends to.  ``enc_kv``
@@ -630,7 +662,7 @@ def _decode_attn(p, x, cfg, cache, position: int, enc_kv=None):
         x = x + torch.einsum("bshe,hed->bsd", xo, p["xwo"])
     h2 = apply_norm(p["norm2"], x)
     if "moe" in p:
-        y, _ = moe_lib.apply_moe(p["moe"], h2, cfg, LOCAL_CTX)
+        y, _ = moe_lib.apply_moe(p["moe"], h2, cfg, ctx)
     else:
         y = apply_mlp(p["mlp"], h2, cfg)
     return x + y, cache
@@ -643,9 +675,9 @@ def _copy_state(cache, new_state):
     return cache
 
 
-def _decode_block(kind, p, x, cfg, cache, position: int, enc_kv=None):
+def _decode_block(kind, p, x, cfg, ctx, cache, position: int, enc_kv=None):
     if kind == "attn":
-        return _decode_attn(p, x, cfg, cache, position, enc_kv)
+        return _decode_attn(p, x, cfg, ctx, cache, position, enc_kv)
     if kind == "rec":
         h = apply_norm(p["norm1"], x)
         y, new_state = rglru_lib.apply_rglru_block(p["rglru"], h, cfg,
@@ -685,7 +717,17 @@ def decode_step(params, token, cache, position, cfg,
     or a 0-d tensor (read once, here, so every layer's key range is known
     on the host).  Returns (logits (B,1,V), cache); the cache is the one
     passed in, updated in place.  An encoder-decoder model's
-    ``cache["enc_kv"]`` (built by ``prefill``) is read, never written."""
+    ``cache["enc_kv"]`` (built by ``prefill``) is read, never written.
+    Decode runs without a model axis: a ``ctx`` with one above 1 raises,
+    and so does a block whose leaves are not the config's whole shapes
+    (``_refuse_cut_blocks``)."""
+    ctx = LOCAL_CTX if ctx is None else ctx
+    if ctx.model_size > 1:
+        raise NotImplementedError(
+            f"decode over a model axis of {ctx.model_size}: decode computes "
+            f"every block with whole weights; sharded decode needs dense "
+            f"tensor parallelism (ROADMAP A10.2c)")
+    _refuse_cut_blocks(params, cfg, ctx)
     position = int(position)
     enc_kv = cache.get("enc_kv") or {"groups": {}, "tail": {}}
     x = embed_tokens(params, token, cfg)
@@ -694,10 +736,10 @@ def decode_step(params, token, cache, position, cfg,
         gc = _tree_index(cache["groups"], g)
         genc = _tree_index(enc_kv["groups"], g)
         for i, kind in enumerate(cfg.block_pattern):
-            x, _ = _decode_block(kind, gp[f"b{i}"], x, cfg, gc[f"b{i}"],
-                                 position, genc.get(f"b{i}"))
+            x, _ = _decode_block(kind, gp[f"b{i}"], x, cfg, ctx,
+                                 gc[f"b{i}"], position, genc.get(f"b{i}"))
     for i, kind in enumerate(cfg.tail_pattern()):
-        x, _ = _decode_block(kind, params["tail"][f"t{i}"], x, cfg,
+        x, _ = _decode_block(kind, params["tail"][f"t{i}"], x, cfg, ctx,
                              cache["tail"][f"t{i}"], position,
                              enc_kv["tail"].get(f"t{i}"))
     x = apply_norm(params["final_norm"], x)

@@ -10,14 +10,20 @@ Trees are flattened in ``jax.tree_util``'s order (dict keys sorted), so
 ``global_norm`` sums its leaves in the reference's order.  The reference
 donates its state to the jitted step; here ``apply_updates`` updates the
 state's m, v and masters in place and returns a new state dict holding
-them, and new parameter tensors.  The sharded (ZeRO-1) placement is the
-distributed layer's (ROADMAP A10).
+them, and new parameter tensors.
+
+ZeRO-1 (``train/train_loop.py`` under a data mesh): each rank holds its
+block of ``master``, ``m`` and ``v`` (``sharding.opt_state_specs``) and
+calls ``apply_updates`` on the blocks of the summed gradients, with the
+norm of the whole summed tree passed in as ``grad_norm``.  The update is
+elementwise, so a rank's blocks come out as the blocks of the whole
+tree's update, to the bit.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -71,14 +77,17 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state
+def apply_updates(cfg: AdamWConfig, params, grads, state, *,
+                  grad_norm: Optional[torch.Tensor] = None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step.  Returns (new params in their own dtypes, new
     state, metrics).  Only leaves of two or more dimensions decay (norms,
-    biases and 1-d gains do not)."""
+    biases and 1-d gains do not).  The clip reads ``grad_norm`` when it is
+    given (the norm of a whole tree of which ``grads`` are blocks), else
+    ``global_norm(grads)``."""
     step = state["step"]
     lr = lr_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     t = (step + 1).to(torch.float32)

@@ -14,10 +14,35 @@ On CUDA tensors the blocks run the hand kernels, forward and backward.
 automatic resume, and the hooks the fault-tolerance harness uses.  Its
 weights are drawn from ``torch.Generator(device)`` seeded with ``seed``
 (the reference draws from ``jax.random.PRNGKey(seed)``).
+
+Data parallelism with ZeRO-1.  Under a ``ctx`` whose mesh has data axes
+of product n > 1 (and a model axis of 1), the step runs in each rank of
+the mesh, as GSPMD runs the reference's over its devices:
+
+  * the loop draws the **global** batch; each rank takes its rows
+    (``sharding.batch_specs`` and ``local_shard``);
+  * each rank's gradients and metrics, scaled by its share of the global
+    ``mask`` sum, are summed over the data axes as one fp32 buffer
+    (``collectives.all_reduce``): the gradient of the global token mean;
+  * the compression, the global norm and the clip act on the summed
+    tree, in the reference's order;
+  * each rank holds only its block of the fp32 masters, m and v
+    (``sharding.opt_state_specs``: the first free dimension that the
+    data axes divide; a leaf with none stays whole on every rank),
+    updates it, casts it to the parameter's dtype, and the ranks gather
+    the blocks (``collectives.ring_all_gather``), so every rank holds the
+    whole new parameters.
+
+A checkpoint under a mesh is the whole tree in the one-device format:
+the ranks gather the state and rank 0 writes it; on resume every rank
+reads the whole tree and takes its blocks (``checkpoint.reshard``).  So
+a checkpoint moves between one device and any data mesh.  A model axis
+above 1 raises (dense tensor parallelism, ROADMAP A10.2c).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -26,11 +51,12 @@ import torch
 from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.convert import tree_leaves, tree_map, tree_unflatten
 from repro_torch.data.pipeline import DataConfig, batch_for_config
+from repro_torch.distributed import collectives, sharding
 from repro_torch.models import transformer as tr
 from repro_torch.models.moe import LOCAL_CTX, ShardCtx
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.optimizer import (AdamWConfig, apply_updates,
-                                         init_opt_state)
+                                         global_norm, init_opt_state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,20 +86,147 @@ def value_and_grad(model_cfg, params, batch, ctx: ShardCtx = LOCAL_CTX,
     return (loss.detach(), metrics), tree_unflatten(params, grads)
 
 
+# --------------------------------------------------------------------------
+# Data parallelism and ZeRO-1
+# --------------------------------------------------------------------------
+def data_parallel(ctx: Optional[ShardCtx]) -> bool:
+    """Whether ``ctx`` spreads the batch over ranks: a mesh whose data
+    axes' product is above 1.  Raises for a model axis above 1."""
+    if ctx is None or ctx.mesh is None:
+        return False
+    if ctx.model_size > 1:
+        raise NotImplementedError(
+            f"training over a model axis of {ctx.model_size} needs dense "
+            f"tensor parallelism, which is not ported (ROADMAP A10.2c)")
+    return math.prod(ctx.mesh.shape[a] for a in ctx.data_axes) > 1
+
+
+def zero1_specs(params, model_cfg, ctx: ShardCtx):
+    """The optimizer state's specs under ``ctx``'s mesh:
+    ``sharding.opt_state_specs`` over the reference's ``param_specs``
+    ({"step", "master", "m", "v"})."""
+    pspecs = sharding.param_specs(params, model_cfg, ctx.mesh,
+                                  ctx.model_axis)
+    return sharding.opt_state_specs(
+        {"master": params, "m": params, "v": params}, pspecs, ctx.mesh,
+        ctx.data_axes)
+
+
+def _rows(batch, ctx: ShardCtx):
+    """This rank's rows of the global ``batch`` and its share of the
+    global ``mask`` sum (a 0-d fp32 tensor)."""
+    n = math.prod(ctx.mesh.shape[a] for a in ctx.data_axes)
+    if batch["mask"].shape[0] % n:
+        raise ValueError(f"a global batch of {batch['mask'].shape[0]} rows "
+                         f"does not split over {n} data ranks")
+    specs = sharding.batch_specs(batch, ctx.data_axes, ctx.mesh)
+    rows = {k: sharding.local_shard(v, specs[k], ctx.mesh)
+            for k, v in batch.items()}
+    share = rows["mask"].float().sum() / torch.clamp_min(
+        batch["mask"].float().sum(), 1.0)
+    return rows, share
+
+
+def sum_over_data(grads, metrics: Dict[str, torch.Tensor], share,
+                  ctx: ShardCtx, stats: collectives.HopStats = None):
+    """The sum over the data axes of each rank's ``grads`` and
+    ``metrics`` scaled by its ``share``: one fp32 buffer, the metrics
+    after the gradients, summed by one ``all_reduce`` an axis.  Returns
+    (fp32 gradients in ``grads``' nesting, metrics): with two ranks, the
+    bits of ``g0 * share0 + g1 * share1`` computed leaf by leaf."""
+    leaves = tree_leaves(grads)
+    names = list(metrics)
+    flat = torch.cat([g.reshape(-1).float() for g in leaves]
+                     + [torch.stack([metrics[k] for k in names]).float()])
+    flat.mul_(share)
+    for axis in ctx.data_axes:
+        if ctx.mesh.shape[axis] > 1:
+            flat = collectives.all_reduce(flat, axis, mesh=ctx.mesh,
+                                          stats=stats)
+    parts = flat.split([g.numel() for g in leaves] + [len(names)])
+    # each leaf back in the layout autograd gave it (a tied embedding's
+    # gradient comes transposed): a reduction's bits, the global norm's
+    # sums of squares, follow the order of its input in memory
+    summed = [torch.empty_like(g, dtype=torch.float32).copy_(p.view(g.shape))
+              for p, g in zip(parts, leaves)]
+    return (tree_unflatten(grads, summed),
+            dict(zip(names, parts[-1].unbind())))
+
+
+def _data_dim(spec, data_axes) -> Optional[int]:
+    """The dimension ``spec`` cuts over the data axes, if any."""
+    for dim, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if any(a in data_axes for a in axes):
+            return dim
+    return None
+
+
+def gather_blocks(blocks, specs, ctx: ShardCtx,
+                  stats: collectives.HopStats = None):
+    """The whole leaves of a tree of which every rank holds its blocks
+    under ``specs`` (ZeRO-1's: only data axes cut): each cut dimension is
+    moved to the front, gathered over its axes (the innermost first, so
+    the blocks fall in ``local_shard``'s order) and moved back.  A leaf
+    that is not cut is already whole and comes back as it is."""
+    def one(path, block, spec):
+        dim = _data_dim(spec, ctx.data_axes)
+        if dim is None:
+            return block
+        entry = spec[dim]
+        x = block.movedim(dim, 0).contiguous()
+        for axis in reversed(entry if isinstance(entry, tuple) else (entry,)):
+            x = collectives.ring_all_gather(x, axis, mesh=ctx.mesh,
+                                            stats=stats)
+        return x.movedim(0, dim).contiguous()
+    return sharding.tree_map_with_path(one, blocks, specs)
+
+
+def local_blocks(tree, specs, ctx: ShardCtx):
+    """This rank's blocks of the whole ``tree`` under ``specs``, as
+    views."""
+    return sharding.tree_map_with_path(
+        lambda path, t, s: sharding.local_shard(t, s, ctx.mesh), tree, specs)
+
+
 def make_train_step(model_cfg, train_cfg: TrainConfig,
-                    ctx: ShardCtx = LOCAL_CTX, kernels=None) -> Callable:
-    """The step function; the optimizer state is updated in place."""
+                    ctx: ShardCtx = LOCAL_CTX, kernels=None,
+                    stats: Optional[Dict[str, collectives.HopStats]] = None
+                    ) -> Callable:
+    """The step function; the optimizer state is updated in place.  Under
+    a data mesh (``data_parallel(ctx)``) it takes the global batch and
+    this rank's ZeRO-1 blocks of the state (``zero1_specs``), and counts
+    its hops in ``stats["grad_sum"]`` and ``stats["param_gather"]`` when
+    ``stats`` is given."""
     opt_cfg = train_cfg.optimizer
+    dp = data_parallel(ctx)
+    stats = stats or {}
+    if dp:
+        specs = zero1_specs(tr.init_params(model_cfg, torch.Generator(),
+                                           "meta"), model_cfg, ctx)["master"]
 
     def step_fn(params, opt_state, batch):
+        if dp:
+            batch, share = _rows(batch, ctx)
         (_, metrics), grads = value_and_grad(model_cfg, params, batch, ctx,
                                              kernels)
+        if dp:
+            grads, metrics = sum_over_data(grads, metrics, share, ctx,
+                                           stats.get("grad_sum"))
         if train_cfg.compress_grads == "int8":
             from repro_torch.distributed.compression import compress_tree_int8
             grads, comp_err = compress_tree_int8(grads)
             metrics = dict(metrics, compression_err=comp_err)
-        params, opt_state, opt_metrics = apply_updates(
-            opt_cfg, params, grads, opt_state)
+        if dp:
+            blocks, opt_state, opt_metrics = apply_updates(
+                opt_cfg, local_blocks(params, specs, ctx),
+                local_blocks(grads, specs, ctx), opt_state,
+                grad_norm=global_norm(grads))
+            params = gather_blocks(blocks, specs, ctx,
+                                   stats.get("param_gather"))
+        else:
+            params, opt_state, opt_metrics = apply_updates(
+                opt_cfg, params, grads, opt_state)
         metrics = dict(metrics, **opt_metrics)
         return params, opt_state, metrics
 
@@ -88,8 +241,15 @@ class TrainLoop:
     ctx: ShardCtx = LOCAL_CTX
     kernels: Optional[Dict] = None
     device: DeviceLike = None          # None = the GPU
+    #: what the data-parallel step's hops moved (``make_train_step``)
+    hop_stats: Dict[str, collectives.HopStats] = dataclasses.field(
+        default_factory=lambda: {"grad_sum": collectives.HopStats(),
+                                 "param_gather": collectives.HopStats()})
 
     def init_or_resume(self, seed: int = 0):
+        """(params, opt_state, start step): drawn from ``seed``, or the
+        newest checkpoint's.  Under a data mesh every rank draws (or
+        reads) the whole tree and keeps its ZeRO-1 blocks of the state."""
         dev = resolve_device(self.device)
         gen = torch.Generator(dev).manual_seed(seed)
         params = tr.init_params(self.model_cfg, gen, dev)
@@ -105,7 +265,27 @@ class TrainLoop:
                 start_step = step
             except FileNotFoundError:
                 pass
+        if data_parallel(self.ctx):
+            specs = zero1_specs(params, self.model_cfg, self.ctx)
+            opt_state = ckpt_lib.reshard(
+                opt_state, sharding.named(self.ctx.mesh, specs), dev)
         return params, opt_state, start_step
+
+    def _save(self, step: int, params, opt_state) -> None:
+        """Write the whole tree at ``step``: under a data mesh the ranks
+        gather the state's blocks and rank 0 writes."""
+        tree = {"params": params, "opt": opt_state}
+        if data_parallel(self.ctx):
+            specs = zero1_specs(params, self.model_cfg, self.ctx)
+            tree["opt"] = dict(opt_state, **{
+                k: gather_blocks(opt_state[k], specs[k], self.ctx)
+                for k in ("master", "m", "v")})
+            if any(self.ctx.mesh.axis_index(a) for a in self.ctx.data_axes):
+                return
+        ckpt_lib.save(self.train_cfg.checkpoint_dir, step, tree,
+                      metadata={"model": self.model_cfg.name})
+        ckpt_lib.prune_old(self.train_cfg.checkpoint_dir,
+                           self.train_cfg.keep_checkpoints)
 
     def run(self, num_steps: int, seed: int = 0,
             on_step: Optional[Callable] = None):
@@ -116,7 +296,7 @@ class TrainLoop:
         dev = resolve_device(self.device)
         params, opt_state, start = self.init_or_resume(seed)
         step_fn = make_train_step(self.model_cfg, self.train_cfg, self.ctx,
-                                  self.kernels)
+                                  self.kernels, self.hop_stats)
         history = []
         t0 = time.perf_counter()
         for step in range(start, start + num_steps):
@@ -132,9 +312,5 @@ class TrainLoop:
                 history.append(m)
             if (self.train_cfg.checkpoint_dir
                     and (step + 1) % self.train_cfg.checkpoint_every == 0):
-                ckpt_lib.save(self.train_cfg.checkpoint_dir, step + 1,
-                              {"params": params, "opt": opt_state},
-                              metadata={"model": self.model_cfg.name})
-                ckpt_lib.prune_old(self.train_cfg.checkpoint_dir,
-                                   self.train_cfg.keep_checkpoints)
+                self._save(step + 1, params, opt_state)
         return params, opt_state, history

@@ -587,3 +587,47 @@ def test_encoder_decoder_decode_says_so():
             toks[:, t:t + 1]), cache, t, cfg)
         _assert_close(got[..., :cfg.vocab_size], _valid(want, cfg),
                       "float32")
+
+
+# --------------------------------------------------------------------------
+# a rank's cut block reaching prefill or decode (ROADMAP C2)
+# --------------------------------------------------------------------------
+def test_a_cut_moe_block_raises_and_the_whole_tree_decodes():
+    """Reduced OLMoE-1B-7B in fp32 (the port's own init), its MoE expert
+    leaves cut to model rank 1's quarter of a (1, 4) mesh
+    (``sharding.local_shard`` under ``moe_only_specs``): ``prefill``
+    without a mesh raises, and ``decode_step`` raises under the mesh's
+    ctx (a model axis above 1) and without one (the cut leaves).  The
+    whole tree still prefills and decodes, and its logits equal the full
+    forward's at capacity factor 16 (fp32 5e-5, as above)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import Mesh
+    arch = "olmoe-1b-7b"
+    cfg = dataclasses.replace(reduced_config(arch), param_dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=16.0))
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh = Mesh((1, 4), ("data", "model"))
+    ctx = sharding.make_ctx(mesh)
+    specs = sharding.moe_only_specs(params, cfg, mesh)
+    cut = sharding.tree_map_with_path(
+        lambda path, t, s: sharding.local_shard(t, s, mesh, rank=1),
+        params, specs)
+    moe_leaf = cut["blocks"]["b0"]["moe"]["w_down"]
+    assert moe_leaf.shape[1] == cfg.moe.num_experts // 4
+
+    toks = _tokens(cfg, 6, seed=5)
+    prompt = {"tokens": torch.from_numpy(toks[:, :5])}
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match=r"\['moe'\].*A10\.2c"):
+            tr.prefill(cut, prompt, cfg, pad_to=6)
+        _, cache = tr.prefill(params, prompt, cfg, pad_to=6)
+        step = torch.from_numpy(toks[:, 5:6])
+        for tree, c in ((cut, ctx), (params, ctx), (cut, tr.LOCAL_CTX)):
+            with pytest.raises(NotImplementedError, match="A10.2c"):
+                tr.decode_step(tree, step, cache, 5, cfg, c)
+        got, _ = tr.decode_step(params, step, cache, 5, cfg)
+        hidden, _, _ = tr.forward_hidden(
+            params, {"tokens": torch.from_numpy(toks)}, cfg)
+        want = tr.unembed(params, hidden[:, -1:], cfg)
+    _assert_close(got, want.numpy(), "float32")

@@ -118,12 +118,51 @@ def test_main_prints_the_reference_history(fp32_from_the_reference,
              "mesh {'data': 1, 'model': 1}"]
 
 
-@pytest.mark.parametrize("flag", ["--data-parallel", "--model-parallel"])
-def test_a_mesh_above_one_device_raises(flag):
+@pytest.mark.parametrize("flag", [
+    pytest.param("--data-parallel", marks=pytest.mark.multidevice),
+    "--model-parallel"])
+def test_a_mesh_above_one_device_raises(flag, monkeypatch):
     """The reference clamps the mesh to the devices it finds; the port
-    refuses rather than train on fewer than were asked for."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        launch.main(ARGS + ["--steps", "1", "--device", "cpu", flag, "2"])
+    never trains on fewer than were asked for.  A model axis of 2 raises
+    (dense tensor parallelism, ROADMAP A10.2c) before any rank starts.
+    A data axis of 2 trains in 2 ``gloo`` ranks that the launcher starts
+    itself, on the port's own init (reduced smollm-135m in fp32): the
+    reference's lines with ``{'data': 2, 'model': 1}``, and a history
+    within rtol 1e-4 of the one-device ``main``'s (the same global batch
+    and tokens; the gradient summed over the ranks in fp32)."""
+    argv = ARGS + ["--steps", "10", "--device", "cpu", flag, "2"]
+    if flag == "--model-parallel":
+        monkeypatch.setattr(launch, "run_world", _no_world)
+        with pytest.raises(NotImplementedError, match="ROADMAP A10.2c"):
+            launch.main(argv)
+        return
+    monkeypatch.setattr(launch, "reduced_config", _fp32(reduced_config))
+    one, _ = _run(launch.main, argv[:-2])
+    hist, lines = _run(launch.main, argv)
+    assert [h["step"] for h in hist] == [h["step"] for h in one] == [0, 9]
+    for key, rtol in (("loss", 1e-4), ("grad_norm", 1e-4), ("lr", 1e-6)):
+        np.testing.assert_allclose([h[key] for h in hist],
+                                   [h[key] for h in one], rtol=rtol)
+    assert [r[0] for r in _steps(lines)] == [0, 9]
+    assert re.fullmatch(
+        rf"{reduced_config(ARCH).name}: loss \d+\.\d{{3}} -> \d+\.\d{{3}} "
+        r"over 10 steps on mesh \{'data': 2, 'model': 1\}", lines[-1])
+
+
+def _no_world(*args, **kwargs):
+    raise AssertionError("a rank was started")
+
+
+def test_a_moe_model_over_a_data_mesh_raises_before_any_rank_starts(
+        monkeypatch):
+    """Mixture-of-Experts training over a data mesh is ROADMAP
+    A10.2b-moe: the reference counts the capacity per data shard and
+    takes data shard 0's aux, whose gradient needs its own study."""
+    monkeypatch.setattr(launch, "run_world", _no_world)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10.2b-moe"):
+        launch.main(["--arch", "olmoe-1b-7b", "--batch", "2", "--seq", "16",
+                     "--steps", "1", "--device", "cpu",
+                     "--data-parallel", "2"])
 
 
 def test_main_needs_a_gpu_unless_told_cpu(monkeypatch):
