@@ -58,7 +58,16 @@ drives the port's serving paths, each at full published width:
     pipeline, 7 flash launches a microbatch on each stage, to the
     sequential ``run_layer_range(0, 28)`` here, all to the bit; the
     stages share the card's SMs, so this shows no speed-up (phase
-    ``pipeline_qwen2``).
+    ``pipeline_qwen2``).  Then the same weights under dense tensor
+    parallelism in 4 ranks (phase ``tp_qwen2``): flash and decode
+    attention held to their plain versions at the ranks' shapes, then
+    the whole tree cut by ``param_specs`` over the model axis of (1, 4)
+    and (2, 2) (attention by heads, the MLP by ``d_ff``, the vocabulary),
+    2 x 2048 tokens prefilled and 16 steps decoded through
+    ``launch/dryrun.py``'s step builders; every rank's logits and cache
+    held to the bit to one process computing as the ranks do
+    (``tp_as_ranks``), the logits and each layer to the one-process bf16
+    run, the first 2 groups in fp32, the sums counted.
   * Mixture-of-Experts (OLMoE-1B-7B, 16 MHA attention layers, 64 experts
     top-8, bf16), after Qwen2-7B's weights are freed: the flash kernel
     held to its plain version and timed at the MHA prefill layout, then
@@ -193,6 +202,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -453,6 +463,29 @@ MOE_SHARDED_LAYER_REL_L2 = 9e-3
 MOE_SHARDED_FP32_REL_L2 = 1e-5
 # the world's time limit, ranks' start and every check included
 MOE_SHARDED_TIMEOUT_S = 300
+
+# Dense tensor parallelism (phase tp_qwen2): Qwen2-7B's weights, still held
+# after pipeline_qwen2, in 4 gloo ranks on this card, the whole tree cut
+# by distributed/sharding.py::param_specs over the model axis and placed
+# by train/checkpoint.py::reshard: (1, 4), 7 query heads on 1 kv head of
+# 128, 4736 of d_ff and 38,400 vocabulary rows a rank; (2, 2), 14 on 2,
+# 9472 and 76,800, one row of the batch a rank.  2 x 2048 tokens
+# prefilled through launch/dryrun.py::build_prefill_step, then 16
+# teacher-forced steps through build_decode_step
+TP_MESHES = (("tp_1x4", (1, 4)), ("tp_2x2", (2, 2)))
+TP_BATCH, TP_PROMPT, TP_DECODE_STEPS = 2, 2048, 16
+# the limits of moe_sharded, fixed here before any reading: the last-token
+# logits at prefill and at each step against the one-process bf16 run,
+# each layer alone on the one process's input to it against its output
+TP_REL_L2 = MOE_SHARDED_REL_L2
+TP_LAYER_REL_L2 = MOE_SHARDED_LAYER_REL_L2
+# the first TP_FP32_GROUPS groups (with the embedding, the final norm and
+# the head) in fp32 on (1, 4): the ranks' prefill logits against one
+# process's
+TP_FP32_GROUPS = 2
+TP_FP32_REL_L2 = MOE_SHARDED_FP32_REL_L2
+# the world's time limit, ranks' start and every check included
+TP_TIMEOUT_S = 300
 
 # The encoder-decoder (phases encdec_kernels, encdec_serve,
 # encdec_decode): full-width seamless-m4t-medium, uncut (12 encoder and
@@ -2764,6 +2797,472 @@ def phase_pipeline_qwen2(cfg, params) -> None:
                                f"{'; '.join(failed)}")
 
 
+#: how long a thread of ``tp_as_ranks`` waits for its peers at a sum
+AS_RANKS_TIMEOUT_S = 300
+
+
+def tp_as_ranks(target, shape, *args) -> list:
+    """``target(mesh, *args)`` for every rank of a (data, model) mesh of
+    ``shape``, each rank a thread of this one process under
+    ``torch.inference_mode()``; their returns in rank order.  A thread's
+    ``mesh`` answers ``axis_index`` with its rank's coordinates, so
+    ``reshard`` and the model cut and compute that rank's blocks, and the
+    port's ``collectives.ring_all_gather`` (hence ``psum``) and
+    ``broadcast`` over such a mesh hand the ranks' tensors over in memory,
+    in group-rank order.  One process computing each rank's partial
+    products from its own blocks and summing them with the ranks' own
+    fp32-once function: a yardstick for a world of ranks that carries
+    their rounding without their processes, pinned copies or sockets (as
+    ``moe_as_ranks`` is for the MoE layer alone)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import Mesh
+
+    names = ("data", "model")
+    grid = np.arange(math.prod(shape)).reshape(shape)
+    lines = {}                      # (axis, rank) -> the ranks of its group
+    for a, axis in enumerate(names):
+        for line in np.moveaxis(grid, a, -1).reshape(-1, shape[a]):
+            for r in line:
+                lines[(axis, int(r))] = tuple(int(x) for x in line)
+    barriers = {line: threading.Barrier(len(line), timeout=AS_RANKS_TIMEOUT_S)
+                for line in set(lines.values())}
+    board = {}
+
+    class RankMesh(Mesh):
+        def __init__(self, rank):
+            super().__init__(shape, names)
+            self.rank = rank
+
+        def axis_index(self, axis_name, rank=None):
+            return super().axis_index(axis_name,
+                                      self.rank if rank is None else rank)
+
+        def group(self, axis_name):
+            return lines[(axis_name, self.rank)]
+
+    def exchange(x, axis_name, mesh):
+        line = mesh.group(axis_name)
+        board[(line, mesh.rank)] = x
+        barriers[line].wait()
+        parts = [board[(line, r)] for r in line]
+        barriers[line].wait()
+        return parts
+
+    plain_gather, plain_broadcast = coll.ring_all_gather, coll.broadcast
+
+    def gather(x, axis_name=None, *, mesh=None, group=None, stats=None):
+        if isinstance(mesh, RankMesh):
+            return torch.cat(exchange(x, axis_name, mesh))
+        return plain_gather(x, axis_name, mesh=mesh, group=group,
+                            stats=stats)
+
+    def broadcast(x, axis_name=None, *, mesh=None, group=None, stats=None):
+        if isinstance(mesh, RankMesh):
+            return exchange(x, axis_name, mesh)[0].clone()
+        return plain_broadcast(x, axis_name, mesh=mesh, group=group,
+                               stats=stats)
+
+    results, errors = [None] * grid.size, []
+
+    def run(rank):
+        try:
+            with torch.inference_mode():
+                results[rank] = target(RankMesh(rank), *args)
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+            for b in barriers.values():
+                b.abort()
+
+    coll.ring_all_gather, coll.broadcast = gather, broadcast
+    try:
+        threads = [threading.Thread(target=run, args=(r,))
+                   for r in range(grid.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        coll.ring_all_gather, coll.broadcast = plain_gather, plain_broadcast
+    if errors:
+        raise next((e for e in errors
+                    if not isinstance(e, threading.BrokenBarrierError)),
+                   errors[0])
+    return results
+
+
+def tp_serve(mesh, cfg, own, tokens, counted: bool = True):
+    """``tokens``' rows of one rank of ``mesh`` (``None``: one device)
+    through the step builders of ``launch/dryrun.py`` on ``own``: prefill
+    of TP_PROMPT tokens, the cache grown by TP_DECODE_STEPS rows, then as
+    many teacher-forced decode steps.  Returns (each call's logits on the
+    host, stacked; the cache; a record of the host seconds of each call
+    and, with ``counted``, each part's launches and the hops of its sums
+    and gathers, counted from 0 just before the prefill, which the
+    world's ranks enter together)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tr
+
+    toks = (tokens if mesh is None
+            else shd.local_shard(tokens, shd.P(("data",), None), mesh))
+    prefill, _ = dryrun.build_prefill_step(cfg, mesh)
+    decode, _ = dryrun.build_decode_step(cfg, mesh)
+    sums, gathers = coll.HopStats(), coll.HopStats()
+    record = {}
+    with (counted_collectives(sums, gathers) if counted
+          else contextlib.nullcontext()):
+        if counted:
+            dist.barrier()
+            reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(own, {"tokens": toks[:, :TP_PROMPT]})
+        torch.cuda.synchronize()
+        record["prefill_seconds"] = time.perf_counter() - t0
+        if counted:
+            record.update(prefill_launches=launch_counts(),
+                          prefill_psum=dataclasses.asdict(sums),
+                          prefill_gather=dataclasses.asdict(gathers))
+        out = [logits]
+        cache = tr.pad_kv_caches(cache, TP_PROMPT + TP_DECODE_STEPS)
+        record["step_seconds"] = []
+        for t in range(TP_PROMPT, TP_PROMPT + TP_DECODE_STEPS):
+            t0 = time.perf_counter()
+            logits, cache = decode(own, toks[:, t:t + 1], cache, t)
+            torch.cuda.synchronize()
+            record["step_seconds"].append(time.perf_counter() - t0)
+            out.append(logits)
+    if counted:
+        record.update(
+            decode_launches=launches_since(record["prefill_launches"]),
+            psum=dataclasses.asdict(sums), gather=dataclasses.asdict(gathers))
+    return torch.stack(out).cpu(), cache, record
+
+
+def tp_decode_check(gen, B: int, Hq: int, Hkv: int, D: int) -> dict:
+    """Decode attention at a rank's cache shape (B rows of TP_PROMPT +
+    TP_DECODE_STEPS keys, Hq query heads on Hkv, bf16, every key valid)
+    held to its plain version within FLASH_TOL[bf16], then timed
+    (``time_decode``); the launches are a comparison's."""
+    from repro_torch.kernels import decode_attention as dec
+    Skv = TP_PROMPT + TP_DECODE_STEPS
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, Skv, Hkv, D), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    lens = torch.full((B,), Skv, dtype=torch.int32, device="cuda")
+    o = dec.decode_attention(q, k, v, lens)
+    want = dec.decode_attention_ref(q, k, v, lens)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    err = float((o.float() - want.float()).abs().max())
+    if not (_within(o, want, atol, rtol) and bool(torch.isfinite(o).all())):
+        raise RuntimeError(f"decode_attention at {[B, Skv, Hq, Hkv, D]} "
+                           f"bf16 disagrees with its plain version: "
+                           f"max|d|={err}")
+    return {"shape": [B, Skv, Hq, Hkv, D], "dtype": "bfloat16",
+            "max_abs_err": err, "atol": atol, "rtol": rtol,
+            **time_decode(q, k, v, lens)}
+
+
+def _spans(marks: dict) -> dict:
+    """Seconds between consecutive ``time.perf_counter`` marks, by the
+    later mark's name (a dict keeps its insertion order)."""
+    names, times = list(marks), list(marks.values())
+    return {names[i]: times[i] - times[i - 1] for i in range(1, len(names))}
+
+
+def _tp_rank(rank, world_size, cfg, params, tokens, io, params32, cfg32):
+    """One rank of ``tp_qwen2``: for each mesh of TP_MESHES, its blocks cut
+    out of the parent's memory (CUDA IPC mappings of the whole tree) by
+    ``reshard``, prefill and decode through the step builders
+    (``tp_serve``), then each layer alone on the one-process forward's
+    input to it (``io``: every layer's input and the last output) and, on
+    the first mesh, the fp32 prefill of ``params32``.  Returns what it
+    measured (host values); the parent checks.  The rank computes only
+    from its own blocks, freed before the next mesh's."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import checkpoint
+
+    torch.cuda.set_device(0)
+    kernels = ops.kernel_registry()
+    positions = torch.arange(TP_PROMPT, device="cuda")
+    out = {"rank": rank, "meshes": {}}
+    with torch.inference_mode():
+        for name, shape in TP_MESHES:
+            marks = {"start": time.perf_counter()}
+            mesh = Mesh(shape, ("data", "model"))
+            ctx = shd.make_ctx(mesh)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            own = checkpoint.reshard(params, shd.named(
+                mesh, shd.param_specs(params, cfg, mesh)), device="cuda")
+            torch.cuda.synchronize()
+            marks["blocks"] = time.perf_counter()
+            # the axis's process groups, and the first collective's one-time
+            # costs (torch.distributed's lazy imports: ~4 s of CPU), before
+            # the timed path
+            coll.psum(torch.zeros(1, device="cuda"), "model", mesh=mesh)
+            marks["warm_up"] = time.perf_counter()
+            logits, cache, r = tp_serve(mesh, cfg, own, tokens)
+            marks["serve"] = time.perf_counter()
+            d = mesh.axis_index("data")
+            rows = slice(d * (TP_BATCH // shape[0]),
+                         (d + 1) * (TP_BATCH // shape[0]))
+            r.update(data_index=d, model_index=mesh.axis_index("model"),
+                     blocks_bytes=_nbytes(own), cache_bytes=_nbytes(cache),
+                     cache_checksum=tree_checksum(cache), logits=logits,
+                     finite=bool(torch.isfinite(
+                         logits[..., :cfg.vocab_size].float()).all()))
+            del cache
+            r["layer_rel_l2"] = []
+            for g in range(cfg.num_groups()):
+                y = tr.run_layer_range(own, io[g, rows], cfg, ctx,
+                                       start_group=g, stop_group=g + 1,
+                                       positions=positions, kernels=kernels)
+                ref = io[g + 1, rows].float()
+                r["layer_rel_l2"].append(float((y.float() - ref).norm()
+                                               / ref.norm()))
+                del y, ref
+            torch.cuda.synchronize()
+            marks["layers"] = time.perf_counter()
+            r["peak_memory_allocated_bytes"] = (
+                torch.cuda.max_memory_allocated())
+            del own
+            if name == TP_MESHES[0][0]:
+                own32 = checkpoint.reshard(params32, shd.named(
+                    mesh, shd.param_specs(params32, cfg32, mesh)),
+                    device="cuda")
+                prefill32, _ = dryrun.build_prefill_step(cfg32, mesh)
+                toks = shd.local_shard(tokens, shd.P(("data",), None), mesh)
+                r["fp32_logits"] = prefill32(
+                    own32, {"tokens": toks[:, :TP_PROMPT]})[0].cpu()
+                del own32
+                marks["fp32"] = time.perf_counter()
+            r["seconds"] = _spans(marks)
+            out["meshes"][name] = r
+    return out
+
+
+def phase_tp_qwen2(cfg, params) -> None:
+    """Qwen2-7B under dense tensor parallelism in 4 gloo ranks on this
+    card, on (1, 4) and (2, 2) (``models/transformer.py``, each rank on its
+    ``param_specs`` blocks; flash and decode attention first held to their
+    plain versions at the ranks' shapes).  Each rank's logits at prefill
+    and every decode step are held to the one-process bf16 run's (relative
+    L2), each layer alone to the one process's (fed its input), every
+    rank's logits and cache to ``tp_as_ranks`` (one process computing as
+    the ranks do) to the bit, a data shard's model ranks to each other,
+    the fp32 first groups to one process's; the launches and the sums'
+    and gathers' hops to what the path makes, each rank's memory to its
+    blocks and cache, and every block sent to the ranks freed once they
+    are gone.  One card time-shares the ranks: no speed-up is claimed."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.world import run_world
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import checkpoint
+
+    mode = tool_output(["nvidia-smi", "--query-gpu=compute_mode",
+                        "--format=csv,noheader"]).splitlines()[0].strip()
+    if mode != "Default":
+        raise RuntimeError(f"compute mode {mode!r}: 4 ranks cannot share "
+                           f"the card (needs 'Default')")
+    marks = {"start": time.perf_counter()}
+    G, V, Vp, d = (cfg.num_groups(), cfg.vocab_size, cfg.padded_vocab(),
+                   cfg.d_model)
+    hd = cfg.resolved_head_dim()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # the kernels at the ranks' shapes, before any count is set to 0
+    kernel_checks = {}
+    for name, (D, M) in TP_MESHES:
+        b, hq, hkv = (TP_BATCH // D, cfg.num_heads // M,
+                      cfg.num_kv_heads // M)
+        kernel_checks[name] = {
+            "flash_attention": flash_layout_check(
+                gen, (b, TP_PROMPT, TP_PROMPT, hq, hkv, hd, True, 0),
+                f"{name} rank"),
+            "decode_attention": tp_decode_check(gen, b, hq, hkv, hd)}
+    marks["kernel_checks"] = time.perf_counter()
+    kernels = ops.kernel_registry()
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, V, (TP_BATCH, TP_PROMPT + TP_DECODE_STEPS)).astype(
+            np.int32)).cuda()
+    positions = torch.arange(TP_PROMPT, device="cuda")
+    # the one process, bf16: each layer's input and the last output, then
+    # prefill and decode through the step builders without a mesh
+    xs = [tr.embed_tokens(params, tokens[:, :TP_PROMPT], cfg)]
+    for g in range(G):
+        xs.append(tr.run_layer_range(params, xs[-1], cfg, None, start_group=g,
+                                     stop_group=g + 1, positions=positions,
+                                     kernels=kernels))
+    io = torch.stack(xs)
+    del xs
+    one_logits, cache, one = tp_serve(None, cfg, params, tokens,
+                                      counted=False)
+    del cache
+    marks["one_process"] = time.perf_counter()
+    # the same, each rank a thread of this process on its own blocks
+    as_ranks = {}
+    for name, shape in TP_MESHES:
+        def rank_serve(mesh):
+            own = checkpoint.reshard(params, shd.named(
+                mesh, shd.param_specs(params, cfg, mesh)), device="cuda")
+            logits, cache, _ = tp_serve(mesh, cfg, own, tokens,
+                                        counted=False)
+            return logits, tree_checksum(cache)
+        as_ranks[name] = tp_as_ranks(rank_serve, shape)
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks[f"as_ranks_{name}"] = time.perf_counter()
+    # the first groups in fp32, and one process's prefill of them
+    cfg32 = dataclasses.replace(
+        cfg, num_layers=TP_FP32_GROUPS * len(cfg.block_pattern),
+        param_dtype="float32")
+    # copies, the leaves already in fp32 too (the ranks map this tree)
+    params32 = _tree_map(lambda t: t.to(torch.float32, copy=True), {
+        **params, "blocks": _tree_map(lambda t: t[:TP_FP32_GROUPS],
+                                      params["blocks"])})
+    want32 = tr.prefill(params32, {"tokens": tokens[:, :TP_PROMPT]},
+                        cfg32)[0].cpu()
+    marks["fp32"] = time.perf_counter()
+    # each mesh's blocks, by arithmetic on the specs (rank 0's views)
+    blocks = {}
+    for name, shape in TP_MESHES:
+        mesh = Mesh(shape, ("data", "model"))
+        blocks[name] = sum(
+            shd.local_shard(t, s, mesh, rank=0).numel() * t.element_size()
+            for t, s in zip(_leaves(params), _leaves(
+                shd.param_specs(params, cfg, mesh))))
+    # what the ranks map (the parameters apart, freed by main)
+    sent = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in (tokens, io, *_leaves(params32))}
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+
+    marks["sent"] = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        ranks = run_world(_tp_rank, 4,
+                          (cfg, params, tokens, io, params32, cfg32),
+                          workdir=workdir, timeout=TP_TIMEOUT_S)
+    marks["world"] = time.perf_counter()
+    del tokens, io, params32
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.synchronize()
+    freed = allocated_before - torch.cuda.memory_allocated()
+    # each block sent, by its address: the caching allocator's own record
+    # (the total allocated moves with anything else the process holds)
+    held = {b["address"] for seg in torch.cuda.memory_snapshot()
+            for b in seg["blocks"] if b["state"] != "inactive"}
+    kept = {ptr: n for ptr, n in sent.items() if ptr in held}
+
+    failed, meshes = [], {}
+    if kept:
+        failed.append(f"blocks of {sorted(kept.values())} B sent to the ranks "
+                      f"still allocated after the world: a rank kept a "
+                      f"block it mapped")
+    n_sums = 2 * G + 1      # attention and MLP each layer, the lookup
+    for name, (D, M) in TP_MESHES:
+        rs = [r["meshes"][name] for r in ranks]
+        rows = TP_BATCH // D
+        # each sum: the rank's bf16 partial sent to the M - 1 others
+        sum_hop = {"prefill": rows * TP_PROMPT * d * 2, "decode": rows * d * 2}
+        gather_hop = rows * (Vp // M) * 2
+        want_hops = {
+            "prefill_psum": (n_sums * (M - 1),
+                             n_sums * (M - 1) * sum_hop["prefill"]),
+            "prefill_gather": (M - 1, (M - 1) * gather_hop),
+            "psum": (n_sums * (M - 1) * (1 + TP_DECODE_STEPS),
+                     n_sums * (M - 1) * (sum_hop["prefill"]
+                                         + TP_DECODE_STEPS
+                                         * sum_hop["decode"])),
+            "gather": ((M - 1) * (1 + TP_DECODE_STEPS),
+                       (M - 1) * (1 + TP_DECODE_STEPS) * gather_hop)}
+        for i, r in enumerate(rs):
+            dd = r["data_index"]
+            ref = one_logits[:, dd * rows:(dd + 1) * rows]
+            r["rel_l2"] = [_rel_l2(r["logits"][t], ref[t], V)
+                           for t in range(1 + TP_DECODE_STEPS)]
+            first = next(s for s in rs if s["data_index"] == dd)
+            emulated_logits, emulated_cache = as_ranks[name][i]
+            checks = [
+                ("non-finite logits", r["finite"]),
+                ("logits not bit-equal to the one process computing as the "
+                 "ranks", torch.equal(r["logits"], emulated_logits)),
+                ("cache not bit-equal to the one process computing as the "
+                 "ranks", r["cache_checksum"] == emulated_cache),
+                ("logits not bit-equal to the data shard's first rank's",
+                 torch.equal(r["logits"], first["logits"])),
+                (f"rel L2 {max(r['rel_l2'])} > {TP_REL_L2}",
+                 max(r["rel_l2"]) <= TP_REL_L2),
+                (f"a layer's rel L2 {max(r['layer_rel_l2'])} > "
+                 f"{TP_LAYER_REL_L2}",
+                 max(r["layer_rel_l2"]) <= TP_LAYER_REL_L2),
+                (f"prefill launched {r['prefill_launches']}",
+                 r["prefill_launches"] == _prefill_launches(cfg)),
+                (f"decode launched {r['decode_launches']}",
+                 r["decode_launches"]
+                 == _decode_step_launches(cfg, TP_DECODE_STEPS)),
+                (f"blocks of {r['blocks_bytes']} B, not {blocks[name]}",
+                 r["blocks_bytes"] == blocks[name]),
+                (f"peak {r['peak_memory_allocated_bytes']} B over its "
+                 f"blocks, cache and {PIPE_RANK_MARGIN_BYTES}",
+                 r["peak_memory_allocated_bytes"] < blocks[name]
+                 + r["cache_bytes"] + PIPE_RANK_MARGIN_BYTES)]
+            checks += [(f"{key} {r[key]}, not (hops, bytes) {want}",
+                        (r[key]["hops"], r[key]["bytes"]) == want)
+                       for key, want in want_hops.items()]
+            if "fp32_logits" in r:
+                r["fp32_rel_l2"] = _rel_l2(
+                    r["fp32_logits"], want32[dd * rows:(dd + 1) * rows], V)
+                checks.append((f"fp32 rel L2 {r['fp32_rel_l2']} > "
+                               f"{TP_FP32_REL_L2}",
+                               r["fp32_rel_l2"] <= TP_FP32_REL_L2))
+            failed += [f"{name}, rank {i}: {what}"
+                       for what, ok in checks if not ok]
+
+        def rate(r, key):
+            return r[key]["bytes"] / max(r[key]["transfer_seconds"]
+                                         + r[key]["host_copy_seconds"], 1e-9)
+        meshes[name] = {
+            "mesh": [D, M], "blocks_bytes": blocks[name],
+            "rel_l2_max": max(max(r["rel_l2"]) for r in rs),
+            "layer_rel_l2_max": max(max(r["layer_rel_l2"]) for r in rs),
+            "fp32_rel_l2": [r.get("fp32_rel_l2") for r in rs],
+            "prefill_seconds": [r["prefill_seconds"] for r in rs],
+            "step_seconds_median": [statistics.median(r["step_seconds"])
+                                    for r in rs],
+            "psum_gb_per_s": [rate(r, "psum") / 1e9 for r in rs],
+            "expected_hops": want_hops,
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("logits", "fp32_logits", "step_seconds")}
+                      for r in rs]}
+    emit("tp_qwen2", config=cfg.name, batch=TP_BATCH, prompt=TP_PROMPT,
+         decode_steps=TP_DECODE_STEPS, groups=G, backend="gloo",
+         compute_mode=mode, kernel_checks=kernel_checks,
+         one_process={"prefill_seconds": one["prefill_seconds"],
+                      "step_seconds_median": statistics.median(
+                          one["step_seconds"])},
+         limit_rel_l2=TP_REL_L2, limit_layer_rel_l2=TP_LAYER_REL_L2,
+         limit_fp32_rel_l2=TP_FP32_REL_L2, model_bytes=_nbytes(params),
+         rank_margin_bytes=PIPE_RANK_MARGIN_BYTES,
+         world_seconds=marks["world"] - marks["sent"],
+         sent_bytes=sum(sent.values()), freed_after_world_bytes=freed,
+         sent_blocks=len(sent), sent_blocks_still_allocated=len(kept),
+         meshes=meshes, failed=failed, spans=_spans(marks),
+         seconds=time.perf_counter() - marks["start"])
+    if failed:
+        raise RuntimeError("tp_qwen2: " + "; ".join(failed))
+
+
 class record_routing:
     """Within the block, every ``apply_moe`` call first records what its
     router does with the layer's input: ``moe.routing_stats`` (host
@@ -3114,19 +3613,25 @@ class moe_recorder:
 
 
 @contextlib.contextmanager
-def counted_all_reduce(stats):
-    """Within the block, ``collectives.all_reduce`` counts into ``stats``
-    (``HopStats``): the sums over the model axis of ``models/moe.py``."""
+def counted_collectives(sums, gathers=None):
+    """Within the block, ``collectives.psum`` (the sums over the model
+    axis of ``models/moe.py`` and ``models/transformer.py``) counts its
+    ring hops into ``sums``, and every other ``ring_all_gather`` (the
+    logits' gather over the vocabulary) into ``gathers`` (``HopStats``)."""
     from repro_torch.distributed import collectives as coll
-    plain = coll.all_reduce
+    plain_sum, plain_gather = coll.psum, coll.ring_all_gather
 
-    def counted(*args, **kwargs):
-        return plain(*args, stats=stats, **kwargs)
-    coll.all_reduce = counted
+    def counted_sum(*args, **kwargs):
+        return plain_sum(*args, stats=sums, **kwargs)
+
+    def counted_gather(*args, stats=None, **kwargs):
+        return plain_gather(*args, stats=gathers if stats is None else stats,
+                            **kwargs)
+    coll.psum, coll.ring_all_gather = counted_sum, counted_gather
     try:
         yield
     finally:
-        coll.all_reduce = plain
+        coll.psum, coll.ring_all_gather = plain_sum, plain_gather
 
 
 @contextlib.contextmanager
@@ -3231,7 +3736,7 @@ def _moe_sharded_rank(rank, world_size, cfg, params, tokens, layer_io, ids,
                 y, cold_s = timed(forward)
             flash = fa.launch_count
             stats = coll.HopStats()
-            with counted_all_reduce(stats):
+            with counted_collectives(stats):
                 warm, warm_s = timed(forward)
             d = mesh.axis_index("data")
             io = layer_io[name][d]
@@ -3249,7 +3754,7 @@ def _moe_sharded_rank(rank, world_size, cfg, params, tokens, layer_io, ids,
                  "finite": bool(torch.isfinite(y).all()),
                  "rel_l2": float(diff.norm() / ref.norm()),
                  "max_abs_err": float(diff.abs().max()),
-                 "all_reduce": dataclasses.asdict(stats),
+                 "psum": dataclasses.asdict(stats),
                  "keep0": np.packbits(rec.keeps[0].numpy()),
                  "local_aux": rec.local_aux, "aux": rec.aux}
             del y, warm, diff, ref
@@ -3432,7 +3937,9 @@ def moe_sharded(cfg, params, token_seed: int) -> list:
         D, M = shape
         rs = [r["meshes"][name] for r in ranks]
         t_local = T // D
-        want_bytes = G * t_local * cfg.d_model * 4
+        # each rank's bf16 partial sent to the M - 1 others around the ring
+        want_hops = G * (M - 1)
+        want_bytes = want_hops * t_local * cfg.d_model * 2
         for i, r in enumerate(rs):
             checks = [
                 ("non-finite output", r["finite"]),
@@ -3448,10 +3955,10 @@ def moe_sharded(cfg, params, token_seed: int) -> list:
                  f"blocks + {PIPE_RANK_MARGIN_BYTES}",
                  r["peak_memory_allocated_bytes"]
                  < blocks[name] + PIPE_RANK_MARGIN_BYTES),
-                (f"summed {r['all_reduce']} over the model axis, not {G} "
-                 f"sums of {want_bytes // G} B",
-                 (r["all_reduce"]["hops"], r["all_reduce"]["bytes"])
-                 == ((G, want_bytes) if M > 1 else (0, 0))),
+                (f"summed {r['psum']} over the model axis, not {G} sums "
+                 f"of {M - 1} hops of {t_local * cfg.d_model * 2} B",
+                 (r["psum"]["hops"], r["psum"]["bytes"])
+                 == (want_hops, want_bytes)),
                 (f"{len(r['aux'])} aux records, not {G}",
                  len(r["aux"]) == len(r["local_aux"]) == G),
                 ("a layer fed the one process's input routed otherwise",
@@ -3498,7 +4005,7 @@ def moe_sharded(cfg, params, token_seed: int) -> list:
             "capacity": moe._capacity(t_local, cfg.moe.top_k,
                                       cfg.moe.num_experts,
                                       cfg.moe.capacity_factor),
-            "all_reduce_bytes_expected": want_bytes if M > 1 else 0,
+            "psum_bytes_expected": want_bytes,
             "one_process_as_ranks_rel_l2": as_ranks_rel_l2[name],
             "rel_l2_max": max(r["rel_l2"] for r in rs),
             "layer_rel_l2_max": max(max(r["layer_rel_l2"]) for r in rs),
@@ -5245,6 +5752,7 @@ def main() -> int:
         qwen2 = qwen2[:2]            # its config and weights, cache freed
         torch.cuda.empty_cache()
         phase_pipeline_qwen2(*qwen2)
+        phase_tp_qwen2(*qwen2)
         del qwen2
         gc.collect()                 # Qwen2-7B's 15 GB of weights
         torch.cuda.ipc_collect()     # once the ranks released them

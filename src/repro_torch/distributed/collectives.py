@@ -11,9 +11,14 @@ psums.
 phases explicitly (what GSPMD does internally for ZeRO); useful when the
 intermediate (scattered) value is what you actually want to keep.
 
-``all_reduce`` is the reference's ``jax.lax.psum`` (the sum that
-combines the Mixture-of-Experts layer's partial outputs), and
-``broadcast`` hands every rank of a group its first rank's tensor.
+``all_reduce`` sums in the tensor's dtype, in whatever order the
+backend takes, and ``broadcast`` hands every rank of a group its first
+rank's tensor.  ``psum`` is the reference's ``jax.lax.psum`` of the
+model's partial results (the tensor-parallel blocks, the vocabulary
+lookup, the Mixture-of-Experts layer): the partials gathered around the
+ring, summed in fp32 in group-rank order and rounded once to their
+dtype (``sum_in_order``), so every rank holds the same bits, and one
+process that adds the ranks' partials in that order holds them too.
 
 The reference resolves an axis name inside ``shard_map``; here a function
 takes the mesh (``launch.mesh.Mesh``) and the axis name, or a process
@@ -209,6 +214,41 @@ def all_reduce(x: torch.Tensor, axis_name: str = None, *, mesh=None,
     w = _travelling_copy(wire, x)
     wire.collective(dist.all_reduce, w)
     return wire.back(w)
+
+
+def sum_in_order(parts, dtype: torch.dtype) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...`` in fp32, left to right, rounded once
+    to ``dtype``."""
+    total = parts[0].float()
+    for part in parts[1:]:
+        total = total + part.float()
+    return total.to(dtype)
+
+
+def psum(x: torch.Tensor, axis_name: str = None, *, mesh=None, group=None,
+         stats: HopStats = None) -> torch.Tensor:
+    """The sum of every rank's partial ``x`` over the group, as the
+    reference's ``jax.lax.psum`` of a partial product: a new tensor of
+    ``x``'s dtype on ``x``'s device, identical on every rank.
+
+    XLA rounds a bf16 psum once: over 4 CPU devices [256, 1, 1, 1] sums
+    to 260, the nearest bf16 to 259.  gloo's bf16 all-reduce rounds after
+    every add (256 or 260, by the ranks' order), and its fp32 one adds in
+    an order of its own.  So the partials travel as they are, by
+    ``ring_all_gather`` (each rank sends its partial N - 1 times: for
+    bf16 partials on 4 ranks, the bytes of a ring all-reduce in fp32),
+    and each rank adds them in fp32 in group-rank order
+    (``sum_in_order``).  There is no backward: autograd
+    through the sum raises (tensor-parallel training is ROADMAP
+    A10.2c-train)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            "no backward through the sum over the model axis: training "
+            "under dense tensor parallelism is ROADMAP A10.2c-train; run "
+            "it under torch.no_grad() or torch.inference_mode()")
+    parts = ring_all_gather(x[None], axis_name, mesh=mesh, group=group,
+                            stats=stats)
+    return sum_in_order(parts.unbind(0), x.dtype)
 
 
 def broadcast(x: torch.Tensor, axis_name: str = None, *, mesh=None,

@@ -34,12 +34,17 @@ Policy summary (the reference's):
   * ZeRO-1: optimizer leaves additionally sharded over the data axes on
     the first free divisible dimension.
 
-Of the model, only the Mixture-of-Experts layer computes on blocks cut by
-these rules so far (``models/moe.py``); see ``moe_only_specs``.
+Prefill and decode compute on a tree cut wholly by these rules over a
+model axis when every block is self-attention (``models/transformer.py``:
+attention by heads, the dense MLP by ``d_ff``, the vocabulary; a MoE
+layer in ``models/moe.py``'s modes); ``local_shapes`` gives a rank's leaf
+shapes, against which the model checks the tree it is handed.  Recurrent
+and cross-attention blocks compute only whole (ROADMAP A10.2c-rec).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Any, Optional, Tuple
@@ -204,6 +209,46 @@ def param_specs(params, cfg, mesh: Mesh, model_axis: str = "model"):
                                       model_axis), params)
 
 
+def local_shape(shape: Tuple[int, ...], spec: P, mesh: Mesh) -> tuple:
+    """The shape of one rank's block of a leaf of ``shape`` under
+    ``spec`` (``local_shard``'s, without a tensor); raises where an
+    entry's axes do not divide its dimension."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        n = math.prod(mesh.shape[a] for a in axes)
+        if out[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(shape)} does not "
+                             f"split over {axes} ({n} blocks)")
+        out[dim] //= n
+    return tuple(out)
+
+
+def local_shapes(cfg, mesh: Mesh, model_axis: str = "model"):
+    """{``keystr`` path: shape} of every parameter leaf of ``cfg``'s tree
+    on one rank of ``mesh`` under ``param_specs`` (every rank's block has
+    the same shape).  Computed once for a config and a mesh shape, on the
+    ``meta`` device (nothing is drawn); the dict is shared, not to be
+    written."""
+    return _local_shapes(cfg, tuple(mesh.shape.items()), model_axis)
+
+
+@functools.lru_cache(maxsize=None)
+def _local_shapes(cfg, axes, model_axis):
+    # the model imports this module: import it here, at the first call
+    from repro_torch.models import transformer
+    mesh = Mesh([n for _, n in axes], [a for a, _ in axes])
+    tree = transformer.init_params(cfg, torch.Generator(), "meta")
+    out = {}
+    for path, leaf in tree_leaves_with_path(tree):
+        key, shape = keystr(path), tuple(leaf.shape)
+        out[key] = local_shape(shape, param_spec(key, shape, cfg, mesh,
+                                                 model_axis), mesh)
+    return out
+
+
 # --------------------------------------------------------------------------
 # ZeRO-1 optimizer-state specs
 # --------------------------------------------------------------------------
@@ -304,15 +349,11 @@ def named(mesh: Mesh, spec_tree):
 
 def moe_only_specs(params, cfg, mesh: Mesh, model_axis: str = "model"):
     """``param_specs`` with every leaf outside a Mixture-of-Experts layer
-    left whole (all ``None``).
-
-    It exists because the port's model runs eagerly in each rank and only
-    its MoE layer computes on blocks (``models/moe.py``: ``tp`` and ``ep``
-    over the model axis).  Attention and the dense MLP compute with whole
-    weights: the reference gets dense tensor parallelism from GSPMD, which
-    the port has not written yet (ROADMAP A10.2c).  A tree cut wholly by
-    ``param_specs`` would hand attention a slice of its heads, which
-    ``apply_attn_block_seq`` refuses."""
+    left whole (all ``None``): each rank computes attention and the
+    embeddings with whole weights (no sum over the model axis) and only
+    its MoE layer on its block (``models/moe.py``'s ``tp`` and ``ep``).
+    A tree cut wholly by ``param_specs`` runs too, attention then cut by
+    heads (``models/transformer.py``'s dense tensor parallelism)."""
     specs = param_specs(params, cfg, mesh, model_axis)
     return tree_map_with_path(
         lambda path, s: s if "['moe']" in path else P(*([None] * len(s))),

@@ -26,6 +26,11 @@ What is counted (``components`` of a record):
     of the loss, the KV cache or state at decode, AdamW's state at train.
   * collective bytes: 0 -- the port runs on one device (ROADMAP A10).
 
+``build_prefill_step`` and ``build_decode_step`` are the reference's
+step builders, as eager functions: over a mesh of ``torch.distributed``
+ranks each rank calls them on its ``param_specs`` blocks and its rows
+(dense tensor parallelism, ``models/transformer.py``).
+
 Usage (no GPU needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun                 # all cells
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b --cell train_4k
@@ -43,6 +48,7 @@ import torch
 from repro_torch.configs import (ARCH_IDS, SHAPE_CELLS, ShapeCell,
                                  cell_by_name, get_config)
 from repro_torch.convert import tree_leaves
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.flash_attention import BWD_CHUNK
 from repro_torch.models import transformer as tr
 from repro_torch.models.common import pdtype
@@ -193,6 +199,36 @@ def bwd_tile_pairs(Sq: int, Skv: int, *, causal: bool, window: int,
                 continue
             total += (q1 - q0) * (k1 - k0)
     return total
+
+
+# --------------------------------------------------------------------------
+# Step builders (the reference's names and returns)
+# --------------------------------------------------------------------------
+def build_prefill_step(cfg, mesh):
+    """``(prefill_step, ctx)``: ``prefill_step(params, batch)`` returns
+    ``transformer.prefill``'s (last-token logits, cache) under ``mesh``
+    (``None``: one device).  Over a model axis above 1, ``params`` are
+    this rank's ``param_specs`` blocks and ``batch`` its ``batch_specs``
+    rows; the logits come back whole."""
+    ctx = shd.make_ctx(mesh)
+
+    def prefill_step(params, batch):
+        return tr.prefill(params, batch, cfg, ctx)
+
+    return prefill_step, ctx
+
+
+def build_decode_step(cfg, mesh):
+    """``(decode, ctx)``: ``decode(params, token, cache, position)`` is
+    ``transformer.decode_step`` under ``mesh``; the cache is this rank's
+    (its rows, and its kv heads where they divide the model axis),
+    updated in place."""
+    ctx = shd.make_ctx(mesh)
+
+    def decode(params, token, cache, position):
+        return tr.decode_step(params, token, cache, position, cfg, ctx)
+
+    return decode, ctx
 
 
 def _block_leaves(params):

@@ -16,7 +16,7 @@ the one visible card).  Each rank takes its rows of the global batch,
 the gradients are summed over the ranks in fp32, and the optimizer state
 is cut by ZeRO-1 (`train/train_loop.py`).  The lines printed are rank
 0's history, the summary ending `on mesh {'data': N, 'model': 1}`.
-`--model-parallel` above 1 (dense tensor parallelism, ROADMAP A10.2c)
+`--model-parallel` above 1 (tensor-parallel training, ROADMAP A10.2c-train)
 and a Mixture-of-Experts model over a data mesh (ROADMAP A10.2b-moe)
 raise before any rank starts.
 """
@@ -74,8 +74,9 @@ def main(argv: Optional[Sequence[str]] = None, *,
     mesh = {"data": args.data_parallel, "model": args.model_parallel}
     if args.model_parallel > 1:
         raise NotImplementedError(
-            f"mesh {mesh}: a model axis above 1 needs dense tensor "
-            "parallelism, which is not ported (ROADMAP A10.2c)")
+            f"mesh {mesh}: training over a model axis above 1 needs the "
+            "backward of dense tensor parallelism, which is not ported "
+            "(ROADMAP A10.2c-train)")
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
     if args.data_parallel > 1 and cfg.moe is not None:
         raise NotImplementedError(

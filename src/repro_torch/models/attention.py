@@ -41,6 +41,25 @@ def _mask(q_pos, kv_pos, *, causal: bool, window: int, kv_valid=None):
     return m
 
 
+def kv_heads_for(k, v, q_first: int, n_q: int, group: int):
+    """The kv heads that the global query heads ``[q_first, q_first +
+    n_q)`` read, laid out for those ``n_q`` heads alone: GQA pairs query
+    head ``h`` with kv head ``h // group``, and every path here (the
+    kernels included) pairs local query head ``j`` with kv head ``j //
+    (n_q / n_kv)`` of what it is given.  Where the heads' kv heads are
+    each read by an equal, consecutive run of them, that run of ``k`` and
+    ``v``'s head axis (axis 2) is returned as views; where they straddle
+    groups unevenly (6 query heads on 3 kv heads, 3 of them a rank: kv
+    heads 0, 0, 1 and 1, 2, 2), one kv head a query head, copied."""
+    owner = [(q_first + j) // group for j in range(n_q)]
+    n_kv = owner[-1] - owner[0] + 1
+    if n_q % n_kv == 0 and owner == [owner[0] + j // (n_q // n_kv)
+                                     for j in range(n_q)]:
+        return k.narrow(2, owner[0], n_kv), v.narrow(2, owner[0], n_kv)
+    index = torch.tensor(owner, device=k.device)
+    return k.index_select(2, index), v.index_select(2, index)
+
+
 def _gqa_scores(q, k):
     """q (B,Sq,Hkv,G,D) x k (B,Skv,Hkv,D) -> (B,Hkv,G,Sq,Skv) in fp32."""
     return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())

@@ -16,8 +16,9 @@ tokens, in the reference's two modes:
 
 In both the only collective is one sum of the (tokens, d_model) output
 over the model axis, the reference's ``psum``
-(``distributed/collectives.py::all_reduce``), in fp32 and rounded once
-to the output's dtype, as XLA rounds a bf16 psum (``_psum``).  As in the
+(``distributed/collectives.py::psum``, the sum the dense blocks use too:
+fp32 in rank order, rounded once to the output's dtype, as XLA rounds a
+bf16 psum).  As in the
 reference, the capacity is counted from the rank's own tokens (a data
 shard's, not the whole batch's), and every rank returns data shard 0's
 aux losses (its ``out_specs`` ``P()`` with ``check_vma=False``).  There
@@ -214,15 +215,9 @@ def _check_sharded(p, x, cfg, ctx: ShardCtx) -> None:
 
 
 def _psum(y, ctx: ShardCtx):
-    """The reference's ``psum`` of the layer's output over the model axis.
-    XLA rounds a bf16 psum once: over 4 CPU devices [256, 1, 1, 1] sums to
-    260, the nearest bf16 to 259.  gloo's bf16 all-reduce rounds after
-    every add (256 or 260, by the ranks' order), up to 4 bf16 ulps from
-    the reference's when tp's partial sums cancel.  So the sum runs in
-    fp32 and is rounded to ``y``'s dtype once; it moves twice the bytes
-    of a bf16 sum."""
-    return collectives.all_reduce(y.float(), ctx.model_axis,
-                                  mesh=ctx.mesh).to(y.dtype)
+    """The reference's ``psum`` of the layer's output over the model axis
+    (``collectives.psum``)."""
+    return collectives.psum(y, ctx.model_axis, mesh=ctx.mesh)
 
 
 def apply_moe(p, x, cfg, ctx: ShardCtx = LOCAL_CTX):

@@ -31,6 +31,16 @@ On a CUDA tensor that branch runs the flash kernel at prefill
 static ``cache["enc_kv"]`` at decode; the reference computes both with
 its einsum attention.
 
+Over a mesh of ``torch.distributed`` ranks (a ``ShardCtx`` whose model
+axis is above 1), prefill and decode run the reference's dense tensor
+parallelism, which it gets from GSPMD, written out: each rank holds its
+blocks of a tree cut by ``distributed/sharding.py::param_specs``
+(self-attention by heads, the dense MLP by ``d_ff``, the vocabulary by
+rows and columns), sums each block's partial outputs over the axis
+(``collectives.psum``), and gathers the logits whole.  Recurrent and
+cross-attention blocks and encoders run whole only (ROADMAP A10.2c-rec);
+training under it raises (A10.2c-train).
+
 Ported so far: attention (self- and cross-attention), RG-LRU and SSD
 (Mamba-2) blocks, dense MLPs and Mixture-of-Experts FFNs
 (``models/moe.py``, on one device and in its ``tp`` / ``ep`` modes over
@@ -49,6 +59,7 @@ import torch.utils.checkpoint
 
 from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.convert import keystr, tree_leaves_with_path, tree_map
+from repro_torch.distributed import collectives, sharding
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -69,10 +80,15 @@ Params = Dict[str, Any]
 
 
 def _tree_stack(trees: List[Any]) -> Any:
-    """Stack the leaves of same-shaped trees along a new leading dim."""
+    """Stack the leaves of same-shaped trees along a new leading dim.
+    Leaves on the ``meta`` device (shapes only) get an empty stack: the
+    first ``torch.stack`` of meta tensors in a process imports ~800
+    modules (2-4 s), which a rank's first prefill would pay."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _tree_stack([t[k] for t in trees]) for k in first}
+    if first.is_meta:
+        return first.new_empty((len(trees),) + tuple(first.shape))
     return torch.stack(trees)
 
 
@@ -231,75 +247,192 @@ def _block_shapes(kind: str, cfg, cross: bool) -> Dict[str, tuple]:
             for path, t in tree_leaves_with_path(tree)}
 
 
-def _refuse_dense_shards(kind, p, cfg, ctx) -> None:
-    """Every block but its Mixture-of-Experts layer computes with whole
-    weights whatever the mesh: attention, the dense MLP, the RG-LRU and
-    the SSD ignore ``ctx``, and the reference's dense tensor parallelism
-    comes from GSPMD, which the port has not written (ROADMAP A10.2c).
-    Under a model axis above 1, a block whose leaves outside ``['moe']``
-    are not the config's whole shapes (a slice cut by
-    ``distributed/sharding.py::param_specs``) would give wrong answers
-    without a word, so it raises; ``sharding.moe_only_specs`` cuts only
-    the MoE layer."""
-    if ctx is None or ctx.mesh is None or ctx.model_size == 1:
-        return
-    want = _block_shapes(kind, cfg, "xwq" in p)
-    for path, t in tree_leaves_with_path(p):
-        key = keystr(path)
-        if not key.startswith("['moe']") and tuple(t.shape) != want.get(key):
-            raise NotImplementedError(
-                f"{kind} block leaf {key} of shape {tuple(t.shape)}, not "
-                f"the config's {want.get(key)}: a block's weights cut over "
-                f"the model axis need dense tensor parallelism, which is "
-                f"not ported (ROADMAP A10.2c); cut only the MoE layer "
-                f"(distributed/sharding.py::moe_only_specs)")
+def _tp(ctx) -> bool:
+    """Whether ``ctx`` has a model axis above 1."""
+    return ctx is not None and ctx.mesh is not None and ctx.model_size > 1
 
 
-def _refuse_cut_blocks(params, cfg, ctx) -> None:
-    """Without a model axis above 1, prefill and decode compute every
-    block with whole weights, its Mixture-of-Experts layer included: a
-    rank's cut block would give wrong answers without a word (ROADMAP
-    C2).  So each block of ``params`` (the stacked groups, the tail, an
-    encoder's stack) must hold the config's whole shapes, or this raises.
-    One walk of the stacked tree a call, against ``_block_shapes``."""
-    if ctx is not None and ctx.model_size > 1:
-        return
+def _need_model_axis(ctx) -> None:
+    if not _tp(ctx):
+        raise ValueError("a weight cut over a model axis needs that axis: "
+                         "pass the mesh's ctx")
+
+
+def _model_rank(ctx) -> int:
+    """This rank's coordinate on ``ctx``'s model axis."""
+    _need_model_axis(ctx)
+    return ctx.mesh.axis_index(ctx.model_axis)
+
+
+def _psum(y, ctx):
+    """The ranks' partial ``y`` summed over the model axis
+    (``collectives.psum``: fp32 in rank order, rounded once)."""
+    _need_model_axis(ctx)
+    return collectives.psum(y, ctx.model_axis, mesh=ctx.mesh)
+
+
+def _rank_block_shapes(kind: str, cfg, ctx) -> Dict[str, tuple]:
+    """{path: shape} of one block of ``kind`` on a rank of ``ctx``'s mesh
+    under ``param_specs`` (``sharding.local_shapes``, read off the first
+    stacked block of that kind; every block of a kind is cut alike)."""
+    i = cfg.block_pattern.index(kind)
+    prefix = f"['blocks']['b{i}']"
+    return {key[len(prefix):]: shape[1:] for key, shape in
+            sharding.local_shapes(cfg, ctx.mesh, ctx.model_axis).items()
+            if key.startswith(prefix)}
+
+
+def _cut_over_model(kind, p, cfg, ctx, lead: tuple = ()) -> bool:
+    """Whether block ``p`` (or a stack of blocks, ``lead`` its leading
+    dimensions) holds this rank's blocks of its weights under
+    ``distributed/sharding.py::param_specs`` over ``ctx``'s model axis
+    (dense tensor parallelism), or the config's whole shapes.  Its
+    Mixture-of-Experts leaves are not looked at: ``moe.apply_moe`` checks
+    them.  Without a model axis above 1 it is whole (prefill and decode
+    hold the tree to that: ``_check_tree``).  Raises where the leaves are
+    neither all whole nor all cut (a rank would compute wrong answers
+    without a word), and for a recurrent (``rec``, ``ssd``) or
+    cross-attention block that is cut at all: their dense tensor
+    parallelism is ROADMAP A10.2c-rec."""
+    if not _tp(ctx):
+        return False
+    cross = "xwq" in p
+    leaves = [(keystr(path), tuple(t.shape))
+              for path, t in tree_leaves_with_path(p)
+              if not keystr(path).startswith("['moe']")]
+
+    def fits(want):
+        return all(key in want and shape == lead + want[key]
+                   for key, shape in leaves)
+    whole = _block_shapes(kind, cfg, cross)
+    if fits(whole):
+        return False
+    if kind != "attn" or cross:
+        what = f"{kind} block" + (" with cross-attention" if cross else "")
+        raise NotImplementedError(
+            f"{what} cut over a model axis of {ctx.model_size}: dense "
+            f"tensor parallelism of recurrent and cross-attention blocks is "
+            f"not ported (ROADMAP A10.2c-rec); give such blocks whole")
+    local = _rank_block_shapes(kind, cfg, ctx)
+    if fits(local):
+        return True
+    cut = [f"{key} {shape}" for key, shape in leaves
+           if shape != lead + whole.get(key, ())]
+    raise NotImplementedError(
+        f"attn block over a model axis of {ctx.model_size}: {', '.join(cut)}"
+        f" not the config's whole shapes, and the block not this rank's "
+        f"blocks either: dense tensor parallelism takes every leaf of a "
+        f"block whole or every leaf cut by distributed/sharding.py::"
+        f"param_specs (ROADMAP A10.2c)")
+
+
+def _check_tree(params, cfg, ctx) -> None:
+    """The one check of the tree a prefill or decode call computes on,
+    made before any of it runs (so every rank raises before a
+    collective).  Each block of ``params`` (the stacked groups, the tail,
+    an encoder's stack) is walked once, stacked.
+
+    Without a model axis above 1 every block, its Mixture-of-Experts
+    layer included, must hold the config's whole shapes (ROADMAP C2: a
+    rank's cut block would give wrong answers without a word).  Over one,
+    each decoder block is whole or this rank's ``param_specs`` blocks
+    (``_cut_over_model``); an encoder's stack is whole (ROADMAP
+    A10.2c-rec); ``embed`` and ``lm_head`` are whole or cut by vocabulary
+    rows and columns."""
     G = cfg.num_groups()
     stacks = [(kind, params["blocks"][f"b{i}"], (G,))
               for i, kind in enumerate(cfg.block_pattern)]
     stacks += [(kind, params["tail"][f"t{i}"], ())
                for i, kind in enumerate(cfg.tail_pattern())]
-    if cfg.encoder_layers:
-        stacks.append(("attn", params["encoder"]["blocks"],
-                       (cfg.encoder_layers,)))
+    encoder = ([("attn", params["encoder"]["blocks"], (cfg.encoder_layers,))]
+               if cfg.encoder_layers else [])
+    if not _tp(ctx):
+        for kind, p, lead in stacks + encoder:
+            want = _block_shapes(kind, cfg, "xwq" in p)
+            for path, t in tree_leaves_with_path(p):
+                key = keystr(path)
+                whole = want.get(key)
+                if whole is None or tuple(t.shape) != lead + whole:
+                    raise NotImplementedError(
+                        f"{kind} block leaf {key} of shape {tuple(t.shape)}"
+                        f", not the config's "
+                        f"{lead + whole if whole else None}: without a "
+                        f"model axis above 1 every block computes with "
+                        f"whole weights, and a block cut over one needs "
+                        f"dense tensor parallelism (ROADMAP A10.2c)")
+        return
     for kind, p, lead in stacks:
-        want = _block_shapes(kind, cfg, "xwq" in p)
-        for path, t in tree_leaves_with_path(p):
-            key = keystr(path)
-            whole = want.get(key)
-            if whole is None or tuple(t.shape) != lead + whole:
-                raise NotImplementedError(
-                    f"{kind} block leaf {key} of shape {tuple(t.shape)}, "
-                    f"not the config's {lead + whole if whole else None}: "
-                    f"without a model axis above 1 every block computes "
-                    f"with whole weights, and a block cut over one needs "
-                    f"dense tensor parallelism (ROADMAP A10.2c)")
+        _cut_over_model(kind, p, cfg, ctx, lead)
+    for kind, p, lead in encoder:
+        want = _block_shapes(kind, cfg, False)
+        if any(tuple(t.shape) != lead + want.get(keystr(path), ())
+               for path, t in tree_leaves_with_path(p)):
+            raise NotImplementedError(
+                f"an encoder cut over a model axis of {ctx.model_size}: "
+                f"dense tensor parallelism of encoder stacks is not ported "
+                f"(ROADMAP A10.2c-rec); give the encoder whole")
+    local = sharding.local_shapes(cfg, ctx.mesh, ctx.model_axis)
+    Vp, d = cfg.padded_vocab(), cfg.d_model
+    for key, whole in (("embed", (Vp, d)), ("lm_head", (d, Vp))):
+        mine = local.get(f"[{key!r}]")
+        if key in params and tuple(params[key].shape) not in (whole, mine):
+            raise NotImplementedError(
+                f"{key} of shape {tuple(params[key].shape)}: over a model "
+                f"axis of {ctx.model_size} it is whole {whole} or this "
+                f"rank's vocabulary block {mine} (ROADMAP A10.2c)")
+
+
+def _rank_kv(p, k, v, cfg, ctx):
+    """The kv heads this rank's query heads read: ``k`` and ``v`` as they
+    are, unless only the query heads are cut (the kv heads do not divide
+    the model axis, so every rank holds them all); then the ones its
+    global query heads pair with (``attention.kv_heads_for``), not what a
+    kernel's own pairing of local heads would pick."""
+    n_q = p["wq"].shape[-2]
+    if n_q == cfg.num_heads or k.shape[2] < cfg.num_kv_heads:
+        return k, v
+    return attn_lib.kv_heads_for(k, v, _model_rank(ctx) * n_q, n_q,
+                                 cfg.num_heads // cfg.num_kv_heads)
+
+
+def _heads_out(o, wo, cfg, ctx):
+    """The attention output ``o`` through ``wo``: a partial over this
+    rank's heads, summed over the model axis, when ``wo`` is cut."""
+    y = torch.einsum("bshe,hed->bsd", o, wo)
+    return _psum(y, ctx) if wo.shape[0] < cfg.num_heads else y
+
+
+def _mlp(p, x, cfg, ctx):
+    """The dense MLP: a partial over this rank's ``d_ff`` columns, summed
+    over the model axis, when it is cut."""
+    y = apply_mlp(p, x, cfg)
+    return _psum(y, ctx) if p["wo"].shape[0] < cfg.d_ff else y
 
 
 def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
                          enc_out=None, return_kv=False):
     """Full-sequence attention block.  Returns (x, aux, kv | None).  A
     block with cross-attention weights attends to ``enc_out`` when it is
-    given (no RoPE on that branch), and skips the branch when not.  Over a
-    mesh only the MoE layer may hold a block of its weights
-    (``_refuse_dense_shards``)."""
-    _refuse_dense_shards("attn", p, cfg, ctx)
+    given (no RoPE on that branch), and skips the branch when not.
+
+    Over a model axis above 1, ``p`` may hold this rank's blocks under
+    ``param_specs`` (``_cut_over_model``), the reference's dense tensor
+    parallelism: its query heads (its kv heads too, where they divide the
+    axis) and its ``d_ff`` columns.  Then attention and the MLP each end
+    in one sum of their partial outputs over the model axis, ``x`` stays
+    whole on every rank between blocks (the reference's
+    ``_hidden_replicated``), and ``kv`` holds the rank's kv heads.  Where
+    the heads do not divide the axis, attention is whole on every rank,
+    with no sum; the reference cuts its queries by sequence there
+    instead (``_attn_sharded``), for the same values (ROADMAP C)."""
+    _cut_over_model("attn", p, cfg, ctx)
     h = apply_norm(p["norm1"], x)
     q, k, v = _qkv(p, h, cfg, positions, ctx)
     window = cfg.window if cfg.attention_kind == "swa" else 0
     # positions here are always arange(S)
-    o = attn_lib.self_attention(q, k, v, causal=causal, window=window)
-    x = x + torch.einsum("bshe,hed->bsd", o, p["wo"])
+    o = attn_lib.self_attention(q, *_rank_kv(p, k, v, cfg, ctx),
+                                causal=causal, window=window)
+    x = x + _heads_out(o, p["wo"], cfg, ctx)
     if "xwq" in p and enc_out is not None:
         hx = apply_norm(p["xnorm"], x)
         xq = torch.einsum("bsd,dhe->bshe", hx, p["xwq"])
@@ -312,7 +445,7 @@ def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
     if "moe" in p:
         y, aux = moe_lib.apply_moe(p["moe"], h2, cfg, ctx)
     else:
-        y = apply_mlp(p["mlp"], h2, cfg)
+        y = _mlp(p["mlp"], h2, cfg, ctx)
     x = x + y
     kv = {"k": k, "v": v} if return_kv else None
     return x, aux, kv
@@ -327,7 +460,7 @@ def apply_block_seq(kind, p, x, cfg, ctx, *, positions, state=None,
             p, x, cfg, ctx, positions=positions, enc_out=enc_out,
             return_kv=return_cache)
     if kind in ("rec", "ssd"):
-        _refuse_dense_shards(kind, p, cfg, ctx)
+        _cut_over_model(kind, p, cfg, ctx)
     if kind == "rec":
         h = apply_norm(p["norm1"], x)
         y, new_state = rglru_lib.apply_rglru_block(
@@ -348,8 +481,19 @@ def apply_block_seq(kind, p, x, cfg, ctx, *, positions, state=None,
 # ==========================================================================
 # Embedding / unembedding
 # ==========================================================================
-def embed_tokens(params, tokens, cfg):
-    return params["embed"][tokens.long()]
+def embed_tokens(params, tokens, cfg, ctx: ShardCtx = LOCAL_CTX):
+    """The embedding rows of ``tokens``.  An ``embed`` cut by vocabulary
+    rows over ``ctx``'s model axis looks up only the tokens in this
+    rank's rows, writes zeros for the rest, and sums over the axis: one
+    rank holds each token's row, so the sum is exact."""
+    table, tokens = params["embed"], tokens.long()
+    rows = table.shape[0]
+    if rows == cfg.padded_vocab():
+        return table[tokens]
+    local = tokens - _model_rank(ctx) * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)], 0)
+    return _psum(x, ctx)
 
 
 def _frontend_proj(params, frames):
@@ -363,29 +507,46 @@ def _frontend_proj(params, frames):
     return torch.einsum("bpe,ed->bpd", frames.to(dt), w.to(dt))
 
 
-def embed_inputs(params, batch, cfg):
+def embed_inputs(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX):
     """batch: {"tokens": (B,S)} (+ {"frontend": (B,P,E)} for vlm/audio).
 
     Frontend embeddings are prepended (they come from the STUB modality
     tower), through ``frontend_proj`` when the tree has it and cast to
     the embedding's dtype; total sequence = P + S_text."""
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = embed_tokens(params, batch["tokens"], cfg, ctx)
     if cfg.frontend is not None and "frontend" in batch:
         fe = _frontend_proj(params, batch["frontend"])
         x = torch.cat([fe.to(x.dtype), x], dim=1)
     return x
 
 
-def unembed(params, h, cfg):
+def unembed(params, h, cfg, ctx: ShardCtx = LOCAL_CTX):
+    """Logits of the hidden states ``h``: this rank's block of vocabulary
+    columns when ``lm_head`` (or the tied ``embed``) is cut over ``ctx``'s
+    model axis (``gather_vocab`` puts the blocks together).  Padded
+    columns, counted by their global index, are set to -1e30."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("bsd,dv->bsv", h, w)
-    Vp = cfg.padded_vocab()
+    Vp, cols = cfg.padded_vocab(), w.shape[1]
     if Vp != cfg.vocab_size:   # padded columns can never be sampled
-        keep = torch.arange(Vp, device=logits.device) < cfg.vocab_size
+        first = _model_rank(ctx) * cols if cols < Vp else 0
+        keep = (torch.arange(first, first + cols, device=logits.device)
+                < cfg.vocab_size)
         logits = torch.where(keep, logits,
                              torch.full((), -1e30, dtype=logits.dtype,
                                         device=logits.device))
     return logits
+
+
+def gather_vocab(logits, cfg, ctx: ShardCtx = LOCAL_CTX):
+    """The whole (..., V) logits from every model rank's block of columns
+    (``collectives.ring_all_gather``), as the reference returns them;
+    whole logits pass as they are."""
+    if logits.shape[-1] == cfg.padded_vocab():
+        return logits
+    whole = collectives.ring_all_gather(
+        logits.movedim(-1, 0).contiguous(), ctx.model_axis, mesh=ctx.mesh)
+    return whole.movedim(0, -1).contiguous()
 
 
 # ==========================================================================
@@ -470,9 +631,9 @@ def forward_hidden(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *,
     if cfg.encoder_layers:
         frames = _frontend_proj(params, batch["frontend"])
         enc_out = encode(params, frames.to(pdtype(cfg)), cfg, ctx)
-        x = embed_tokens(params, batch["tokens"], cfg)
+        x = embed_tokens(params, batch["tokens"], cfg, ctx)
     else:
-        x = embed_inputs(params, batch, cfg)
+        x = embed_inputs(params, batch, cfg, ctx)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux, caches = _scan_groups(
         params, x, cfg, ctx, positions=positions, enc_out=enc_out,
@@ -498,6 +659,11 @@ def lm_loss(params, hidden, targets, mask, cfg, *, chunk: int = 512,
     Sc = n * chunk
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     Vp = cfg.padded_vocab()
+    if w.shape[1] != Vp:
+        raise NotImplementedError(
+            f"the loss over a vocabulary cut to {w.shape[1]} of {Vp} "
+            f"columns needs the vocab-sharded loss of tensor-parallel "
+            f"training (ROADMAP A10.2c-train)")
 
     def chunk_loss(h_c, t_c, m_c):
         logits = torch.einsum("bsd,dv->bsv", h_c, w).float()
@@ -587,12 +753,20 @@ def prefill(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *, kernels=None,
     encoder-decoder model's cache also holds ``enc_kv``, the decoder
     layers' cross-attention K/V, which decode reads and never grows;
     like the reference, it projects them again from the encoder's output
-    after the blocks have done so."""
-    _refuse_cut_blocks(params, cfg, ctx)
+    after the blocks have done so.
+
+    Over a model axis above 1, ``params`` may be this rank's blocks under
+    ``param_specs`` (self-attention blocks; ``_check_tree``) and
+    ``batch`` its rows of the batch; the logits are then gathered whole
+    on every rank, and the cache holds the rank's kv heads (all of them
+    where they do not divide the axis: the reference cuts its cache by
+    sequence there, for the same values, ROADMAP C)."""
+    _check_tree(params, cfg, ctx)
     hidden, _, caches = forward_hidden(
         params, batch, cfg, ctx, return_cache=True, remat=False,
         kernels=kernels)
-    logits = unembed(params, hidden[:, -1:], cfg)
+    logits = gather_vocab(unembed(params, hidden[:, -1:], cfg, ctx), cfg,
+                          ctx)
     if cfg.encoder_layers:
         caches["enc_kv"] = build_enc_kv(params, caches.pop("enc_out"), cfg)
     if pad_to:
@@ -651,8 +825,8 @@ def _decode_attn(p, x, cfg, ctx, cache, position: int, enc_kv=None):
         ck, cv = ck[:, lo:lo + n], cv[:, lo:lo + n]
     lengths = torch.full((x.shape[0],), n, dtype=torch.int32,
                          device=x.device)
-    o = ops.decode_attention(q, ck, cv, lengths)
-    x = x + torch.einsum("bshe,hed->bsd", o, p["wo"])
+    o = ops.decode_attention(q, *_rank_kv(p, ck, cv, cfg, ctx), lengths)
+    x = x + _heads_out(o, p["wo"], cfg, ctx)
     if "xwq" in p and enc_kv is not None:
         hx = apply_norm(p["xnorm"], x)
         xq = torch.einsum("bsd,dhe->bshe", hx, p["xwq"])
@@ -664,7 +838,7 @@ def _decode_attn(p, x, cfg, ctx, cache, position: int, enc_kv=None):
     if "moe" in p:
         y, _ = moe_lib.apply_moe(p["moe"], h2, cfg, ctx)
     else:
-        y = apply_mlp(p["mlp"], h2, cfg)
+        y = _mlp(p["mlp"], h2, cfg, ctx)
     return x + y, cache
 
 
@@ -718,19 +892,15 @@ def decode_step(params, token, cache, position, cfg,
     on the host).  Returns (logits (B,1,V), cache); the cache is the one
     passed in, updated in place.  An encoder-decoder model's
     ``cache["enc_kv"]`` (built by ``prefill``) is read, never written.
-    Decode runs without a model axis: a ``ctx`` with one above 1 raises,
-    and so does a block whose leaves are not the config's whole shapes
-    (``_refuse_cut_blocks``)."""
+    The tree is checked as ``prefill`` checks it (``_check_tree``): over a
+    model axis above 1, ``params``, ``token`` and ``cache`` may be this
+    rank's blocks, rows and kv heads (``prefill``'s cache on the rank),
+    and the logits come back whole on every rank."""
     ctx = LOCAL_CTX if ctx is None else ctx
-    if ctx.model_size > 1:
-        raise NotImplementedError(
-            f"decode over a model axis of {ctx.model_size}: decode computes "
-            f"every block with whole weights; sharded decode needs dense "
-            f"tensor parallelism (ROADMAP A10.2c)")
-    _refuse_cut_blocks(params, cfg, ctx)
+    _check_tree(params, cfg, ctx)
     position = int(position)
     enc_kv = cache.get("enc_kv") or {"groups": {}, "tail": {}}
-    x = embed_tokens(params, token, cfg)
+    x = embed_tokens(params, token, cfg, ctx)
     for g in range(cfg.num_groups()):
         gp = _tree_index(params["blocks"], g)
         gc = _tree_index(cache["groups"], g)
@@ -743,7 +913,7 @@ def decode_step(params, token, cache, position, cfg,
                              cache["tail"][f"t{i}"], position,
                              enc_kv["tail"].get(f"t{i}"))
     x = apply_norm(params["final_norm"], x)
-    return unembed(params, x, cfg), cache
+    return gather_vocab(unembed(params, x, cfg, ctx), cfg, ctx), cache
 
 
 # ==========================================================================

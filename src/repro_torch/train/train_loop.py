@@ -37,7 +37,8 @@ A checkpoint under a mesh is the whole tree in the one-device format:
 the ranks gather the state and rank 0 writes it; on resume every rank
 reads the whole tree and takes its blocks (``checkpoint.reshard``).  So
 a checkpoint moves between one device and any data mesh.  A model axis
-above 1 raises (dense tensor parallelism, ROADMAP A10.2c).
+above 1 raises (training under dense tensor parallelism, ROADMAP
+A10.2c-train).
 """
 from __future__ import annotations
 
@@ -96,8 +97,9 @@ def data_parallel(ctx: Optional[ShardCtx]) -> bool:
         return False
     if ctx.model_size > 1:
         raise NotImplementedError(
-            f"training over a model axis of {ctx.model_size} needs dense "
-            f"tensor parallelism, which is not ported (ROADMAP A10.2c)")
+            f"training over a model axis of {ctx.model_size} needs the "
+            f"backward of dense tensor parallelism, which is not ported "
+            f"(ROADMAP A10.2c-train)")
     return math.prod(ctx.mesh.shape[a] for a in ctx.data_axes) > 1
 
 

@@ -595,11 +595,15 @@ def test_encoder_decoder_decode_says_so():
 def test_a_cut_moe_block_raises_and_the_whole_tree_decodes():
     """Reduced OLMoE-1B-7B in fp32 (the port's own init), its MoE expert
     leaves cut to model rank 1's quarter of a (1, 4) mesh
-    (``sharding.local_shard`` under ``moe_only_specs``): ``prefill``
-    without a mesh raises, and ``decode_step`` raises under the mesh's
-    ctx (a model axis above 1) and without one (the cut leaves).  The
-    whole tree still prefills and decodes, and its logits equal the full
-    forward's at capacity factor 16 (fp32 5e-5, as above)."""
+    (``sharding.local_shard`` under ``moe_only_specs``): ``prefill`` and
+    ``decode_step`` without a mesh raise (the cut leaves).  Under the
+    mesh's ctx decode reaches the MoE layer: the whole tree's layer is
+    refused there (``moe._check_sharded``: not this rank's block), and
+    the cut tree's needs the ranks, which one process without a process
+    group has not (over a world of ranks it is held to the reference in
+    ``tests/test_torch_tensor_parallel.py``).  The whole tree still
+    prefills and decodes, and its logits equal the full forward's at
+    capacity factor 16 (fp32 5e-5, as above)."""
     from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import Mesh
     arch = "olmoe-1b-7b"
@@ -623,9 +627,14 @@ def test_a_cut_moe_block_raises_and_the_whole_tree_decodes():
             tr.prefill(cut, prompt, cfg, pad_to=6)
         _, cache = tr.prefill(params, prompt, cfg, pad_to=6)
         step = torch.from_numpy(toks[:, 5:6])
-        for tree, c in ((cut, ctx), (params, ctx), (cut, tr.LOCAL_CTX)):
-            with pytest.raises(NotImplementedError, match="A10.2c"):
-                tr.decode_step(tree, step, cache, 5, cfg, c)
+        for tree, c, error, match in (
+                (cut, ctx, ValueError, "process group"),
+                (params, ctx, ValueError, "not this rank's block"),
+                (cut, tr.LOCAL_CTX, NotImplementedError, "A10.2c")):
+            with pytest.raises(error, match=match):
+                tr.decode_step(tree, step, convert.tree_map(torch.clone,
+                                                            cache), 5,
+                               cfg, c)
         got, _ = tr.decode_step(params, step, cache, 5, cfg)
         hidden, _, _ = tr.forward_hidden(
             params, {"tokens": torch.from_numpy(toks)}, cfg)

@@ -1,0 +1,470 @@
+"""Port parity, dense tensor parallelism: ``prefill`` and ``decode_step``
+over a (data, model) mesh, each rank on its ``param_specs`` blocks,
+against the reference's GSPMD ``build_prefill_step`` /
+``build_decode_step``.
+
+One world of 4 ``gloo`` ranks (fresh processes, rendezvous by a file
+under ``tmp_path``) runs every case through ``launch/dryrun.py``'s step
+builders: each rank cuts its blocks of the whole tree by
+``checkpoint.reshard`` and its rows of the tokens by ``batch_specs``,
+prefills 8 tokens and decodes 3 more, teacher-forced, in fp32.  One JAX
+subprocess with 4 fake host devices runs the reference's jitted steps
+under ``named(mesh, param_specs(...))`` on the same parameters (the
+port's init, handed over as numpy) and tokens (numpy).  The cases:
+
+  * reduced Qwen2-7B on (1, 4) and (2, 2): QKV biases, the query heads
+    cut and its one kv head whole (every rank selects the kv heads its
+    global query heads read), vocabulary 512 of a padded 2048, so ranks
+    1-3 of (1, 4) hold padding only;
+  * reduced smollm-135m on (1, 4): tied embeddings;
+  * reduced OLMoE-1B-7B on (1, 4): heads and kv heads cut, the MoE layer
+    in ``ep``;
+  * reduced Qwen2-7B with 6 query heads on 3 kv heads, on (2, 2) (a
+    rank's 3 query heads straddle kv groups: kv heads 0, 0, 1 and 1, 2,
+    2) and on (1, 4) (the heads do not divide: attention whole on every
+    rank, the MLP cut).
+
+The gathered logits and caches are held to the reference's within rtol
+and atol 1e-4 (the sums over the model axis in another order than
+XLA's), every model rank's logits to each other's and every rank's
+logits and cache to ``chip_smoke.tp_as_ranks`` (one process, the ranks
+as threads computing their partials from their own blocks and summing
+them in the same order) to the bit.  Then the refusals, without a world.
+The top-level imports stay free of jax: the ranks import this file.
+"""
+import dataclasses
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.convert import keystr, tree_leaves_with_path, tree_map
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.world import run_world
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import attention
+from repro_torch.models import transformer as tr
+from repro_torch.train import checkpoint
+
+pytestmark = pytest.mark.multidevice
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD = 4
+WORLD_TIMEOUT_S = 240
+#: (case, reduced arch, its head counts if changed, mesh)
+CASES = (("qwen2_1x4", "qwen2-7b", None, (1, 4)),
+         ("qwen2_2x2", "qwen2-7b", None, (2, 2)),
+         ("smollm_1x4", "smollm-135m", None, (1, 4)),
+         ("olmoe_1x4", "olmoe-1b-7b", None, (1, 4)),
+         ("straddle_2x2", "qwen2-7b", (6, 3), (2, 2)),
+         ("whole_heads_1x4", "qwen2-7b", (6, 3), (1, 4)))
+B, PROMPT, STEPS = 2, 8, 3
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+REFERENCE = """
+import dataclasses, json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import numpy as np, jax, jax.numpy as jnp
+from repro.configs import reduced_config
+from repro.distributed import sharding as shd
+from repro.jax_compat import make_mesh
+from repro.launch.dryrun import build_decode_step, build_prefill_step
+from repro.models import transformer as tr
+
+out = sys.argv[1]
+cases = json.load(open(os.path.join(out, "cases.json")))
+data = dict(np.load(os.path.join(out, "inputs.npz")))
+B, P, T = cases["batch"], cases["prompt"], cases["steps"]
+
+
+def nest(flat):
+    tree = {}
+    for path, leaf in flat.items():
+        keys = path.split("/")
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = jnp.asarray(leaf)
+    return tree
+
+
+def flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat(v, prefix + k + "/")
+        else:
+            yield prefix + k, np.asarray(v, np.float32)
+
+
+for name, arch, heads, shape in cases["cases"]:
+    cfg = dataclasses.replace(reduced_config(arch), param_dtype="float32")
+    if heads:
+        cfg = dataclasses.replace(cfg, num_heads=heads[0],
+                                  num_kv_heads=heads[1])
+    params = nest({k.split("|", 1)[1]: v for k, v in data.items()
+                   if k.startswith(name + "|")})
+    tokens = jnp.asarray(data["tokens"])
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    named_params = shd.named(mesh, shd.param_specs(params, cfg, mesh))
+    with mesh:
+        prefill, _ = build_prefill_step(cfg, mesh)
+        batch = {"tokens": tokens[:, :P]}
+        logits, cache = jax.jit(prefill, in_shardings=(
+            named_params, shd.named(mesh, shd.batch_specs(
+                batch, ("data",), mesh))))(params, batch)
+        cache = tr.pad_kv_caches(cache, P + T)
+        decode, _ = build_decode_step(cfg, mesh)
+        step = jax.jit(decode, in_shardings=(
+            named_params, None,
+            shd.named(mesh, shd.cache_specs(cache, cfg, mesh, ("data",))),
+            None))
+        out_logits = [logits]
+        for t in range(P, P + T):
+            logits, cache = step(params, tokens[:, t:t + 1], cache,
+                                 jnp.int32(t))
+            out_logits.append(logits)
+    np.savez(os.path.join(out, f"ref|{name}.npz"),
+             logits=np.stack([np.asarray(l, np.float32)
+                              for l in out_logits]),
+             **{"cache|" + k: v for k, v in flat(cache)})
+"""
+
+
+def _cfg(arch, heads=None):
+    cfg = dataclasses.replace(reduced_config(arch), param_dtype="float32")
+    if heads:
+        cfg = dataclasses.replace(cfg, num_heads=heads[0],
+                                  num_kv_heads=heads[1])
+    return cfg
+
+
+def _case(name):
+    return next(c for c in CASES if c[0] == name)
+
+
+def _params(index, arch, heads):
+    return tr.init_params(_cfg(arch, heads),
+                          torch.Generator().manual_seed(index), "cpu")
+
+
+def _tokens():
+    return torch.from_numpy(np.random.default_rng(7).integers(
+        0, reduced_config("qwen2-7b").vocab_size,
+        (B, PROMPT + STEPS)).astype(np.int32))
+
+
+def _flat(tree):
+    """{"a/b/c": leaf} of a nested dict (the path the subprocess uses)."""
+    return {keystr(path).replace("']['", "/").strip("[']"): leaf
+            for path, leaf in tree_leaves_with_path(tree)}
+
+
+def _tp_case(mesh, name, params, tokens):
+    """One rank of ``mesh`` on a case: its blocks and rows, prefill, then
+    the teacher-forced decode steps, through the step builders.  Returns
+    its logits at each step and its final cache, as numpy."""
+    _, arch, heads, _ = _case(name)
+    cfg = _cfg(arch, heads)
+    own = checkpoint.reshard(params, shd.named(
+        mesh, shd.param_specs(params, cfg, mesh)), device="cpu")
+    toks = shd.local_shard(tokens, shd.P(("data",), None), mesh)
+    prefill, ctx = dryrun.build_prefill_step(cfg, mesh)
+    decode, _ = dryrun.build_decode_step(cfg, mesh)
+    assert ctx.model_size == mesh.shape["model"]
+    logits, cache = prefill(own, {"tokens": toks[:, :PROMPT]})
+    cache = tr.pad_kv_caches(cache, PROMPT + STEPS)
+    out = [logits]
+    for t in range(PROMPT, PROMPT + STEPS):
+        logits, cache = decode(own, toks[:, t:t + 1], cache, t)
+        out.append(logits)
+    return {"logits": torch.stack(out).numpy(),
+            **{"cache|" + k: v.numpy() for k, v in _flat(cache).items()}}
+
+
+def _rank_tp(rank, world_size, trees, tokens, out):
+    """One rank: every case on its mesh of the world's 4 ranks."""
+    with torch.inference_mode():
+        for name, _, _, shape in CASES:
+            got = _tp_case(Mesh(shape, ("data", "model")), name,
+                           trees[name], tokens)
+            np.savez(os.path.join(out, f"{name}|r{rank}.npz"), **got)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    """``load(name, rank)`` a rank's saved arrays, ``load(name)`` the
+    reference's, ``load(name, rank, as_ranks=True)`` the one process's
+    computing as that rank."""
+    tmp = tmp_path_factory.mktemp("tensor_parallel")
+    trees = {name: _params(i, arch, heads)
+             for i, (name, arch, heads, _) in enumerate(CASES)}
+    tokens = _tokens()
+    data = {"tokens": tokens.numpy()}
+    for name, tree in trees.items():
+        data.update({f"{name}|{k}": v.numpy()
+                     for k, v in _flat(tree).items()})
+    np.savez(tmp / "inputs.npz", **data)
+    (tmp / "cases.json").write_text(json.dumps({
+        "cases": CASES, "batch": B, "prompt": PROMPT, "steps": STEPS}))
+    jax_proc = subprocess.Popen(
+        [sys.executable, "-c", REFERENCE, str(tmp)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        (tmp / "ranks").mkdir()
+        run_world(_rank_tp, WORLD, (trees, tokens, str(tmp)),
+                  workdir=tmp / "ranks", timeout=WORLD_TIMEOUT_S)
+        # the yardstick, while the reference still compiles: one thread a
+        # rank, one torch thread each, as the ranks run
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            as_ranks = {name: _chip_smoke().tp_as_ranks(
+                _tp_case, shape, name, trees[name], tokens)
+                for name, _, _, shape in CASES}
+        finally:
+            torch.set_num_threads(threads)
+        _, err = jax_proc.communicate(timeout=WORLD_TIMEOUT_S)
+    finally:
+        if jax_proc.poll() is None:
+            jax_proc.kill()
+            jax_proc.wait()
+    assert jax_proc.returncode == 0, err[-3000:]
+
+    def load(name, rank=None, as_rank=False):
+        if as_rank:
+            return as_ranks[name][rank]
+        if rank is None:
+            return dict(np.load(tmp / f"ref|{name}.npz"))
+        return dict(np.load(tmp / f"{name}|r{rank}.npz"))
+    return load
+
+
+def _coords(shape, rank):
+    return np.unravel_index(rank, shape)
+
+
+def _gathered_cache(results, name, shape, cfg):
+    """The ranks' caches put together: rows over the data axis, kv heads
+    over the model axis where they divide it (else every model rank's is
+    the same, and that is asserted)."""
+    D, M = shape
+    ranks = [results(name, r) for r in range(WORLD)]
+    out = {}
+    for key in (k for k in ranks[0] if k.startswith("cache|")):
+        rows = []
+        for d in range(D):
+            mine = [ranks[r][key] for r in range(WORLD)
+                    if _coords(shape, r)[0] == d]
+            if cfg.num_kv_heads % M == 0:
+                rows.append(np.concatenate(mine, axis=-2))
+            else:
+                for other in mine[1:]:
+                    np.testing.assert_array_equal(other, mine[0])
+                rows.append(mine[0])
+        out[key] = np.concatenate(rows, axis=-4)
+    return out
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_ranks_match_the_reference_s_gspmd_steps(results, name):
+    """Each rank's logits (gathered whole over the vocabulary) are its
+    rows of the reference's, at prefill and every decode step; the
+    caches put together are the reference's; padded vocabulary columns
+    are -1e30 on every rank, real ones finite."""
+    _, arch, heads, shape = _case(name)
+    cfg = _cfg(arch, heads)
+    want = results(name)
+    D = shape[0]
+    rows = B // D
+    for rank in range(WORLD):
+        got = results(name, rank)["logits"]
+        d = _coords(shape, rank)[0]
+        assert got.shape == (STEPS + 1, rows, 1, cfg.padded_vocab())
+        np.testing.assert_allclose(
+            got, want["logits"][:, d * rows:(d + 1) * rows], **TOL)
+        assert (got[..., cfg.vocab_size:] == -1e30).all()
+        assert np.isfinite(got[..., :cfg.vocab_size]).all()
+    cache = _gathered_cache(results, name, shape, cfg)
+    assert cache.keys() == {k for k in want if k.startswith("cache|")}
+    for key, leaf in cache.items():
+        np.testing.assert_allclose(leaf, want[key], err_msg=key, **TOL)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_ranks_equal_one_process_computing_as_the_ranks(results, name):
+    """Every rank's logits and cache are the bits of ``tp_as_ranks``'s
+    thread for that rank, and a data shard's model ranks return the same
+    logits."""
+    shape = _case(name)[3]
+    for rank in range(WORLD):
+        got, want = results(name, rank), results(name, rank, as_rank=True)
+        assert got.keys() == want.keys()
+        for key in got:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        first = next(r for r in range(WORLD)
+                     if _coords(shape, r)[0] == _coords(shape, rank)[0])
+        np.testing.assert_array_equal(got["logits"],
+                                      results(name, first)["logits"])
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_local_shapes_are_local_shard_s_at_full_width(shape):
+    """``sharding.local_shapes`` of full-width Qwen2-7B (on ``meta``) is
+    the shape ``local_shard`` cuts for every rank; on (1, 4) a rank holds
+    7 query heads on 1 kv head of 128, 4736 of ``d_ff`` and 38,400
+    vocabulary rows, on (2, 2) 14 on 2, 9472 and 76,800."""
+    cfg = get_config("qwen2-7b")
+    mesh = Mesh(shape, ("data", "model"))
+    params = dryrun.param_shapes(cfg)
+    specs = shd.param_specs(params, cfg, mesh)
+    local = shd.local_shapes(cfg, mesh)
+    for rank in range(mesh.size):
+        cut = _cut(params, cfg, mesh, rank, specs)
+        assert {keystr(path): tuple(t.shape)
+                for path, t in tree_leaves_with_path(cut)} == local
+    M = shape[1]
+    b0 = "['blocks']['b0']"
+    assert local[b0 + "['wq']"] == (28, 3584, 28 // M, 128)
+    assert local[b0 + "['wk']"] == (28, 3584, 4 // M, 128)
+    assert local[b0 + "['mlp']['wo']"] == (28, 18944 // M, 3584)
+    assert local["['embed']"] == (153600 // M, 3584)
+    assert local["['lm_head']"] == (3584, 153600 // M)
+
+
+@pytest.mark.parametrize("q_first,n_q,group,owners,view", [
+    (0, 7, 7, [0] * 7, True), (14, 14, 7, [2] * 7 + [3] * 7, True),
+    (1, 1, 4, [0], True),
+    (0, 3, 2, [0, 0, 1], False), (3, 3, 2, [1, 2, 2], False),
+    (2, 4, 2, [1, 1, 2, 2], True)])
+def test_kv_heads_for_global_query_heads(q_first, n_q, group, owners, view):
+    """The kv heads a run of global query heads reads (``owners``, one a
+    query head), laid out for the local pairing: a view of a run of heads
+    where it holds, one copied kv head a query head where the heads
+    straddle groups unevenly."""
+    k = torch.arange(2 * 3 * 8 * 4.0).reshape(2, 3, 8, 4)
+    got_k, got_v = attention.kv_heads_for(k, -k, q_first, n_q, group)
+    if view:
+        assert got_k.untyped_storage().data_ptr() == (
+            k.untyped_storage().data_ptr())
+        assert torch.equal(got_k, k[:, :, owners[0]:owners[-1] + 1])
+        n_kv = got_k.shape[2]
+        assert [owners[0] + j // (n_q // n_kv) for j in range(n_q)] == owners
+    else:
+        assert got_k.shape[2] == n_q
+        assert torch.equal(got_k, k[:, :, owners])
+    assert torch.equal(got_v, -got_k)
+
+
+# --------------------------------------------------------------------------
+# What stays refused (no world: every check runs before a collective)
+# --------------------------------------------------------------------------
+def _cut(params, cfg, mesh, rank=0, specs=None):
+    """Rank ``rank``'s blocks of ``params`` under ``specs`` (default
+    ``param_specs``), as views."""
+    specs = specs or shd.param_specs(params, cfg, mesh)
+    return shd.tree_map_with_path(
+        lambda path, t, s: shd.local_shard(t, s, mesh, rank), params, specs)
+
+
+def _mesh_ctx(shape=(1, 4)):
+    mesh = Mesh(shape, ("data", "model"))
+    return mesh, shd.make_ctx(mesh)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-780m",
+                                  "seamless-m4t-medium"])
+def test_recurrent_and_cross_attention_trees_cut_raise(arch):
+    """A recurrent (RG-LRU, SSD) or encoder-decoder tree cut by
+    ``param_specs`` raises before anything runs and names A10.2c-rec, at
+    prefill and at decode; the same tree whole is not refused for it."""
+    cfg = _cfg(arch)
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh, ctx = _mesh_ctx((1, 2))
+    cut = _cut(params, cfg, mesh)
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    if cfg.encoder_layers:
+        batch["frontend"] = torch.zeros(
+            (1, cfg.frontend.num_positions, cfg.frontend.embed_dim))
+    cache = tr.init_decode_cache(cfg, 1, 8, "cpu")
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError,
+                           match="dense tensor parallelism.*A10.2c-rec"):
+            tr.prefill(cut, batch, cfg, ctx)
+        with pytest.raises(NotImplementedError, match="A10.2c-rec"):
+            tr.decode_step(cut, batch["tokens"][:, :1], cache, 0, cfg, ctx)
+        tr._check_tree(params, cfg, ctx)
+
+
+def test_a_cut_encoder_raises():
+    """An encoder-decoder tree whose decoder blocks are whole but whose
+    encoder stack is cut names A10.2c-rec."""
+    cfg = _cfg("seamless-m4t-medium")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh, ctx = _mesh_ctx((1, 2))
+    specs = shd.param_specs(params, cfg, mesh)
+    only_encoder = shd.tree_map_with_path(
+        lambda path, s: (s if "['encoder']" in path
+                         else shd.P(*[None] * len(s))), specs)
+    with pytest.raises(NotImplementedError, match="encoder.*A10.2c-rec"):
+        tr._check_tree(_cut(params, cfg, mesh, specs=only_encoder), cfg,
+                       ctx)
+
+
+def test_a_tree_cut_in_some_leaves_only_raises():
+    """``wq`` cut with ``wo`` whole in a stacked tree: prefill raises
+    before anything runs, naming dense tensor parallelism and A10.2c; so
+    does an ``embed`` cut to a block that is not this rank's."""
+    cfg = _cfg("qwen2-7b")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh, ctx = _mesh_ctx()
+    cut = _cut(params, cfg, mesh)
+    mixed = {**cut, "blocks": {"b0": {**cut["blocks"]["b0"],
+                                      "wo": params["blocks"]["b0"]["wo"]}}}
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError,
+                           match="dense tensor parallelism.*ROADMAP A10.2c"):
+            tr.prefill(mixed, batch, cfg, ctx)
+        odd = {**params, "embed": params["embed"][:100]}
+        with pytest.raises(NotImplementedError, match="embed.*A10.2c"):
+            tr.prefill(odd, batch, cfg, ctx)
+
+
+def test_autograd_through_a_dense_sum_raises():
+    """Training under dense tensor parallelism is A10.2c-train: the sum
+    refuses a tensor that requires grad (here from a cut attention block
+    of reduced OLMoE, whose heads and kv heads are cut, before any
+    collective), and the loss refuses a vocabulary cut by columns."""
+    with pytest.raises(RuntimeError, match="A10.2c-train"):
+        coll.psum(torch.zeros(2, requires_grad=True), "model",
+                  mesh=Mesh((1, 4), ("data", "model")))
+    cfg = _cfg("olmoe-1b-7b")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh, ctx = _mesh_ctx()
+    cut = _cut(params, cfg, mesh)
+    block = tree_map(lambda t: t[0].requires_grad_(False).clone()
+                     .requires_grad_(True), cut["blocks"]["b0"])
+    x = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(RuntimeError, match="A10.2c-train"):
+        tr.apply_attn_block_seq(block, x, cfg, ctx,
+                                positions=torch.arange(4))
+    with pytest.raises(NotImplementedError, match="A10.2c-train"):
+        tr.lm_loss(cut, x, torch.zeros((1, 4), dtype=torch.int32),
+                   torch.ones((1, 4)), cfg)
