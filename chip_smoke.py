@@ -484,8 +484,28 @@ TP_LAYER_REL_L2 = MOE_SHARDED_LAYER_REL_L2
 # process's
 TP_FP32_GROUPS = 2
 TP_FP32_REL_L2 = MOE_SHARDED_FP32_REL_L2
+# the ranks teacher-forced at these decode steps (the first and the
+# last): each group's step fed the one process's input and its state
+# (cut to the rank) within TP_LAYER_REL_L2, and the ranks' head on the
+# one process's last hidden within TP_REL_L2 (at prefill too).  The
+# free-running logits of a bf16 run sit at the model's own rounding
+# floor: one bf16 ulp added to one embedding element moves the one
+# process's logits by 1.50e-2 (Qwen2-7B), 1.91e-2 (RecurrentGemma-9B),
+# 3.25e-2 (Mamba-2-780M) (tp_nudge.py on an NVIDIA H100 80GB HBM3 at
+# 700 W); tp_qwen2 holds them to TP_REL_L2, the recurrent phases report
+# them beside that nudge
+TP_FORCED_STEPS = (0, TP_DECODE_STEPS - 1)
 # the world's time limit, ranks' start and every check included
 TP_TIMEOUT_S = 300
+# The same for the recurrent blocks (phases tp_recurrentgemma and
+# tp_mamba), on the weights their serve phases drew, with the same
+# tokens, steps and limits: RecurrentGemma-9B on (1, 4), 4 query heads on
+# the one kv head of 256, 1024 LRU channels in 4 gate blocks, 3072 of
+# d_ff and 64,000 vocabulary rows a rank; Mamba-2-780M on (1, 4) and
+# (2, 2), 12 or 24 SSD heads of 64 (768 or 1536 of d_inner) a rank, B, C
+# and dt whole, the gated norm's sum of squares summed over the axis
+TP_RECURRENTGEMMA_MESHES = TP_MESHES[:1]
+TP_MAMBA_MESHES = TP_MESHES
 
 # The encoder-decoder (phases encdec_kernels, encdec_serve,
 # encdec_decode): full-width seamless-m4t-medium, uncut (12 encoder and
@@ -567,12 +587,13 @@ TRAIN_FP32_GRAD_REL_L2 = 2e-4
 RING_BATCH, RING_PAST, RING_PLAIN_STEPS = 4, 64, 8
 # the phase runs the first RING_LAYERS of the model's 24 layers, its
 # widths uncut: each decode step is paced by the host, layer by layer,
-# and at 24 layers the phase took 199-267 s of the script's time
-RING_LAYERS = 8
+# and at 24 layers the phase took 199-267 s of the script's time (cut
+# to 8, then to 4, each time the whole script had passed 760 s)
+RING_LAYERS = 4
 # RING_LAYERS layers x (k, v) x 4 x 4096 rows x 8 kv heads x 80 x 2 B,
 # and the linear cache of 4160 rows
-RING_CACHE_BYTES = 335_544_320
-RING_LINEAR_CACHE_BYTES = 340_787_200
+RING_CACHE_BYTES = 167_772_160
+RING_LINEAR_CACHE_BYTES = 170_393_600
 # the fp32 ring (parameters cast to fp32, batch 1) at a narrowed window,
 # RING_PAST steps past it, held to a linear cache and to the fp32 forward
 # at DECODE_FP32_REL_L2
@@ -600,13 +621,15 @@ CALIBRATION_RATIO_MAX = 1.05
 DRYRUN_RECORDS, DRYRUN_SKIPS = 40, 7
 
 # The training launcher at full smollm-135m width: CLI_STEPS steps of
-# CLI_BATCH x CLI_SEQ tokens, twice on one checkpoint directory.  The
+# CLI_BATCH x CLI_SEQ tokens (the launcher checkpoints every 100), then
+# CLI_RESUME_STEPS more on the same checkpoint directory (cut from 100 to
+# 20 when the whole script had passed 760 s).  The
 # checkpoint round trip saves the parameters and the AdamW state after
 # one step.  jax.eval_shape of the reference's init_params:
 CLI_ARCH = "smollm-135m"
 CLI_PARAMETERS = 134_515_008
 CLI_PARAMETER_BYTES = 269_100_288
-CLI_BATCH, CLI_SEQ, CLI_STEPS = 8, 2048, 100
+CLI_BATCH, CLI_SEQ, CLI_STEPS, CLI_RESUME_STEPS = 8, 2048, 100, 20
 
 # Data parallelism through the launcher: full-width smollm-135m, DP_STEPS
 # steps of CLI_BATCH x CLI_SEQ tokens on one device and again over
@@ -2965,6 +2988,203 @@ def tp_decode_check(gen, B: int, Hq: int, Hkv: int, D: int) -> dict:
             **time_decode(q, k, v, lens)}
 
 
+def rglru_rank_check(gen, B: int, S: int, W: int) -> dict:
+    """The RG-LRU scan at a rank's shape, (B, S, W) fp32 from no state as
+    prefill runs it and one step from a state as decode does, held to its
+    plain version within RGLRU_ATOL, the prefill shape then timed in
+    turns with its bound; the launches are a comparison's."""
+    from repro_torch.kernels import rglru_scan as lru
+    checks = []
+    for steps, with_h0 in ((S, False), (1, True)):
+        a = 0.8 + 0.199 * torch.rand((B, steps, W), generator=gen,
+                                     device="cuda")
+        b = torch.randn((B, steps, W), generator=gen, device="cuda")
+        h0 = (torch.randn((B, W), generator=gen, device="cuda")
+              if with_h0 else None)
+        h = lru.rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        err = float((h - lru.rglru_scan_ref(a, b, h0)).abs().max())
+        checks.append({"shape": [B, steps, W], "h0": with_h0,
+                       "max_abs_err": err, "atol": RGLRU_ATOL})
+        if not (err <= RGLRU_ATOL and bool(torch.isfinite(h).all())):
+            raise RuntimeError(f"rglru_scan{(B, steps, W)} disagrees with "
+                               f"its plain version: max|d|={err}")
+        if steps == S:
+            inputs = (a, b)
+    a, b = inputs
+    plain_a = time_ms(lambda: lru.rglru_scan_ref(a, b), inner=2, samples=5)
+    kern_a = time_ms(lambda: lru.rglru_scan(a, b), inner=2, samples=5)
+    kern_b = time_ms(lambda: lru.rglru_scan(a, b), inner=2, samples=5)
+    plain_b = time_ms(lambda: lru.rglru_scan_ref(a, b), inner=2, samples=5)
+    bound_ms, bound_by, nbytes = rglru_bound(B, S, W)
+    return {"shape": [B, S, W], "checks": checks,
+            "max_abs_err": checks[0]["max_abs_err"],
+            "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "library_ms": None,
+            "timed": "a rank's RG-LRU layer, fp32, h0 None; median of 5 x 2 "
+                     "calls, best of 2"}
+
+
+def ssd_rank_check(gen, b: int, S: int, H: int, P: int, G: int, N: int,
+                   Q: int) -> dict:
+    """The SSD scan at a rank's heads, (b, S, H, P) with whole B and C (G
+    groups of N) from no state as prefill runs it, and one token from a
+    state as decode does (the step kernel), held to the plain chunked
+    version within SSD_Y_ATOL and SSD_FINAL_ATOL, the prefill shape then
+    timed in turns with its bound; the launches are a comparison's."""
+    from repro_torch.kernels import ssd_scan as ssd
+    checks = []
+    for steps, with_init in ((S, False), (1, True)):
+        x = torch.randn((b, steps, H, P), generator=gen, device="cuda")
+        dt = 0.001 + 0.099 * torch.rand((b, steps, H), generator=gen,
+                                        device="cuda")
+        A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device="cuda"))
+        Bm, Cm = (torch.randn((b, steps, G, N), generator=gen,
+                              device="cuda") for _ in range(2))
+        st = (torch.randn((b, H, P, N), generator=gen, device="cuda")
+              if with_init else None)
+        y, final = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk_size=Q,
+                                init_state=st)
+        torch.cuda.synchronize()
+        y_ref, final_ref = ssd.ssd_chunked_ref(x, dt, A, Bm, Cm, Q, st)
+        y_err = float((y - y_ref).abs().max())
+        final_err = float((final - final_ref).abs().max())
+        checks.append({"shape": [b, steps, H, P, G, N, Q],
+                       "init_state": with_init, "y_max_abs_err": y_err,
+                       "y_atol": SSD_Y_ATOL, "final_max_abs_err": final_err,
+                       "final_atol": SSD_FINAL_ATOL})
+        if not (y_err <= SSD_Y_ATOL and final_err <= SSD_FINAL_ATOL
+                and bool(torch.isfinite(y).all())):
+            raise RuntimeError(f"ssd_scan{(b, steps, H, P, G, N, Q)} "
+                               f"disagrees with its plain version: "
+                               f"max|dy|={y_err}, max|dfinal|={final_err}")
+        if steps == S:
+            args, err = (x, dt, A, Bm, Cm), max(y_err, final_err)
+    plain_a = time_ms(lambda: ssd.ssd_chunked_ref(*args, Q), inner=2,
+                      samples=5)
+    kern_a = time_ms(lambda: ssd.ssd_scan(*args, chunk_size=Q), inner=2,
+                     samples=5)
+    kern_b = time_ms(lambda: ssd.ssd_scan(*args, chunk_size=Q), inner=2,
+                     samples=5)
+    plain_b = time_ms(lambda: ssd.ssd_chunked_ref(*args, Q), inner=2,
+                      samples=5)
+    bound_ms, bound_by, nbytes, flops, _ = ssd_bound(b, S, H, P, G, N, Q)
+    return {"shape": [b, S, H, P, G, N, Q], "checks": checks,
+            "max_abs_err": err, "ms": min(kern_a, kern_b),
+            "plain_ms": min(plain_a, plain_b), "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            "library_ms": None,
+            "timed": "a rank's SSD layer, fp32, init_state None; median of "
+                     "5 x 2 calls, best of 2"}
+
+
+def rank_cache(cache, cfg, mesh):
+    """This rank's copy of a whole decode cache of ``cfg`` on ``mesh``,
+    as the rank's own prefill lays it out: its rows over the data axis;
+    over the model axis its kv heads where they divide it (else all),
+    its RG-LRU channels (``h``, ``conv``), its SSD heads (``ssm``) and an
+    SSD's ``conv`` as [its x channels | B | C] (ROADMAP C)."""
+    import re
+    from repro_torch.distributed import sharding as shd
+    M = mesh.shape["model"]
+    kinds = {**{f"b{i}": k for i, k in enumerate(cfg.block_pattern)},
+             **{f"t{i}": k for i, k in enumerate(cfg.tail_pattern())}}
+    di = cfg.ssm.d_inner(cfg.d_model) if cfg.ssm is not None else 0
+    W = (cfg.rglru.lru_width or cfg.d_model) if cfg.rglru is not None else 0
+
+    def one(path, t):
+        leaf = re.findall(r"\['(\w+)'\]", path)[-2:]
+        kind, name = kinds[leaf[0]], leaf[1]
+        i0 = 1 if path.startswith("['groups']") else 0
+        spec = [None] * t.dim()
+        spec[i0] = "data"
+        if name in ("k", "v") and cfg.num_kv_heads % M == 0:
+            spec[i0 + 2] = "model"
+        elif kind == "rec" and W % M == 0:
+            spec[-1] = "model"
+        elif name == "ssm" and di % M == 0:
+            spec[i0 + 1] = "model"
+        elif kind == "ssd" and di % M == 0:        # conv: [x | B | C]
+            return torch.cat([
+                shd.local_shard(t[..., :di], shd.P(*spec[:-1], "model"),
+                                mesh),
+                shd.local_shard(t[..., di:], shd.P(*spec), mesh)], dim=-1)
+        return shd.local_shard(t, shd.P(*spec), mesh).clone()
+    return shd.tree_map_with_path(one, cache)
+
+
+def tp_forced_io(params, cfg, tokens) -> list:
+    """The one process's bf16 prefill and teacher-forced decode of
+    ``tokens``, recorded at the TP_FORCED_STEPS steps: each one's
+    position, a copy of the whole cache it starts from, and every group's
+    input with the last hidden, (G + 1, B, 1, d), through
+    ``decode_layer_range`` a group at a time."""
+    from repro_torch.models import transformer as tr
+    _, cache = tr.prefill(params, {"tokens": tokens[:, :TP_PROMPT]}, cfg)
+    cache = tr.pad_kv_caches(cache, TP_PROMPT + TP_DECODE_STEPS)
+    out = []
+    for t in range(TP_DECODE_STEPS):
+        pos = TP_PROMPT + t
+        token = tokens[:, pos:pos + 1]
+        if t not in TP_FORCED_STEPS:
+            tr.decode_step(params, token, cache, pos, cfg)
+            continue
+        start = _tree_map(torch.clone, cache)
+        xs = [tr.embed_tokens(params, token, cfg)]
+        for g in range(cfg.num_groups()):
+            xs.append(tr.decode_layer_range(params, xs[-1], cache, pos, cfg,
+                                            start_group=g, stop_group=g + 1))
+        out.append({"step": t, "position": pos, "cache": start,
+                    "inputs": torch.stack(xs)})
+    return out
+
+
+def tp_head(params, h, cfg, ctx=None):
+    """The logits of the hidden state ``h`` (its final norm, the head, the
+    vocabulary gathered over ``ctx``'s model axis)."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import apply_norm
+    return tr.gather_vocab(tr.unembed(
+        params, apply_norm(params["final_norm"], h), cfg, ctx), cfg, ctx)
+
+
+@contextlib.contextmanager
+def nudged_prompt():
+    """Within the block, the embedding of a prompt (more than one token)
+    has one bf16 ulp added to channel 0 of its first token, in every
+    row: the smallest change to the one process's input."""
+    from repro_torch.models import transformer as tr
+    plain = tr.embed_tokens
+
+    def nudged(params, tokens, *args, **kwargs):
+        x = plain(params, tokens, *args, **kwargs)
+        if tokens.shape[1] > 1:
+            x = x.clone()
+            x.view(torch.int16)[:, 0, 0] += 1
+        return x
+    tr.embed_tokens = nudged
+    try:
+        yield
+    finally:
+        tr.embed_tokens = plain
+
+
+def tp_sum_bytes(cfg, rows: int, S: int) -> list:
+    """The bytes of a rank's partial in each sum over the model axis that
+    one pass of ``rows`` rows of ``S`` tokens makes, where every block's
+    heads, channels and ``d_ff`` are cut (as in the phases' models and
+    meshes): the embedding lookup's bf16 rows, then each layer's two fp32
+    partials (``common.matmul_f32``), an attention output and an MLP's,
+    an RG-LRU's ``w_out`` and its MLP's, or an SSD's gated norm's sum of
+    squares (one a token) and its ``out_proj``."""
+    act = rows * S * cfg.d_model
+    each = {"attn": [4 * act, 4 * act], "rec": [4 * act, 4 * act],
+            "ssd": [rows * S * 4, 4 * act]}
+    return [2 * act] + [n for kind in cfg.pattern_for_layers()
+                        for n in each[kind]]
+
+
 def _spans(marks: dict) -> dict:
     """Seconds between consecutive ``time.perf_counter`` marks, by the
     later mark's name (a dict keeps its insertion order)."""
@@ -2972,12 +3192,16 @@ def _spans(marks: dict) -> dict:
     return {names[i]: times[i] - times[i - 1] for i in range(1, len(names))}
 
 
-def _tp_rank(rank, world_size, cfg, params, tokens, io, params32, cfg32):
-    """One rank of ``tp_qwen2``: for each mesh of TP_MESHES, its blocks cut
-    out of the parent's memory (CUDA IPC mappings of the whole tree) by
-    ``reshard``, prefill and decode through the step builders
-    (``tp_serve``), then each layer alone on the one-process forward's
-    input to it (``io``: every layer's input and the last output) and, on
+def _tp_rank(rank, world_size, cfg, params, tokens, io, forced, params32,
+             cfg32, meshes):
+    """One rank of a ``tp_phase``: for each mesh of ``meshes``, its blocks
+    cut out of the parent's memory (CUDA IPC mappings of the whole tree)
+    by ``reshard``, prefill and decode through the step builders
+    (``tp_serve``), then each group alone on the one-process forward's
+    input to it (``io``: every group's input and the last output), each
+    group's decode step teacher-forced at the ``forced`` steps
+    (``tp_forced_io``: the one process's inputs and its cache, cut by
+    ``rank_cache``), the head on the one process's last hidden, and, on
     the first mesh, the fp32 prefill of ``params32``.  Returns what it
     measured (host values); the parent checks.  The rank computes only
     from its own blocks, freed before the next mesh's."""
@@ -2994,7 +3218,7 @@ def _tp_rank(rank, world_size, cfg, params, tokens, io, params32, cfg32):
     positions = torch.arange(TP_PROMPT, device="cuda")
     out = {"rank": rank, "meshes": {}}
     with torch.inference_mode():
-        for name, shape in TP_MESHES:
+        for name, shape in meshes:
             marks = {"start": time.perf_counter()}
             mesh = Mesh(shape, ("data", "model"))
             ctx = shd.make_ctx(mesh)
@@ -3033,8 +3257,29 @@ def _tp_rank(rank, world_size, cfg, params, tokens, io, params32, cfg32):
             marks["layers"] = time.perf_counter()
             r["peak_memory_allocated_bytes"] = (
                 torch.cuda.max_memory_allocated())
+            # teacher-forced: the head at prefill, then each forced step's
+            # groups and head
+            G = cfg.num_groups()
+            r["forced_logits"] = [
+                tp_head(own, io[G, rows][:, -1:], cfg, ctx).cpu()]
+            r["forced_rel_l2"] = []
+            for snap in forced:
+                cache = rank_cache(snap["cache"], cfg, mesh)
+                xs = snap["inputs"][:, rows]
+                errs = []
+                for g in range(G):
+                    y = tr.decode_layer_range(
+                        own, xs[g], cache, snap["position"], cfg, ctx,
+                        start_group=g, stop_group=g + 1)
+                    ref = xs[g + 1].float()
+                    errs.append(float((y.float() - ref).norm() / ref.norm()))
+                r["forced_rel_l2"].append(errs)
+                r["forced_logits"].append(tp_head(own, xs[G], cfg, ctx).cpu())
+                del cache
+            torch.cuda.synchronize()
+            marks["forced"] = time.perf_counter()
             del own
-            if name == TP_MESHES[0][0]:
+            if name == meshes[0][0]:
                 own32 = checkpoint.reshard(params32, shd.named(
                     mesh, shd.param_specs(params32, cfg32, mesh)),
                     device="cuda")
@@ -3049,17 +3294,78 @@ def _tp_rank(rank, world_size, cfg, params, tokens, io, params32, cfg32):
     return out
 
 
+def _attention_rank_checks(gen, cfg, name, shape) -> dict:
+    """Flash and decode attention at a rank's heads of ``cfg`` on a mesh
+    of ``shape`` (the kv heads its query heads read where only those are
+    cut): ``flash_layout_check`` and ``tp_decode_check``."""
+    D, M = shape
+    b, hq, hd = TP_BATCH // D, cfg.num_heads // M, cfg.resolved_head_dim()
+    hkv = (cfg.num_kv_heads // M if cfg.num_kv_heads % M == 0
+           else max(1, hq * cfg.num_kv_heads // cfg.num_heads))
+    window = cfg.window if cfg.attention_kind == "swa" else 0
+    return {"flash_attention": flash_layout_check(
+                gen, (b, TP_PROMPT, TP_PROMPT, hq, hkv, hd, True, window),
+                f"{name} rank"),
+            "decode_attention": tp_decode_check(gen, b, hq, hkv, hd)}
+
+
 def phase_tp_qwen2(cfg, params) -> None:
-    """Qwen2-7B under dense tensor parallelism in 4 gloo ranks on this
-    card, on (1, 4) and (2, 2) (``models/transformer.py``, each rank on its
-    ``param_specs`` blocks; flash and decode attention first held to their
-    plain versions at the ranks' shapes).  Each rank's logits at prefill
-    and every decode step are held to the one-process bf16 run's (relative
-    L2), each layer alone to the one process's (fed its input), every
-    rank's logits and cache to ``tp_as_ranks`` (one process computing as
-    the ranks do) to the bit, a data shard's model ranks to each other,
-    the fp32 first groups to one process's; the launches and the sums'
-    and gathers' hops to what the path makes, each rank's memory to its
+    """Qwen2-7B under dense tensor parallelism on (1, 4) and (2, 2)
+    (``tp_phase``), flash and decode attention first held to their plain
+    versions at the ranks' shapes."""
+    tp_phase("tp_qwen2", cfg, params, TP_MESHES, lambda gen, name, shape:
+             _attention_rank_checks(gen, cfg, name, shape))
+
+
+def phase_tp_recurrentgemma(cfg, params) -> None:
+    """RecurrentGemma-9B under dense tensor parallelism on (1, 4)
+    (``tp_phase``): its RG-LRU blocks by channel, the attention blocks by
+    query heads.  First, at the ranks' shapes, flash (window 2048) and
+    decode attention, and the RG-LRU scan at prefill and at one step."""
+    W = cfg.rglru.lru_width or cfg.d_model
+
+    def check(gen, name, shape):
+        return {**_attention_rank_checks(gen, cfg, name, shape),
+                "rglru_scan": rglru_rank_check(
+                    gen, TP_BATCH // shape[0], TP_PROMPT, W // shape[1])}
+    tp_phase("tp_recurrentgemma", cfg, params, TP_RECURRENTGEMMA_MESHES,
+             check, gate_free_running=False)
+
+
+def phase_tp_mamba(cfg, params) -> None:
+    """Mamba-2-780M under dense tensor parallelism on (1, 4) and (2, 2)
+    (``tp_phase``): its SSD blocks by whole heads.  First, at the ranks'
+    heads, the SSD scan at prefill and the step kernel at one token."""
+    s = cfg.ssm
+
+    def check(gen, name, shape):
+        return {"ssd_scan": ssd_rank_check(
+            gen, TP_BATCH // shape[0], TP_PROMPT,
+            s.n_heads(cfg.d_model) // shape[1], s.head_dim, s.n_groups,
+            s.d_state, s.chunk_size)}
+    tp_phase("tp_mamba", cfg, params, TP_MAMBA_MESHES, check,
+             gate_free_running=False)
+
+
+def tp_phase(phase: str, cfg, params, meshes, check_kernels,
+             gate_free_running: bool = True) -> None:
+    """``cfg``'s model under dense tensor parallelism in 4 gloo ranks on
+    this card, on each (data, model) mesh of ``meshes``
+    (``models/transformer.py``, each rank on its ``param_specs`` blocks;
+    ``check_kernels(gen, name, shape)`` first holds the path's kernels to
+    their plain versions at a mesh's rank shapes, before any count is set
+    to 0).  Each rank's logits at prefill and every decode step are
+    measured against the one-process bf16 run's (relative L2), beside the
+    distance one bf16 ulp added to the one process's prompt moves them
+    (``nudged_prompt``), and held to TP_REL_L2 with
+    ``gate_free_running``.  Teacher-forced, each group alone is held to
+    the one process's (fed its input) at prefill and at the
+    TP_FORCED_STEPS decode steps (fed its state too), and the head on the
+    one process's last hidden to its logits.  Every rank's logits and
+    cache are held to ``tp_as_ranks`` (one process computing as the ranks
+    do) to the bit, a data shard's model ranks to each other, the fp32
+    first groups to one process's; the launches and the sums' and
+    gathers' hops to what the path makes, each rank's memory to its
     blocks and cache, and every block sent to the ranks freed once they
     are gone.  One card time-shares the ranks: no speed-up is claimed."""
     from repro_torch.distributed import sharding as shd
@@ -3075,20 +3381,11 @@ def phase_tp_qwen2(cfg, params) -> None:
         raise RuntimeError(f"compute mode {mode!r}: 4 ranks cannot share "
                            f"the card (needs 'Default')")
     marks = {"start": time.perf_counter()}
-    G, V, Vp, d = (cfg.num_groups(), cfg.vocab_size, cfg.padded_vocab(),
-                   cfg.d_model)
-    hd = cfg.resolved_head_dim()
+    G, V, Vp = cfg.num_groups(), cfg.vocab_size, cfg.padded_vocab()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # the kernels at the ranks' shapes, before any count is set to 0
-    kernel_checks = {}
-    for name, (D, M) in TP_MESHES:
-        b, hq, hkv = (TP_BATCH // D, cfg.num_heads // M,
-                      cfg.num_kv_heads // M)
-        kernel_checks[name] = {
-            "flash_attention": flash_layout_check(
-                gen, (b, TP_PROMPT, TP_PROMPT, hq, hkv, hd, True, 0),
-                f"{name} rank"),
-            "decode_attention": tp_decode_check(gen, b, hq, hkv, hd)}
+    kernel_checks = {name: check_kernels(gen, name, shape)
+                     for name, shape in meshes}
     marks["kernel_checks"] = time.perf_counter()
     kernels = ops.kernel_registry()
     tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
@@ -3107,10 +3404,21 @@ def phase_tp_qwen2(cfg, params) -> None:
     one_logits, cache, one = tp_serve(None, cfg, params, tokens,
                                       counted=False)
     del cache
+    with nudged_prompt():
+        nudged, cache, _ = tp_serve(None, cfg, params, tokens, counted=False)
+    del cache
+    nudge = [_rel_l2(nudged[t], one_logits[t], V)
+             for t in range(1 + TP_DECODE_STEPS)]
+    # the same decode a group at a time, the forced steps recorded; its
+    # head must give the one process's logits to the bit
+    forced = tp_forced_io(params, cfg, tokens)
+    forced_same = all(torch.equal(
+        tp_head(params, f["inputs"][G], cfg).cpu(),
+        one_logits[1 + f["step"]]) for f in forced)
     marks["one_process"] = time.perf_counter()
     # the same, each rank a thread of this process on its own blocks
     as_ranks = {}
-    for name, shape in TP_MESHES:
+    for name, shape in meshes:
         def rank_serve(mesh):
             own = checkpoint.reshard(params, shd.named(
                 mesh, shd.param_specs(params, cfg, mesh)), device="cuda")
@@ -3121,20 +3429,20 @@ def phase_tp_qwen2(cfg, params) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         marks[f"as_ranks_{name}"] = time.perf_counter()
-    # the first groups in fp32, and one process's prefill of them
+    # the first groups in fp32 (no tail), and one process's prefill of them
+    n32 = min(TP_FP32_GROUPS, G)
     cfg32 = dataclasses.replace(
-        cfg, num_layers=TP_FP32_GROUPS * len(cfg.block_pattern),
-        param_dtype="float32")
+        cfg, num_layers=n32 * len(cfg.block_pattern), param_dtype="float32")
     # copies, the leaves already in fp32 too (the ranks map this tree)
     params32 = _tree_map(lambda t: t.to(torch.float32, copy=True), {
-        **params, "blocks": _tree_map(lambda t: t[:TP_FP32_GROUPS],
-                                      params["blocks"])})
+        **{k: v for k, v in params.items() if k != "tail"},
+        "blocks": _tree_map(lambda t: t[:n32], params["blocks"])})
     want32 = tr.prefill(params32, {"tokens": tokens[:, :TP_PROMPT]},
                         cfg32)[0].cpu()
     marks["fp32"] = time.perf_counter()
     # each mesh's blocks, by arithmetic on the specs (rank 0's views)
     blocks = {}
-    for name, shape in TP_MESHES:
+    for name, shape in meshes:
         mesh = Mesh(shape, ("data", "model"))
         blocks[name] = sum(
             shd.local_shard(t, s, mesh, rank=0).numel() * t.element_size()
@@ -3142,7 +3450,9 @@ def phase_tp_qwen2(cfg, params) -> None:
                 shd.param_specs(params, cfg, mesh))))
     # what the ranks map (the parameters apart, freed by main)
     sent = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
-            for t in (tokens, io, *_leaves(params32))}
+            for t in (tokens, io, *_leaves(params32),
+                      *(t for f in forced
+                        for t in (f["inputs"], *_leaves(f["cache"]))))}
     gc.collect()
     torch.cuda.synchronize()
     allocated_before = torch.cuda.memory_allocated()
@@ -3150,10 +3460,11 @@ def phase_tp_qwen2(cfg, params) -> None:
     marks["sent"] = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         ranks = run_world(_tp_rank, 4,
-                          (cfg, params, tokens, io, params32, cfg32),
+                          (cfg, params, tokens, io, forced, params32, cfg32,
+                           meshes),
                           workdir=workdir, timeout=TP_TIMEOUT_S)
     marks["world"] = time.perf_counter()
-    del tokens, io, params32
+    del tokens, io, forced, params32
     gc.collect()
     torch.cuda.ipc_collect()
     torch.cuda.synchronize()
@@ -3164,26 +3475,29 @@ def phase_tp_qwen2(cfg, params) -> None:
             for b in seg["blocks"] if b["state"] != "inactive"}
     kept = {ptr: n for ptr, n in sent.items() if ptr in held}
 
-    failed, meshes = [], {}
+    failed, per_mesh = [], {}
+    if not forced_same:
+        failed.append("the group-at-a-time decode's logits are not the one "
+                      "process's")
     if kept:
         failed.append(f"blocks of {sorted(kept.values())} B sent to the ranks "
                       f"still allocated after the world: a rank kept a "
                       f"block it mapped")
-    n_sums = 2 * G + 1      # attention and MLP each layer, the lookup
-    for name, (D, M) in TP_MESHES:
+    for name, (D, M) in meshes:
         rs = [r["meshes"][name] for r in ranks]
         rows = TP_BATCH // D
-        # each sum: the rank's bf16 partial sent to the M - 1 others
-        sum_hop = {"prefill": rows * TP_PROMPT * d * 2, "decode": rows * d * 2}
+        # each sum: the rank's partial sent to the M - 1 others
+        sums = {"prefill": tp_sum_bytes(cfg, rows, TP_PROMPT),
+                "decode": tp_sum_bytes(cfg, rows, 1)}
         gather_hop = rows * (Vp // M) * 2
         want_hops = {
-            "prefill_psum": (n_sums * (M - 1),
-                             n_sums * (M - 1) * sum_hop["prefill"]),
+            "prefill_psum": (len(sums["prefill"]) * (M - 1),
+                             sum(sums["prefill"]) * (M - 1)),
             "prefill_gather": (M - 1, (M - 1) * gather_hop),
-            "psum": (n_sums * (M - 1) * (1 + TP_DECODE_STEPS),
-                     n_sums * (M - 1) * (sum_hop["prefill"]
-                                         + TP_DECODE_STEPS
-                                         * sum_hop["decode"])),
+            "psum": ((len(sums["prefill"])
+                      + TP_DECODE_STEPS * len(sums["decode"])) * (M - 1),
+                     (sum(sums["prefill"])
+                      + TP_DECODE_STEPS * sum(sums["decode"])) * (M - 1)),
             "gather": ((M - 1) * (1 + TP_DECODE_STEPS),
                        (M - 1) * (1 + TP_DECODE_STEPS) * gather_hop)}
         for i, r in enumerate(rs):
@@ -3193,6 +3507,11 @@ def phase_tp_qwen2(cfg, params) -> None:
                            for t in range(1 + TP_DECODE_STEPS)]
             first = next(s for s in rs if s["data_index"] == dd)
             emulated_logits, emulated_cache = as_ranks[name][i]
+            r["forced_logits_rel_l2"] = [
+                _rel_l2(lg, ref[t], V) for lg, t in zip(
+                    r["forced_logits"], (0,) + tuple(
+                        1 + step for step in TP_FORCED_STEPS))]
+            forced_max = max(max(e) for e in r["forced_rel_l2"])
             checks = [
                 ("non-finite logits", r["finite"]),
                 ("logits not bit-equal to the one process computing as the "
@@ -3202,10 +3521,15 @@ def phase_tp_qwen2(cfg, params) -> None:
                 ("logits not bit-equal to the data shard's first rank's",
                  torch.equal(r["logits"], first["logits"])),
                 (f"rel L2 {max(r['rel_l2'])} > {TP_REL_L2}",
-                 max(r["rel_l2"]) <= TP_REL_L2),
+                 max(r["rel_l2"]) <= TP_REL_L2 or not gate_free_running),
                 (f"a layer's rel L2 {max(r['layer_rel_l2'])} > "
                  f"{TP_LAYER_REL_L2}",
                  max(r["layer_rel_l2"]) <= TP_LAYER_REL_L2),
+                (f"a teacher-forced decode group's rel L2 {forced_max} > "
+                 f"{TP_LAYER_REL_L2}", forced_max <= TP_LAYER_REL_L2),
+                (f"teacher-forced logits' rel L2 "
+                 f"{max(r['forced_logits_rel_l2'])} > {TP_REL_L2}",
+                 max(r["forced_logits_rel_l2"]) <= TP_REL_L2),
                 (f"prefill launched {r['prefill_launches']}",
                  r["prefill_launches"] == _prefill_launches(cfg)),
                 (f"decode launched {r['decode_launches']}",
@@ -3232,10 +3556,14 @@ def phase_tp_qwen2(cfg, params) -> None:
         def rate(r, key):
             return r[key]["bytes"] / max(r[key]["transfer_seconds"]
                                          + r[key]["host_copy_seconds"], 1e-9)
-        meshes[name] = {
+        per_mesh[name] = {
             "mesh": [D, M], "blocks_bytes": blocks[name],
             "rel_l2_max": max(max(r["rel_l2"]) for r in rs),
             "layer_rel_l2_max": max(max(r["layer_rel_l2"]) for r in rs),
+            "forced_rel_l2_max": max(max(max(e) for e in r["forced_rel_l2"])
+                                     for r in rs),
+            "forced_logits_rel_l2_max": max(max(r["forced_logits_rel_l2"])
+                                            for r in rs),
             "fp32_rel_l2": [r.get("fp32_rel_l2") for r in rs],
             "prefill_seconds": [r["prefill_seconds"] for r in rs],
             "step_seconds_median": [statistics.median(r["step_seconds"])
@@ -3243,9 +3571,10 @@ def phase_tp_qwen2(cfg, params) -> None:
             "psum_gb_per_s": [rate(r, "psum") / 1e9 for r in rs],
             "expected_hops": want_hops,
             "ranks": [{k: v for k, v in r.items()
-                       if k not in ("logits", "fp32_logits", "step_seconds")}
+                       if k not in ("logits", "fp32_logits", "step_seconds",
+                                    "forced_logits")}
                       for r in rs]}
-    emit("tp_qwen2", config=cfg.name, batch=TP_BATCH, prompt=TP_PROMPT,
+    emit(phase, config=cfg.name, batch=TP_BATCH, prompt=TP_PROMPT,
          decode_steps=TP_DECODE_STEPS, groups=G, backend="gloo",
          compute_mode=mode, kernel_checks=kernel_checks,
          one_process={"prefill_seconds": one["prefill_seconds"],
@@ -3253,14 +3582,16 @@ def phase_tp_qwen2(cfg, params) -> None:
                           one["step_seconds"])},
          limit_rel_l2=TP_REL_L2, limit_layer_rel_l2=TP_LAYER_REL_L2,
          limit_fp32_rel_l2=TP_FP32_REL_L2, model_bytes=_nbytes(params),
+         free_running_gated=gate_free_running, one_ulp_nudge_rel_l2=nudge,
+         forced_steps=TP_FORCED_STEPS,
          rank_margin_bytes=PIPE_RANK_MARGIN_BYTES,
          world_seconds=marks["world"] - marks["sent"],
          sent_bytes=sum(sent.values()), freed_after_world_bytes=freed,
          sent_blocks=len(sent), sent_blocks_still_allocated=len(kept),
-         meshes=meshes, failed=failed, spans=_spans(marks),
+         meshes=per_mesh, failed=failed, spans=_spans(marks),
          seconds=time.perf_counter() - marks["start"])
     if failed:
-        raise RuntimeError("tp_qwen2: " + "; ".join(failed))
+        raise RuntimeError(f"{phase}: " + "; ".join(failed))
 
 
 class record_routing:
@@ -5189,12 +5520,12 @@ def checkpoint_round_trip(cfg, params) -> dict:
 def phase_train_cli() -> None:
     """smollm-135m at full width: the checkpoint round trip, then
     ``launch/train.py``'s ``main`` twice on one checkpoint directory
-    (CLI_STEPS steps each, its lines captured, the launch counts set to 0
-    just before and read just after each run).  The second run must
-    resume at step CLI_STEPS, its first loss equal to a no-grad
-    ``train_forward`` of the restored step-CLI_STEPS parameters on that
-    step's batch within TRAIN_LOSS_RTOL.  Raises on any miss, after
-    printing its line."""
+    (CLI_STEPS steps, then CLI_RESUME_STEPS, its lines captured, the
+    launch counts set to 0 just before and read just after each run).
+    The second run must resume at step CLI_STEPS, its first loss equal to
+    a no-grad ``train_forward`` of the restored step-CLI_STEPS parameters
+    on that step's batch within TRAIN_LOSS_RTOL.  Raises on any miss,
+    after printing its line."""
     from repro_torch.data.pipeline import DataConfig, batch_for_config
     from repro_torch.launch import train as launch
     from repro_torch.models import transformer as tr
@@ -5208,19 +5539,18 @@ def phase_train_cli() -> None:
     torch.cuda.empty_cache()
 
     directory = tempfile.mkdtemp()
-    argv = ["--arch", CLI_ARCH, "--full", "--steps", str(CLI_STEPS),
-            "--batch", str(CLI_BATCH), "--seq", str(CLI_SEQ),
-            "--ckpt-dir", directory, "--device", "cuda"]
+    argv = ["--arch", CLI_ARCH, "--full", "--batch", str(CLI_BATCH), "--seq",
+            str(CLI_SEQ), "--ckpt-dir", directory, "--device", "cuda"]
     per_step = _train_launches(cfg)
     runs = []
     try:
-        for _ in range(2):
+        for steps in (CLI_STEPS, CLI_RESUME_STEPS):
             reset_launch_counts()
             printed = io.StringIO()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(printed):
-                hist = launch.main(argv)
+                hist = launch.main(argv + ["--steps", str(steps)])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = launch_counts()
@@ -5234,9 +5564,9 @@ def phase_train_cli() -> None:
                 "printed_steps": [int(ln.split()[1]) for ln in lines
                                   if ln.startswith("step ")],
                 "losses": [h["loss"] for h in hist],
-                "summary": lines[-1], "launches": launches,
+                "summary": lines[-1], "launches": launches, "steps": steps,
                 "flash_launches_per_step":
-                    launches["flash_attention"] / CLI_STEPS,
+                    launches["flash_attention"] / steps,
                 "checkpoints": sorted(os.listdir(directory))})
         template = tr.init_params(
             cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
@@ -5257,21 +5587,26 @@ def phase_train_cli() -> None:
     torch.cuda.empty_cache()
     resumed = runs[1]["losses"][0]
     held = abs(resumed - loss) / abs(loss)
-    expected = {k: CLI_STEPS * v for k, v in per_step.items()}
-    logged = [0] + list(range(9, CLI_STEPS, 10))
-    emit("train_cli", **info, batch=CLI_BATCH, seq=CLI_SEQ, steps=CLI_STEPS,
-         checkpoint=round_trip, runs=runs, launches_per_step=per_step,
-         resumed_loss=resumed, restored_no_grad_loss=loss,
-         resumed_rel_diff=held, limit_loss_rtol=TRAIN_LOSS_RTOL,
+
+    def logged(steps):
+        """The steps a run of ``steps`` logs: its first, then every 10th."""
+        return [0] + list(range(9, steps, 10))
+    emit("train_cli", **info, batch=CLI_BATCH, seq=CLI_SEQ,
+         steps=[CLI_STEPS, CLI_RESUME_STEPS], checkpoint=round_trip,
+         runs=runs, launches_per_step=per_step, resumed_loss=resumed,
+         restored_no_grad_loss=loss, resumed_rel_diff=held,
+         limit_loss_rtol=TRAIN_LOSS_RTOL,
          seconds=time.perf_counter() - t_phase)
     misses = [what for what, ok in (
-        ("first run's steps", runs[0]["printed_steps"] == logged),
+        ("first run's steps", runs[0]["printed_steps"] == logged(CLI_STEPS)),
         ("resumed at step 100", runs[1]["printed_steps"]
-         == [CLI_STEPS + s for s in logged]),
-        ("checkpoints", runs[0]["checkpoints"] == ["LATEST", "step_00000100"]
-         and runs[1]["checkpoints"] == ["LATEST", "step_00000100",
-                                        "step_00000200"]),
-        ("launches", all(r["launches"] == expected for r in runs)),
+         == [CLI_STEPS + s for s in logged(CLI_RESUME_STEPS)]),
+        # a checkpoint every 100 steps: the resumed run writes none
+        ("checkpoints", all(r["checkpoints"] == ["LATEST", "step_00000100"]
+                            for r in runs)),
+        ("launches", all(r["launches"]
+                         == {k: r["steps"] * v for k, v in per_step.items()}
+                         for r in runs)),
         ("finite losses", all(math.isfinite(x) for r in runs
                               for x in r["losses"])),
         ("one device", all(r["summary"].endswith(
@@ -5737,12 +6072,20 @@ def main() -> int:
         cloud, device, prompts = phase_lm_serve(lm_entries)
         phase_lm_profile(cloud, device, prompts)
         phase_model_decode("lm_decode", cloud.cfg, cloud.params, prompts)
+        torch.cuda.empty_cache()
+        phase_tp_recurrentgemma(cloud.cfg, cloud.params)
         del cloud, device
         gc.collect()                 # RecurrentGemma's 15 GB of weights
+        torch.cuda.ipc_collect()     # once the ranks released them
         torch.cuda.empty_cache()
         ssd_entry = phase_ssd_kernels()
-        phase_model_decode("mamba_decode", *phase_mamba_serve(ssd_entry))
+        mamba = phase_mamba_serve(ssd_entry)
+        phase_model_decode("mamba_decode", *mamba)
+        torch.cuda.empty_cache()
+        phase_tp_mamba(*mamba[:2])
+        del mamba
         gc.collect()                 # Mamba-2's 1.7 GB of weights
+        torch.cuda.ipc_collect()     # once the ranks released them
         torch.cuda.empty_cache()
         decode_entry = phase_decode_kernels()
         measured = {}

@@ -24,6 +24,24 @@ def pdtype(cfg) -> torch.dtype:
     return DTYPES[cfg.param_dtype]
 
 
+def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a`` (..., k) @ ``w`` (k, n) in fp32: bf16 operands' products,
+    exact in fp32, are accumulated and returned in fp32 with no rounding
+    to bf16 (``torch.mm``'s ``out_dtype`` on a CUDA tensor; the operands
+    upcast on a CPU tensor, the same products).  A rank's partial of a
+    product whose contraction is cut over a model axis is made so, and
+    rounded once after the sum over the axis, as one device's product
+    is rounded once."""
+    a2 = a.reshape(-1, a.shape[-1])
+    if a.dtype == torch.float32 and w.dtype == torch.float32:
+        y = a2 @ w
+    elif a.is_cuda:
+        y = torch.mm(a2, w, out_dtype=torch.float32)
+    else:
+        y = a2.float() @ w.float()
+    return y.reshape(a.shape[:-1] + (w.shape[-1],))
+
+
 # --------------------------------------------------------------------------
 # Initializers
 # --------------------------------------------------------------------------

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.compat import DeviceLike, resolve_device
-from repro_torch.models.common import dense_init, pdtype
+from repro_torch.models.common import dense_init, matmul_f32, pdtype
 
 
 def init_mlp(generator: torch.Generator, cfg, d: int | None = None,
@@ -28,7 +28,10 @@ def init_mlp(generator: torch.Generator, cfg, d: int | None = None,
             "wo": dense_init(generator, (f, d), dt, device=device)}
 
 
-def apply_mlp(p, x, cfg):
+def apply_mlp(p, x, cfg, *, out_f32: bool = False):
+    """The FFN of ``x``; with ``out_f32`` its output product in fp32,
+    unrounded (``common.matmul_f32``): a rank's partial over its ``d_ff``
+    columns, for a sum over the model axis that rounds once."""
     if cfg.activation == "swiglu":
         g = torch.einsum("...d,df->...f", x, p["wi_gate"])
         u = torch.einsum("...d,df->...f", x, p["wi_up"])
@@ -39,4 +42,6 @@ def apply_mlp(p, x, cfg):
             h = F.relu(h.float()).square().to(x.dtype)
         else:  # gelu
             h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    if out_f32:
+        return matmul_f32(h, p["wo"])
     return torch.einsum("...f,fd->...d", h, p["wo"])

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.rglru_scan import rglru_scan_ref
-from repro_torch.models.common import dense_init, pdtype
+from repro_torch.models.common import dense_init, matmul_f32, pdtype
 
 #: the reference's name for the plain scan (its oracle), which lives
 #: beside the kernel's wrapper in the port
@@ -98,11 +98,19 @@ def _lru_gates(p, u, c_constant):
     return a, b
 
 
-def apply_rglru_block(p, x, cfg, state=None, kernel_fn=None):
+def apply_rglru_block(p, x, cfg, state=None, kernel_fn=None, *,
+                      out_f32: bool = False):
     """x (B,S,d) -> (y (B,S,d), new_state).
 
     state: {"h": (B,W) fp32, "conv": (B,K-1,W)} carried across segments /
     decode steps (also the boundary state shipped by the paper's split).
+
+    Under dense tensor parallelism ``p`` may hold one rank's channels: a
+    block of ``W`` in the input products, the conv, ``ba``, ``bx`` and
+    ``lam``, and the gate blocks ``wa``, ``wx`` that cover it.  All up to
+    ``y`` is channel by channel, the state is the rank's, and the output
+    is the rank's partial of ``w_out``, for the caller to sum; with
+    ``out_f32`` it is left in fp32, unrounded (``common.matmul_f32``).
     """
     r = cfg.rglru
     gate = F.gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate_in"]).float(),
@@ -115,7 +123,8 @@ def apply_rglru_block(p, x, cfg, state=None, kernel_fn=None):
     scan = kernel_fn if kernel_fn is not None else ops.rglru_scan
     h = scan(a, b, h0)                                         # (B,S,W) fp32
     y = (h * gate).to(x.dtype)
-    out = torch.einsum("bsw,wd->bsd", y, p["w_out"])
+    out = (matmul_f32(y, p["w_out"]) if out_f32
+           else torch.einsum("bsw,wd->bsd", y, p["w_out"]))
     K = p["conv_w"].shape[0]
     if prefix is None:
         prefix = u_pre.new_zeros((x.shape[0], K - 1, u_pre.shape[-1]))

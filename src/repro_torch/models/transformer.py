@@ -35,11 +35,13 @@ Over a mesh of ``torch.distributed`` ranks (a ``ShardCtx`` whose model
 axis is above 1), prefill and decode run the reference's dense tensor
 parallelism, which it gets from GSPMD, written out: each rank holds its
 blocks of a tree cut by ``distributed/sharding.py::param_specs``
-(self-attention by heads, the dense MLP by ``d_ff``, the vocabulary by
-rows and columns), sums each block's partial outputs over the axis
-(``collectives.psum``), and gathers the logits whole.  Recurrent and
-cross-attention blocks and encoders run whole only (ROADMAP A10.2c-rec);
-training under it raises (A10.2c-train).
+(self-attention by heads, the dense MLP by ``d_ff``, the RG-LRU by
+channels, the SSD by ``d_inner`` in whole heads, the vocabulary by rows
+and columns), sums each block's partial outputs over the axis
+(``collectives.psum``; the SSD's gated norm sums its squares so too),
+keeps its own recurrent states, and gathers the logits whole.
+Cross-attention blocks and encoders run whole only (ROADMAP
+A10.2c-xattn); training under it raises (A10.2c-train).
 
 Ported so far: attention (self- and cross-attention), RG-LRU and SSD
 (Mamba-2) blocks, dense MLPs and Mixture-of-Experts FFNs
@@ -71,6 +73,7 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     init_norm,
+    matmul_f32,
     pdtype,
 )
 from repro_torch.models.mlp import apply_mlp, init_mlp
@@ -264,11 +267,15 @@ def _model_rank(ctx) -> int:
     return ctx.mesh.axis_index(ctx.model_axis)
 
 
-def _psum(y, ctx):
+def _psum(y, ctx, dtype=None):
     """The ranks' partial ``y`` summed over the model axis
-    (``collectives.psum``: fp32 in rank order, rounded once)."""
+    (``collectives.psum``: fp32 in rank order), rounded once to ``dtype``
+    (``y``'s by default).  A cut product's partial comes in fp32
+    (``common.matmul_f32``), so that the sum rounds it once, as one
+    device rounds its product."""
     _need_model_axis(ctx)
-    return collectives.psum(y, ctx.model_axis, mesh=ctx.mesh)
+    return collectives.psum(y, ctx.model_axis, mesh=ctx.mesh).to(
+        dtype or y.dtype)
 
 
 def _rank_block_shapes(kind: str, cfg, ctx) -> Dict[str, tuple]:
@@ -282,6 +289,27 @@ def _rank_block_shapes(kind: str, cfg, ctx) -> Dict[str, tuple]:
             if key.startswith(prefix)}
 
 
+def _no_rank_alone(kind, cfg, M: int):
+    """Why no rank can compute its ``param_specs`` blocks of a ``kind``
+    block alone over a model axis of ``M``, or None where it can."""
+    if kind == "rec":
+        W, nb = cfg.rglru.lru_width or cfg.d_model, cfg.rglru.diag_blocks
+        if W % M == 0 and nb % M:
+            return (f"the LRU width {W} is cut by channel while the "
+                    f"{nb} gate blocks (wa, wx) stay whole, so a rank's "
+                    f"{W // M} channels cover only part of a gate block")
+    if kind == "ssd":
+        di, P, G = (cfg.ssm.d_inner(cfg.d_model), cfg.ssm.head_dim,
+                    cfg.ssm.n_groups)
+        if di % M == 0 and (di // M) % P:
+            return (f"d_inner {di} is cut into {di // M} channels a rank, "
+                    f"not a whole number of heads of {P}")
+        if di % M == 0 and G > 1:
+            return (f"n_groups {G}: a rank's heads would have to read "
+                    f"their own B/C groups, which is not built")
+    return None
+
+
 def _cut_over_model(kind, p, cfg, ctx, lead: tuple = ()) -> bool:
     """Whether block ``p`` (or a stack of blocks, ``lead`` its leading
     dimensions) holds this rank's blocks of its weights under
@@ -291,9 +319,9 @@ def _cut_over_model(kind, p, cfg, ctx, lead: tuple = ()) -> bool:
     them.  Without a model axis above 1 it is whole (prefill and decode
     hold the tree to that: ``_check_tree``).  Raises where the leaves are
     neither all whole nor all cut (a rank would compute wrong answers
-    without a word), and for a recurrent (``rec``, ``ssd``) or
-    cross-attention block that is cut at all: their dense tensor
-    parallelism is ROADMAP A10.2c-rec."""
+    without a word), where the rules cut an RG-LRU or SSD block so that
+    no rank can compute alone (``_no_rank_alone``), and for a
+    cross-attention block that is cut at all (ROADMAP A10.2c-xattn)."""
     if not _tp(ctx):
         return False
     cross = "xwq" in p
@@ -307,23 +335,29 @@ def _cut_over_model(kind, p, cfg, ctx, lead: tuple = ()) -> bool:
     whole = _block_shapes(kind, cfg, cross)
     if fits(whole):
         return False
-    if kind != "attn" or cross:
-        what = f"{kind} block" + (" with cross-attention" if cross else "")
+    if cross:
         raise NotImplementedError(
-            f"{what} cut over a model axis of {ctx.model_size}: dense "
-            f"tensor parallelism of recurrent and cross-attention blocks is "
-            f"not ported (ROADMAP A10.2c-rec); give such blocks whole")
-    local = _rank_block_shapes(kind, cfg, ctx)
-    if fits(local):
+            f"{kind} block with cross-attention cut over a model axis of "
+            f"{ctx.model_size}: dense tensor parallelism of cross-attention "
+            f"blocks is not ported (ROADMAP A10.2c-xattn); give such blocks "
+            f"whole")
+    if fits(_rank_block_shapes(kind, cfg, ctx)):
+        why = _no_rank_alone(kind, cfg, ctx.model_size)
+        if why:
+            raise NotImplementedError(
+                f"{kind} block cut by param_specs over a model axis of "
+                f"{ctx.model_size}: {why}; no rank can compute its blocks "
+                f"alone under dense tensor parallelism (ROADMAP A10.2c); "
+                f"give such blocks whole")
         return True
     cut = [f"{key} {shape}" for key, shape in leaves
            if shape != lead + whole.get(key, ())]
     raise NotImplementedError(
-        f"attn block over a model axis of {ctx.model_size}: {', '.join(cut)}"
-        f" not the config's whole shapes, and the block not this rank's "
-        f"blocks either: dense tensor parallelism takes every leaf of a "
-        f"block whole or every leaf cut by distributed/sharding.py::"
-        f"param_specs (ROADMAP A10.2c)")
+        f"{kind} block over a model axis of {ctx.model_size}: "
+        f"{', '.join(cut)} not the config's whole shapes, and the block not "
+        f"this rank's blocks either: dense tensor parallelism takes every "
+        f"leaf of a block whole or every leaf cut by distributed/"
+        f"sharding.py::param_specs (ROADMAP A10.2c)")
 
 
 def _check_tree(params, cfg, ctx) -> None:
@@ -337,7 +371,7 @@ def _check_tree(params, cfg, ctx) -> None:
     rank's cut block would give wrong answers without a word).  Over one,
     each decoder block is whole or this rank's ``param_specs`` blocks
     (``_cut_over_model``); an encoder's stack is whole (ROADMAP
-    A10.2c-rec); ``embed`` and ``lm_head`` are whole or cut by vocabulary
+    A10.2c-xattn); ``embed`` and ``lm_head`` are whole or cut by vocabulary
     rows and columns."""
     G = cfg.num_groups()
     stacks = [(kind, params["blocks"][f"b{i}"], (G,))
@@ -370,7 +404,7 @@ def _check_tree(params, cfg, ctx) -> None:
             raise NotImplementedError(
                 f"an encoder cut over a model axis of {ctx.model_size}: "
                 f"dense tensor parallelism of encoder stacks is not ported "
-                f"(ROADMAP A10.2c-rec); give the encoder whole")
+                f"(ROADMAP A10.2c-xattn); give the encoder whole")
     local = sharding.local_shapes(cfg, ctx.mesh, ctx.model_axis)
     Vp, d = cfg.padded_vocab(), cfg.d_model
     for key, whole in (("embed", (Vp, d)), ("lm_head", (d, Vp))):
@@ -396,17 +430,19 @@ def _rank_kv(p, k, v, cfg, ctx):
 
 
 def _heads_out(o, wo, cfg, ctx):
-    """The attention output ``o`` through ``wo``: a partial over this
-    rank's heads, summed over the model axis, when ``wo`` is cut."""
-    y = torch.einsum("bshe,hed->bsd", o, wo)
-    return _psum(y, ctx) if wo.shape[0] < cfg.num_heads else y
+    """The attention output ``o`` through ``wo``: when ``wo`` is cut, an
+    fp32 partial over this rank's heads, summed over the model axis."""
+    if wo.shape[0] == cfg.num_heads:
+        return torch.einsum("bshe,hed->bsd", o, wo)
+    return _psum(matmul_f32(o.flatten(-2), wo.flatten(0, 1)), ctx, o.dtype)
 
 
 def _mlp(p, x, cfg, ctx):
-    """The dense MLP: a partial over this rank's ``d_ff`` columns, summed
-    over the model axis, when it is cut."""
-    y = apply_mlp(p, x, cfg)
-    return _psum(y, ctx) if p["wo"].shape[0] < cfg.d_ff else y
+    """The dense MLP: when it is cut, an fp32 partial over this rank's
+    ``d_ff`` columns, summed over the model axis."""
+    if p["wo"].shape[0] == cfg.d_ff:
+        return apply_mlp(p, x, cfg)
+    return _psum(apply_mlp(p, x, cfg, out_f32=True), ctx, x.dtype)
 
 
 def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
@@ -451,6 +487,39 @@ def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
     return x, aux, kv
 
 
+def _recurrent_block(kind, p, x, cfg, ctx, state=None, kernel_fn=None):
+    """An RG-LRU (``rec``, with its MLP) or SSD block over ``x``, from
+    ``state`` when given.  Returns (x, new_state).
+
+    Over a model axis above 1, ``p`` may hold this rank's ``param_specs``
+    blocks (``_cut_over_model``): the RG-LRU's channels (its gate blocks
+    with them) and the MLP's ``d_ff``, or the SSD's ``d_inner`` by whole
+    heads, with its B, C and dt whole.  The block then runs on them, its
+    state is the rank's, and ``w_out``, the MLP and ``out_proj`` each end
+    in one sum of their partial outputs over the axis, as does the SSD's
+    gated norm's sum of squares; ``x`` stays whole on every rank."""
+    h = apply_norm(p["norm1"], x)
+    if kind == "rec":
+        r = p["rglru"]
+        cut = r["w_out"].shape[0] < (cfg.rglru.lru_width or cfg.d_model)
+        y, new_state = rglru_lib.apply_rglru_block(
+            r, h, cfg, state=state, kernel_fn=kernel_fn, out_f32=cut)
+        x = x + (_psum(y, ctx, x.dtype) if cut else y)
+        h2 = apply_norm(p["norm2"], x)
+        return x + _mlp(p["mlp"], h2, cfg, ctx), new_state
+    if kind == "ssd":
+        s = p["ssd"]
+        di_r = s["x_proj"].shape[-1]
+        cut = di_r < cfg.ssm.d_inner(cfg.d_model)
+        rank = (dict(first_head=_model_rank(ctx) * (di_r // cfg.ssm.head_dim),
+                     norm_sum=lambda t: _psum(t, ctx), out_f32=True)
+                if cut else {})
+        y, new_state = ssd_lib.apply_ssd_block(
+            s, h, cfg, state=state, kernel_fn=kernel_fn, **rank)
+        return x + (_psum(y, ctx, x.dtype) if cut else y), new_state
+    raise ValueError(kind)
+
+
 def apply_block_seq(kind, p, x, cfg, ctx, *, positions, state=None,
                     enc_out=None, return_cache=False, kernels=None):
     """Returns (x, aux, cache_out).  cache_out depends on kind."""
@@ -459,23 +528,13 @@ def apply_block_seq(kind, p, x, cfg, ctx, *, positions, state=None,
         return apply_attn_block_seq(
             p, x, cfg, ctx, positions=positions, enc_out=enc_out,
             return_kv=return_cache)
-    if kind in ("rec", "ssd"):
-        _cut_over_model(kind, p, cfg, ctx)
-    if kind == "rec":
-        h = apply_norm(p["norm1"], x)
-        y, new_state = rglru_lib.apply_rglru_block(
-            p["rglru"], h, cfg, state=state, kernel_fn=kernels.get("rglru"))
-        x = x + y
-        h2 = apply_norm(p["norm2"], x)
-        x = x + apply_mlp(p["mlp"], h2, cfg)
-        return x, None, (new_state if return_cache else None)
-    if kind == "ssd":
-        h = apply_norm(p["norm1"], x)
-        y, new_state = ssd_lib.apply_ssd_block(
-            p["ssd"], h, cfg, state=state, kernel_fn=kernels.get("ssd"))
-        x = x + y
-        return x, None, (new_state if return_cache else None)
-    raise ValueError(kind)
+    if kind not in ("rec", "ssd"):
+        raise ValueError(kind)
+    _cut_over_model(kind, p, cfg, ctx)
+    x, new_state = _recurrent_block(
+        kind, p, x, cfg, ctx, state,
+        kernels.get("rglru" if kind == "rec" else "ssd"))
+    return x, None, (new_state if return_cache else None)
 
 
 # ==========================================================================
@@ -756,11 +815,14 @@ def prefill(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *, kernels=None,
     after the blocks have done so.
 
     Over a model axis above 1, ``params`` may be this rank's blocks under
-    ``param_specs`` (self-attention blocks; ``_check_tree``) and
-    ``batch`` its rows of the batch; the logits are then gathered whole
-    on every rank, and the cache holds the rank's kv heads (all of them
-    where they do not divide the axis: the reference cuts its cache by
-    sequence there, for the same values, ROADMAP C)."""
+    ``param_specs`` (self-attention, RG-LRU and SSD blocks;
+    ``_check_tree``) and ``batch`` its rows of the batch; the logits are
+    then gathered whole on every rank, and the cache holds the rank's kv
+    heads (all of them where they do not divide the axis: the reference
+    cuts its cache by sequence there, for the same values), its RG-LRU
+    channels and its SSD heads, an SSD's ``conv`` as [its x channels | B
+    | C] where ``cache_specs`` would cut the whole [x | B | C] into equal
+    columns (ROADMAP C)."""
     _check_tree(params, cfg, ctx)
     hidden, _, caches = forward_hidden(
         params, batch, cfg, ctx, return_cache=True, remat=False,
@@ -852,18 +914,42 @@ def _copy_state(cache, new_state):
 def _decode_block(kind, p, x, cfg, ctx, cache, position: int, enc_kv=None):
     if kind == "attn":
         return _decode_attn(p, x, cfg, ctx, cache, position, enc_kv)
-    if kind == "rec":
-        h = apply_norm(p["norm1"], x)
-        y, new_state = rglru_lib.apply_rglru_block(p["rglru"], h, cfg,
-                                                   state=cache)
-        x = x + y
-        h2 = apply_norm(p["norm2"], x)
-        return x + apply_mlp(p["mlp"], h2, cfg), _copy_state(cache, new_state)
-    if kind == "ssd":
-        h = apply_norm(p["norm1"], x)
-        y, new_state = ssd_lib.apply_ssd_block(p["ssd"], h, cfg, state=cache)
-        return x + y, _copy_state(cache, new_state)
-    raise ValueError(kind)
+    x, new_state = _recurrent_block(kind, p, x, cfg, ctx, state=cache)
+    return x, _copy_state(cache, new_state)
+
+
+def _check_states(params, cache, cfg) -> None:
+    """Each RG-LRU and SSD block's decode state against its weights (this
+    rank's channels or heads where they are cut), before anything runs:
+    a state of another layout raises here, not inside a split."""
+    blocks = [(kind, params["blocks"][f"b{i}"], cache["groups"][f"b{i}"])
+              for i, kind in enumerate(cfg.block_pattern)
+              if cfg.num_groups()]
+    blocks += [(kind, params["tail"][f"t{i}"], cache["tail"][f"t{i}"])
+               for i, kind in enumerate(cfg.tail_pattern())]
+    for kind, p, c in blocks:
+        if kind == "rec":
+            w = p["rglru"]["w_rec_in"].shape[-1]
+            want = {"h": (w,), "conv": (cfg.rglru.d_conv - 1, w)}
+        elif kind == "ssd":
+            s, P, N = p["ssd"], cfg.ssm.head_dim, cfg.ssm.d_state
+            di_r, gn = s["x_proj"].shape[-1], s["b_proj"].shape[-1]
+            want = {"ssm": (di_r // P, P, N),
+                    "conv": (cfg.ssm.d_conv - 1, di_r + 2 * gn)}
+        else:
+            continue
+        for key, tail in want.items():
+            got = tuple(c[key].shape)
+            if got[-len(tail):] != tail:
+                raise ValueError(
+                    f"{kind} decode state {key!r} of shape {got}, not "
+                    f"(..., {', '.join(map(str, tail))}) as its weights "
+                    f"give it" + (
+                        f": a rank's SSD conv state is [its {di_r} x "
+                        f"channels | B | C ({2 * gn})], as prefill returns "
+                        f"it, not a cache_specs block of the whole [x | B "
+                        f"| C] cut into equal columns (ROADMAP C)"
+                        if kind == "ssd" and key == "conv" else ""))
 
 
 def build_enc_kv(params, enc_out, cfg):
@@ -892,28 +978,57 @@ def decode_step(params, token, cache, position, cfg,
     on the host).  Returns (logits (B,1,V), cache); the cache is the one
     passed in, updated in place.  An encoder-decoder model's
     ``cache["enc_kv"]`` (built by ``prefill``) is read, never written.
-    The tree is checked as ``prefill`` checks it (``_check_tree``): over a
-    model axis above 1, ``params``, ``token`` and ``cache`` may be this
-    rank's blocks, rows and kv heads (``prefill``'s cache on the rank),
-    and the logits come back whole on every rank."""
+    The tree is checked as ``prefill`` checks it (``_check_tree``), and
+    the recurrent states against it (``_check_states``): over a model
+    axis above 1, ``params``, ``token`` and ``cache`` may be this rank's
+    blocks, rows, kv heads, channels and heads (``prefill``'s cache on
+    the rank), and the logits come back whole on every rank."""
     ctx = LOCAL_CTX if ctx is None else ctx
     _check_tree(params, cfg, ctx)
-    position = int(position)
-    enc_kv = cache.get("enc_kv") or {"groups": {}, "tail": {}}
+    _check_states(params, cache, cfg)
     x = embed_tokens(params, token, cfg, ctx)
-    for g in range(cfg.num_groups()):
+    x = _decode_groups(params, x, cache, int(position), cfg, ctx, 0,
+                       cfg.num_groups())
+    x = apply_norm(params["final_norm"], x)
+    return gather_vocab(unembed(params, x, cfg, ctx), cfg, ctx), cache
+
+
+def _decode_groups(params, x, cache, position: int, cfg, ctx, start: int,
+                   stop: int):
+    enc_kv = cache.get("enc_kv") or {"groups": {}, "tail": {}}
+    for g in range(start, stop):
         gp = _tree_index(params["blocks"], g)
         gc = _tree_index(cache["groups"], g)
         genc = _tree_index(enc_kv["groups"], g)
         for i, kind in enumerate(cfg.block_pattern):
             x, _ = _decode_block(kind, gp[f"b{i}"], x, cfg, ctx,
                                  gc[f"b{i}"], position, genc.get(f"b{i}"))
-    for i, kind in enumerate(cfg.tail_pattern()):
-        x, _ = _decode_block(kind, params["tail"][f"t{i}"], x, cfg, ctx,
-                             cache["tail"][f"t{i}"], position,
-                             enc_kv["tail"].get(f"t{i}"))
-    x = apply_norm(params["final_norm"], x)
-    return gather_vocab(unembed(params, x, cfg, ctx), cfg, ctx), cache
+    if stop == cfg.num_groups():
+        for i, kind in enumerate(cfg.tail_pattern()):
+            x, _ = _decode_block(kind, params["tail"][f"t{i}"], x, cfg, ctx,
+                                 cache["tail"][f"t{i}"], position,
+                                 enc_kv["tail"].get(f"t{i}"))
+    return x
+
+
+def decode_layer_range(params, x, cache, position, cfg,
+                       ctx: ShardCtx = LOCAL_CTX, *, start_group: int,
+                       stop_group: int):
+    """One decode step of pattern groups [start_group, stop_group) over
+    the hidden state ``x`` (B,1,d) at ``position``, and of the tail when
+    ``stop_group == G``: the decode counterpart of ``run_layer_range``.
+    ``cache`` (the whole model's, as ``decode_step`` takes it) is read
+    and written in place for those groups only; the tree and the states
+    are checked as ``decode_step`` checks them."""
+    ctx = LOCAL_CTX if ctx is None else ctx
+    G = cfg.num_groups()
+    if not 0 <= start_group <= stop_group <= G:
+        raise ValueError(f"group range [{start_group}, {stop_group}) "
+                         f"outside [0, {G}]")
+    _check_tree(params, cfg, ctx)
+    _check_states(params, cache, cfg)
+    return _decode_groups(params, x, cache, int(position), cfg, ctx,
+                          start_group, stop_group)
 
 
 # ==========================================================================

@@ -22,15 +22,25 @@ port's init, handed over as numpy) and tokens (numpy).  The cases:
   * reduced Qwen2-7B with 6 query heads on 3 kv heads, on (2, 2) (a
     rank's 3 query heads straddle kv groups: kv heads 0, 0, 1 and 1, 2,
     2) and on (1, 4) (the heads do not divide: attention whole on every
-    rank, the MLP cut).
+    rank, the MLP cut);
+  * reduced RecurrentGemma-9B on (1, 4) and (2, 2): the RG-LRU by
+    channels (16 or 32 of 64, in 4 or 8 gate blocks), its MLP by
+    ``d_ff``, the attention block's 4 query heads on 1 kv head; one group
+    and a tail of two RG-LRU blocks;
+  * reduced Mamba-2-780M on (1, 4) and (2, 2): the SSD by ``d_inner`` in
+    whole heads (2 or 4 of 8, 16 wide), B, C and dt whole, the gated
+    norm's sum of squares summed over the axis.
 
 The gathered logits and caches are held to the reference's within rtol
 and atol 1e-4 (the sums over the model axis in another order than
 XLA's), every model rank's logits to each other's and every rank's
 logits and cache to ``chip_smoke.tp_as_ranks`` (one process, the ranks
 as threads computing their partials from their own blocks and summing
-them in the same order) to the bit.  Then the refusals, without a world.
-The top-level imports stay free of jax: the ranks import this file.
+them in the same order) to the bit.  A rank's SSD ``conv`` state is [its
+x channels | B | C]: the ranks' x channels are put together in rank
+order and B | C, the same on every model rank, appended.  Then the
+refusals, without a world.  The top-level imports stay free of jax: the
+ranks import this file.
 """
 import dataclasses
 import importlib.util
@@ -65,7 +75,11 @@ CASES = (("qwen2_1x4", "qwen2-7b", None, (1, 4)),
          ("smollm_1x4", "smollm-135m", None, (1, 4)),
          ("olmoe_1x4", "olmoe-1b-7b", None, (1, 4)),
          ("straddle_2x2", "qwen2-7b", (6, 3), (2, 2)),
-         ("whole_heads_1x4", "qwen2-7b", (6, 3), (1, 4)))
+         ("whole_heads_1x4", "qwen2-7b", (6, 3), (1, 4)),
+         ("rgemma_1x4", "recurrentgemma-9b", None, (1, 4)),
+         ("rgemma_2x2", "recurrentgemma-9b", None, (2, 2)),
+         ("mamba_1x4", "mamba2-780m", None, (1, 4)),
+         ("mamba_2x2", "mamba2-780m", None, (2, 2)))
 B, PROMPT, STEPS = 2, 8, 3
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -260,25 +274,52 @@ def _coords(shape, rank):
     return np.unravel_index(rank, shape)
 
 
+def _assert_same(parts):
+    for other in parts[1:]:
+        np.testing.assert_array_equal(other, parts[0])
+    return parts[0]
+
+
 def _gathered_cache(results, name, shape, cfg):
-    """The ranks' caches put together: rows over the data axis, kv heads
-    over the model axis where they divide it (else every model rank's is
-    the same, and that is asserted)."""
+    """The ranks' caches put together: rows over the data axis; over the
+    model axis, where the rules cut them, kv heads, RG-LRU channels (``h``
+    and ``conv``) and SSD heads (``ssm``), and an SSD's ``conv`` as the
+    ranks' x channels in rank order with B | C appended (the same on
+    every model rank, and that is asserted); a leaf not cut is the same
+    on every model rank, and that is asserted."""
     D, M = shape
+    kinds = {**{f"b{i}": k for i, k in enumerate(cfg.block_pattern)},
+             **{f"t{i}": k for i, k in enumerate(cfg.tail_pattern())}}
     ranks = [results(name, r) for r in range(WORLD)]
     out = {}
     for key in (k for k in ranks[0] if k.startswith("cache|")):
+        block, leaf = key.split("/")[-2:]
+        kind = kinds[block]
+        # (batch axis, model axis, whether the rules cut it)
+        if leaf in ("k", "v"):
+            axes = (-4, -2, cfg.num_kv_heads % M == 0)
+        elif leaf == "ssm":
+            axes = (-4, -3, cfg.ssm.n_heads(cfg.d_model) % M == 0)
+        elif kind == "rec":
+            w = cfg.rglru.lru_width or cfg.d_model
+            axes = ((-2 if leaf == "h" else -3), -1, w % M == 0)
+        else:                                   # the SSD's conv
+            axes = (-3, -1, cfg.ssm.d_inner(cfg.d_model) % M == 0)
+        batch_axis, model_axis, cut = axes
         rows = []
         for d in range(D):
             mine = [ranks[r][key] for r in range(WORLD)
                     if _coords(shape, r)[0] == d]
-            if cfg.num_kv_heads % M == 0:
-                rows.append(np.concatenate(mine, axis=-2))
+            if not cut:
+                rows.append(_assert_same(mine))
+            elif kind == "ssd" and leaf == "conv":
+                di_r = cfg.ssm.d_inner(cfg.d_model) // M
+                bc = _assert_same([m[..., di_r:] for m in mine])
+                rows.append(np.concatenate(
+                    [m[..., :di_r] for m in mine] + [bc], axis=-1))
             else:
-                for other in mine[1:]:
-                    np.testing.assert_array_equal(other, mine[0])
-                rows.append(mine[0])
-        out[key] = np.concatenate(rows, axis=-4)
+                rows.append(np.concatenate(mine, axis=model_axis))
+        out[key] = np.concatenate(rows, axis=batch_axis)
     return out
 
 
@@ -324,13 +365,52 @@ def test_ranks_equal_one_process_computing_as_the_ranks(results, name):
                                       results(name, first)["logits"])
 
 
-@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
-def test_local_shapes_are_local_shard_s_at_full_width(shape):
-    """``sharding.local_shapes`` of full-width Qwen2-7B (on ``meta``) is
-    the shape ``local_shard`` cuts for every rank; on (1, 4) a rank holds
-    7 query heads on 1 kv head of 128, 4736 of ``d_ff`` and 38,400
-    vocabulary rows, on (2, 2) 14 on 2, 9472 and 76,800."""
-    cfg = get_config("qwen2-7b")
+def _full_width_shapes(arch, M):
+    """Some leaves' shapes on a rank of a model axis of ``M``."""
+    b0, b1, b2 = "['blocks']['b0']", "['blocks']['b1']", "['blocks']['b2']"
+    if arch == "qwen2-7b":
+        return {b0 + "['wq']": (28, 3584, 28 // M, 128),
+                b0 + "['wk']": (28, 3584, 4 // M, 128),
+                b0 + "['mlp']['wo']": (28, 18944 // M, 3584),
+                "['embed']": (153600 // M, 3584),
+                "['lm_head']": (3584, 153600 // M)}
+    if arch == "recurrentgemma-9b":
+        t1 = "['tail']['t1']"
+        return {b0 + "['rglru']['w_rec_in']": (12, 4096, 4096 // M),
+                b1 + "['rglru']['wa']": (12, 16 // M, 256, 256),
+                b1 + "['rglru']['lam']": (12, 4096 // M),
+                t1 + "['rglru']['w_out']": (4096 // M, 4096),
+                t1 + "['mlp']['wo']": (12288 // M, 4096),
+                b2 + "['wq']": (12, 4096, 16 // M, 256),
+                b2 + "['wk']": (12, 4096, 1, 256),
+                "['embed']": (256000 // M, 4096)}
+    ssd = b0 + "['ssd']"
+    return {ssd + "['x_proj']": (48, 1536, 3072 // M),
+            ssd + "['norm_scale']": (48, 3072 // M),
+            ssd + "['out_proj']": (48, 3072 // M, 1536),
+            ssd + "['b_proj']": (48, 1536, 128),
+            ssd + "['dt_proj']": (48, 1536, 48),
+            ssd + "['A_log']": (48, 48),
+            "['embed']": (51200 // M, 1536)}
+
+
+@pytest.mark.parametrize("arch,shape", [
+    pytest.param("qwen2-7b", (1, 4), id="shape0"),
+    pytest.param("qwen2-7b", (2, 2), id="shape1"),
+    pytest.param("recurrentgemma-9b", (1, 4), id="recurrentgemma-9b-1x4"),
+    pytest.param("recurrentgemma-9b", (2, 2), id="recurrentgemma-9b-2x2"),
+    pytest.param("mamba2-780m", (1, 4), id="mamba2-780m-1x4"),
+    pytest.param("mamba2-780m", (2, 2), id="mamba2-780m-2x2")])
+def test_local_shapes_are_local_shard_s_at_full_width(arch, shape):
+    """``sharding.local_shapes`` of a full-width model (on ``meta``) is the
+    shape ``local_shard`` cuts for every rank.  Qwen2-7B: on (1, 4) a rank
+    holds 7 query heads on 1 kv head of 128, 4736 of ``d_ff`` and 38,400
+    vocabulary rows, on (2, 2) 14 on 2, 9472 and 76,800.
+    RecurrentGemma-9B: 1024 or 2048 LRU channels in 4 or 8 gate blocks,
+    3072 or 6144 of ``d_ff``, 4 or 8 query heads on the whole kv head,
+    64,000 or 128,000 vocabulary rows.  Mamba-2-780M: 768 or 1536 of
+    ``d_inner`` (12 or 24 heads of 64), B, C and dt whole."""
+    cfg = get_config(arch)
     mesh = Mesh(shape, ("data", "model"))
     params = dryrun.param_shapes(cfg)
     specs = shd.param_specs(params, cfg, mesh)
@@ -339,13 +419,8 @@ def test_local_shapes_are_local_shard_s_at_full_width(shape):
         cut = _cut(params, cfg, mesh, rank, specs)
         assert {keystr(path): tuple(t.shape)
                 for path, t in tree_leaves_with_path(cut)} == local
-    M = shape[1]
-    b0 = "['blocks']['b0']"
-    assert local[b0 + "['wq']"] == (28, 3584, 28 // M, 128)
-    assert local[b0 + "['wk']"] == (28, 3584, 4 // M, 128)
-    assert local[b0 + "['mlp']['wo']"] == (28, 18944 // M, 3584)
-    assert local["['embed']"] == (153600 // M, 3584)
-    assert local["['lm_head']"] == (3584, 153600 // M)
+    for key, want in _full_width_shapes(arch, shape[1]).items():
+        assert local[key] == want, key
 
 
 @pytest.mark.parametrize("q_first,n_q,group,owners,view", [
@@ -388,15 +463,46 @@ def _mesh_ctx(shape=(1, 4)):
     return mesh, shd.make_ctx(mesh)
 
 
+#: (arch, its SSD's n_groups if changed, model axis, what the refusal
+#: names): the cuts by ``param_specs`` that no rank computes alone
+REFUSED_CUTS = {
+    # 64 LRU channels, 2 a rank, in 16 gate blocks of 4 kept whole
+    "recurrentgemma-9b": (None, 32, "gate block.*no rank can compute.*"
+                                    "ROADMAP A10.2c\\)"),
+    # 8 of d_inner a rank, half a head of 16
+    "mamba2-780m": (None, 16, "not a whole number of heads of 16.*"
+                              "ROADMAP A10.2c\\)"),
+    "seamless-m4t-medium": (None, 2, "dense tensor parallelism of "
+                                     "cross-attention.*A10.2c-xattn"),
+    "mamba2-n_groups-2": (2, 2, "n_groups 2.*ROADMAP A10.2c\\)")}
+
+
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-780m",
                                   "seamless-m4t-medium"])
 def test_recurrent_and_cross_attention_trees_cut_raise(arch):
-    """A recurrent (RG-LRU, SSD) or encoder-decoder tree cut by
-    ``param_specs`` raises before anything runs and names A10.2c-rec, at
-    prefill and at decode; the same tree whole is not refused for it."""
-    cfg = _cfg(arch)
+    """A tree cut by ``param_specs`` so that no rank can compute its
+    blocks alone raises before anything runs and names its reason, at
+    prefill and at decode: an RG-LRU cut by channel with its gate blocks
+    whole, an SSD cut below a head, and a cross-attention block (ROADMAP
+    A10.2c-xattn); the same tree whole is not refused for it."""
+    _refused_cut_raises(arch)
+
+
+def test_a_cut_ssd_with_two_groups_raises():
+    """An SSD with ``n_groups`` 2 cut by ``param_specs``: a rank's heads
+    would read their own B/C groups, which is not built; it raises at
+    prefill and decode, naming ``n_groups``."""
+    _refused_cut_raises("mamba2-n_groups-2")
+
+
+def _refused_cut_raises(case):
+    groups, M, match = REFUSED_CUTS[case]
+    cfg = _cfg(case if groups is None else "mamba2-780m")
+    if groups:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, n_groups=groups))
     params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    mesh, ctx = _mesh_ctx((1, 2))
+    mesh, ctx = _mesh_ctx((1, M))
     cut = _cut(params, cfg, mesh)
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     if cfg.encoder_layers:
@@ -404,17 +510,193 @@ def test_recurrent_and_cross_attention_trees_cut_raise(arch):
             (1, cfg.frontend.num_positions, cfg.frontend.embed_dim))
     cache = tr.init_decode_cache(cfg, 1, 8, "cpu")
     with torch.no_grad():
-        with pytest.raises(NotImplementedError,
-                           match="dense tensor parallelism.*A10.2c-rec"):
+        with pytest.raises(NotImplementedError, match=match):
             tr.prefill(cut, batch, cfg, ctx)
-        with pytest.raises(NotImplementedError, match="A10.2c-rec"):
+        with pytest.raises(NotImplementedError, match=match):
             tr.decode_step(cut, batch["tokens"][:, :1], cache, 0, cfg, ctx)
         tr._check_tree(params, cfg, ctx)
 
 
+def test_a_cache_in_the_cache_specs_layout_of_the_ssd_conv_raises():
+    """A rank's SSD ``conv`` state is [its x channels | B | C], as its
+    prefill returns it.  The ``cache_specs`` block of the whole [x | B |
+    C] (40 columns of 160 on (1, 4), against the rank's 32 + 32) makes
+    ``decode_step`` raise before anything runs, naming the rank's layout,
+    and not inside a split of the wrong sizes."""
+    cfg = _cfg("mamba2-780m")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh, ctx = _mesh_ctx((1, 4))
+    whole = tr.init_decode_cache(cfg, 1, 8, "cpu")
+    specs = shd.cache_specs(whole, cfg, mesh, ("data",))
+    mine = shd.tree_map_with_path(
+        lambda path, t, s: shd.local_shard(t, s, mesh, 0), whole, specs)
+    assert mine["groups"]["b0"]["conv"].shape[-1] == 40
+    token = torch.zeros((1, 1), dtype=torch.int32)
+    with torch.no_grad():
+        with pytest.raises(ValueError,
+                           match=r"\[its 32 x channels \| B \| C \(32\)\]"
+                                 r".*ROADMAP C"):
+            tr.decode_step(_cut(params, cfg, mesh), token, mine, 0, cfg,
+                           ctx)
+
+
+def _cut_block_case(mesh, cfg, kind, params, x):
+    """Rank ``mesh``'s blocks of the first stacked ``kind`` block of
+    ``params``, through ``apply_block_seq`` on the whole ``x``."""
+    i = cfg.block_pattern.index(kind)
+    own = checkpoint.reshard(params, shd.named(
+        mesh, shd.param_specs(params, cfg, mesh)), device="cpu")
+    return tr.apply_block_seq(
+        kind, tree_map(lambda t: t[0], own["blocks"][f"b{i}"]), x, cfg,
+        shd.make_ctx(mesh), positions=torch.arange(x.shape[1]))[0]
+
+
+@pytest.mark.parametrize("kind", ["rec", "ssd"])
+def test_a_cut_recurrent_block_sums_its_partials(kind):
+    """An RG-LRU block (its MLP cut by ``d_ff`` too) and an SSD block cut
+    over a model axis of 4, each rank a thread of this process
+    (``tp_as_ranks``): every rank's block output is the whole block's
+    within 1e-5 in fp32, so the RG-LRU's ``w_out``, its MLP, the SSD's
+    ``out_proj`` and its gated norm's squares are each summed over the
+    axis."""
+    cfg = _cfg("recurrentgemma-9b" if kind == "rec" else "mamba2-780m")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+    i = cfg.block_pattern.index(kind)
+    with torch.no_grad():
+        want = tr.apply_block_seq(
+            kind, tree_map(lambda t: t[0], params["blocks"][f"b{i}"]), x,
+            cfg, None, positions=torch.arange(8))[0]
+    got = _chip_smoke().tp_as_ranks(_cut_block_case, (1, 4), cfg, kind,
+                                    params, x)
+    for rank, y in enumerate(got):
+        np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"rank {rank}")
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("qwen2-7b", "attn"), ("recurrentgemma-9b", "rec"),
+    ("recurrentgemma-9b", "attn"), ("mamba2-780m", "ssd")])
+def test_a_cut_block_in_bf16_rounds_each_sum_once(arch, kind):
+    """In bf16, a cut block's partial products leave the matmul in fp32
+    (``common.matmul_f32``) and are rounded once after the sum, as the
+    whole block rounds its products once: every rank's block output (the
+    ranks as threads, (1, 4)) is the whole block's but for at most 1 % of
+    its elements, each within one bf16 ulp.  Summing the partials
+    rounded to bf16 instead moves 40 % of a cut MLP's outputs."""
+    cfg = reduced_config(arch)
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32)).bfloat16()
+    i = cfg.block_pattern.index(kind)
+    with torch.no_grad():
+        want = tr.apply_block_seq(
+            kind, tree_map(lambda t: t[0], params["blocks"][f"b{i}"]), x,
+            cfg, None, positions=torch.arange(8))[0].float()
+    for y in _chip_smoke().tp_as_ranks(_cut_block_case, (1, 4), cfg, kind,
+                                       params, x):
+        assert y.dtype == torch.bfloat16
+        moved = (y.float() != want)
+        assert moved.float().mean() <= 0.01
+        np.testing.assert_allclose(y.float().numpy(), want.numpy(),
+                                   rtol=2 ** -7, atol=0)
+
+
+def test_matmul_f32_keeps_the_products_unrounded():
+    """``common.matmul_f32`` of bf16 operands on the CPU is their fp32
+    product, not rounded to bf16."""
+    from repro_torch.models.common import matmul_f32
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((2, 5, 48))).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((48, 7))).bfloat16()
+    got = matmul_f32(a, w)
+    assert got.dtype == torch.float32 and got.shape == (2, 5, 7)
+    assert torch.equal(got, a.float() @ w.float())
+    assert not torch.equal(got, (a @ w).float())
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-780m"])
+def test_decode_layer_range_composes_to_decode_step(arch):
+    """``decode_layer_range`` over [0, 1) and then [1, G) (the tail with
+    the last group; reduced RecurrentGemma has one group, so [0, G)) gives
+    ``decode_step``'s logits and cache to the bit, and a range outside
+    [0, G] raises."""
+    cfg = _cfg(arch)
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = _tokens()
+    G = cfg.num_groups()
+    with torch.no_grad():
+        _, cache = tr.prefill(params, {"tokens": tokens[:, :PROMPT]}, cfg)
+        cache = tr.pad_kv_caches(cache, PROMPT + 1)
+        other = tree_map(torch.clone, cache)
+        want, _ = tr.decode_step(params, tokens[:, PROMPT:PROMPT + 1], cache,
+                                 PROMPT, cfg)
+        x = tr.embed_tokens(params, tokens[:, PROMPT:PROMPT + 1], cfg)
+        for start, stop in ((0, 1), (1, G)) if G > 1 else ((0, G),):
+            x = tr.decode_layer_range(params, x, other, PROMPT, cfg,
+                                      start_group=start, stop_group=stop)
+        got = _chip_smoke().tp_head(params, x, cfg)
+        with pytest.raises(ValueError, match="outside"):
+            tr.decode_layer_range(params, x, other, PROMPT, cfg,
+                                  start_group=0, stop_group=G + 1)
+    assert torch.equal(got, want)
+    for key, leaf in _flat(cache).items():
+        assert torch.equal(_flat(other)[key], leaf), key
+
+
+def _forced_case(mesh, arch, params, xs, cache, position):
+    """A rank's decode step of every group, each fed the one process's
+    input ``xs[g]`` (its rows) and the one process's ``cache`` cut by
+    ``chip_smoke.rank_cache``; returns each group's output."""
+    cfg = _cfg(arch)
+    own = checkpoint.reshard(params, shd.named(
+        mesh, shd.param_specs(params, cfg, mesh)), device="cpu")
+    mine = _chip_smoke().rank_cache(cache, cfg, mesh)
+    rows = shd.local_shard(xs, shd.P(None, ("data",)), mesh)
+    return [tr.decode_layer_range(own, rows[g], mine, position, cfg,
+                                  shd.make_ctx(mesh), start_group=g,
+                                  stop_group=g + 1)
+            for g in range(cfg.num_groups())]
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("recurrentgemma-9b", (1, 4)), ("mamba2-780m", (1, 4)),
+    ("mamba2-780m", (2, 2))])
+def test_rank_cache_feeds_a_rank_s_decode(arch, shape):
+    """``chip_smoke.rank_cache`` cuts the one process's decode cache to a
+    rank's layout (kv heads, RG-LRU channels, SSD heads, an SSD's
+    ``conv`` as [its x channels | B | C]): each rank's decode step of a
+    group, fed the one process's input and that cache, is the one
+    process's step within 1e-5 in fp32 (the ranks as threads)."""
+    cfg = _cfg(arch)
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = _tokens()
+    G = cfg.num_groups()
+    with torch.no_grad():
+        _, cache = tr.prefill(params, {"tokens": tokens[:, :PROMPT]}, cfg)
+        cache = tr.pad_kv_caches(cache, PROMPT + 1)
+        start = tree_map(torch.clone, cache)
+        xs = [tr.embed_tokens(params, tokens[:, PROMPT:PROMPT + 1], cfg)]
+        for g in range(G):
+            xs.append(tr.decode_layer_range(params, xs[-1], cache, PROMPT,
+                                            cfg, start_group=g,
+                                            stop_group=g + 1))
+        xs = torch.stack(xs)
+    got = _chip_smoke().tp_as_ranks(_forced_case, shape, arch, params, xs,
+                                    start, PROMPT)
+    rows = B // shape[0]
+    for rank, ys in enumerate(got):
+        d = _coords(shape, rank)[0]
+        for g, y in enumerate(ys):
+            np.testing.assert_allclose(
+                y.numpy(), xs[g + 1, d * rows:(d + 1) * rows].numpy(),
+                rtol=1e-5, atol=1e-5, err_msg=f"rank {rank}, group {g}")
+
+
 def test_a_cut_encoder_raises():
     """An encoder-decoder tree whose decoder blocks are whole but whose
-    encoder stack is cut names A10.2c-rec."""
+    encoder stack is cut names A10.2c-xattn."""
     cfg = _cfg("seamless-m4t-medium")
     params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     mesh, ctx = _mesh_ctx((1, 2))
@@ -422,7 +704,7 @@ def test_a_cut_encoder_raises():
     only_encoder = shd.tree_map_with_path(
         lambda path, s: (s if "['encoder']" in path
                          else shd.P(*[None] * len(s))), specs)
-    with pytest.raises(NotImplementedError, match="encoder.*A10.2c-rec"):
+    with pytest.raises(NotImplementedError, match="encoder.*A10.2c-xattn"):
         tr._check_tree(_cut(params, cfg, mesh, specs=only_encoder), cfg,
                        ctx)
 
