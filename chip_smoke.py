@@ -506,6 +506,15 @@ TP_TIMEOUT_S = 300
 # and dt whole, the gated norm's sum of squares summed over the axis
 TP_RECURRENTGEMMA_MESHES = TP_MESHES[:1]
 TP_MAMBA_MESHES = TP_MESHES
+# The same for the encoder-decoder (phase tp_seamless), on the weights
+# encdec_serve drew: seamless-m4t-medium on (1, 4), 4 of 16 heads of 64 a
+# rank in the encoder's 12 blocks and in the decoder's 12 self- and
+# cross-attention branches (enc_kv by kv heads), 1024 of d_ff and 64,512
+# vocabulary rows, 2 requests of 1024 frames and ENCDEC_PROMPT tokens.
+# The free-running logits are held to TP_REL_L2, as in tp_qwen2: the
+# one-ulp nudge moves the one process's by 8.85e-3-9.39e-3 (this
+# phase's line on an NVIDIA H100 80GB HBM3 at 700 W), inside that limit
+TP_SEAMLESS_MESHES = TP_MESHES[:1]
 
 # The encoder-decoder (phases encdec_kernels, encdec_serve,
 # encdec_decode): full-width seamless-m4t-medium, uncut (12 encoder and
@@ -588,12 +597,13 @@ RING_BATCH, RING_PAST, RING_PLAIN_STEPS = 4, 64, 8
 # the phase runs the first RING_LAYERS of the model's 24 layers, its
 # widths uncut: each decode step is paced by the host, layer by layer,
 # and at 24 layers the phase took 199-267 s of the script's time (cut
-# to 8, then to 4, each time the whole script had passed 760 s)
-RING_LAYERS = 4
+# to 8, then to 4, each time the whole script had passed 760 s; then to
+# 2 to make room for tp_seamless)
+RING_LAYERS = 2
 # RING_LAYERS layers x (k, v) x 4 x 4096 rows x 8 kv heads x 80 x 2 B,
 # and the linear cache of 4160 rows
-RING_CACHE_BYTES = 167_772_160
-RING_LINEAR_CACHE_BYTES = 170_393_600
+RING_CACHE_BYTES = 83_886_080
+RING_LINEAR_CACHE_BYTES = 85_196_800
 # the fp32 ring (parameters cast to fp32, batch 1) at a narrowed window,
 # RING_PAST steps past it, held to a linear cache and to the fp32 forward
 # at DECODE_FP32_REL_L2
@@ -2913,23 +2923,37 @@ def tp_as_ranks(target, shape, *args) -> list:
     return results
 
 
-def tp_serve(mesh, cfg, own, tokens, counted: bool = True):
-    """``tokens``' rows of one rank of ``mesh`` (``None``: one device)
-    through the step builders of ``launch/dryrun.py`` on ``own``: prefill
-    of TP_PROMPT tokens, the cache grown by TP_DECODE_STEPS rows, then as
-    many teacher-forced decode steps.  Returns (each call's logits on the
+def tp_batch(mesh, tokens, frames=None):
+    """The batch of ``tokens`` (and an encoder-decoder's ``frames``), or
+    one rank's rows of it under ``batch_specs`` (``mesh`` not None)."""
+    from repro_torch.distributed import sharding as shd
+    batch = _lm_batch(tokens, frames)
+    if mesh is None:
+        return batch
+    return shd.tree_map_with_path(
+        lambda path, t, s: shd.local_shard(t, s, mesh), batch,
+        shd.batch_specs(batch, ("data",), mesh))
+
+
+def tp_serve(mesh, cfg, own, tokens, counted: bool = True,
+             prompt: int = TP_PROMPT, frames=None):
+    """``tokens``' rows (and ``frames``' where the model has an encoder)
+    of one rank of ``mesh`` (``None``: one device) through the step
+    builders of ``launch/dryrun.py`` on ``own``: prefill of ``prompt``
+    tokens, the cache grown by TP_DECODE_STEPS rows, then as many
+    teacher-forced decode steps.  Returns (each call's logits on the
     host, stacked; the cache; a record of the host seconds of each call
     and, with ``counted``, each part's launches and the hops of its sums
     and gathers, counted from 0 just before the prefill, which the
     world's ranks enter together)."""
     import torch.distributed as dist
     from repro_torch.distributed import collectives as coll
-    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import dryrun
     from repro_torch.models import transformer as tr
 
-    toks = (tokens if mesh is None
-            else shd.local_shard(tokens, shd.P(("data",), None), mesh))
+    batch = tp_batch(mesh, tokens, frames)
+    toks = batch["tokens"]
+    batch["tokens"] = toks[:, :prompt]
     prefill, _ = dryrun.build_prefill_step(cfg, mesh)
     decode, _ = dryrun.build_decode_step(cfg, mesh)
     sums, gathers = coll.HopStats(), coll.HopStats()
@@ -2941,7 +2965,7 @@ def tp_serve(mesh, cfg, own, tokens, counted: bool = True):
             reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill(own, {"tokens": toks[:, :TP_PROMPT]})
+        logits, cache = prefill(own, batch)
         torch.cuda.synchronize()
         record["prefill_seconds"] = time.perf_counter() - t0
         if counted:
@@ -2949,9 +2973,9 @@ def tp_serve(mesh, cfg, own, tokens, counted: bool = True):
                           prefill_psum=dataclasses.asdict(sums),
                           prefill_gather=dataclasses.asdict(gathers))
         out = [logits]
-        cache = tr.pad_kv_caches(cache, TP_PROMPT + TP_DECODE_STEPS)
+        cache = tr.pad_kv_caches(cache, prompt + TP_DECODE_STEPS)
         record["step_seconds"] = []
-        for t in range(TP_PROMPT, TP_PROMPT + TP_DECODE_STEPS):
+        for t in range(prompt, prompt + TP_DECODE_STEPS):
             t0 = time.perf_counter()
             logits, cache = decode(own, toks[:, t:t + 1], cache, t)
             torch.cuda.synchronize()
@@ -2964,13 +2988,13 @@ def tp_serve(mesh, cfg, own, tokens, counted: bool = True):
     return torch.stack(out).cpu(), cache, record
 
 
-def tp_decode_check(gen, B: int, Hq: int, Hkv: int, D: int) -> dict:
-    """Decode attention at a rank's cache shape (B rows of TP_PROMPT +
-    TP_DECODE_STEPS keys, Hq query heads on Hkv, bf16, every key valid)
-    held to its plain version within FLASH_TOL[bf16], then timed
-    (``time_decode``); the launches are a comparison's."""
+def tp_decode_check(gen, B: int, Hq: int, Hkv: int, D: int,
+                    Skv: int = TP_PROMPT + TP_DECODE_STEPS) -> dict:
+    """Decode attention at a rank's cache shape (B rows of ``Skv`` keys,
+    by default TP_PROMPT + TP_DECODE_STEPS, Hq query heads on Hkv, bf16,
+    every key valid) held to its plain version within FLASH_TOL[bf16],
+    then timed (``time_decode``); the launches are a comparison's."""
     from repro_torch.kernels import decode_attention as dec
-    Skv = TP_PROMPT + TP_DECODE_STEPS
     q = torch.randn((B, Hq, D), generator=gen, device="cuda").bfloat16()
     k, v = (torch.randn((B, Skv, Hkv, D), generator=gen,
                         device="cuda").bfloat16() for _ in range(2))
@@ -3082,9 +3106,10 @@ def ssd_rank_check(gen, b: int, S: int, H: int, P: int, G: int, N: int,
 def rank_cache(cache, cfg, mesh):
     """This rank's copy of a whole decode cache of ``cfg`` on ``mesh``,
     as the rank's own prefill lays it out: its rows over the data axis;
-    over the model axis its kv heads where they divide it (else all),
-    its RG-LRU channels (``h``, ``conv``), its SSD heads (``ssm``) and an
-    SSD's ``conv`` as [its x channels | B | C] (ROADMAP C)."""
+    over the model axis its kv heads where they divide it (else all), of
+    the self-attention cache and of ``enc_kv``, its RG-LRU channels
+    (``h``, ``conv``), its SSD heads (``ssm``) and an SSD's ``conv`` as
+    [its x channels | B | C] (ROADMAP C)."""
     import re
     from repro_torch.distributed import sharding as shd
     M = mesh.shape["model"]
@@ -3096,7 +3121,7 @@ def rank_cache(cache, cfg, mesh):
     def one(path, t):
         leaf = re.findall(r"\['(\w+)'\]", path)[-2:]
         kind, name = kinds[leaf[0]], leaf[1]
-        i0 = 1 if path.startswith("['groups']") else 0
+        i0 = 1 if "['groups']" in path else 0    # enc_kv's too
         spec = [None] * t.dim()
         spec[i0] = "data"
         if name in ("k", "v") and cfg.num_kv_heads % M == 0:
@@ -3114,18 +3139,21 @@ def rank_cache(cache, cfg, mesh):
     return shd.tree_map_with_path(one, cache)
 
 
-def tp_forced_io(params, cfg, tokens) -> list:
-    """The one process's bf16 prefill and teacher-forced decode of
-    ``tokens``, recorded at the TP_FORCED_STEPS steps: each one's
-    position, a copy of the whole cache it starts from, and every group's
-    input with the last hidden, (G + 1, B, 1, d), through
-    ``decode_layer_range`` a group at a time."""
+def tp_forced_io(params, cfg, tokens, prompt: int = TP_PROMPT,
+                 frames=None) -> list:
+    """The one process's bf16 prefill (of an encoder-decoder's ``frames``
+    too) and teacher-forced decode of ``tokens``, recorded at the
+    TP_FORCED_STEPS steps: each one's position, a copy of the whole cache
+    it starts from (``enc_kv`` with it), and every group's input with the
+    last hidden, (G + 1, B, 1, d), through ``decode_layer_range`` a group
+    at a time."""
     from repro_torch.models import transformer as tr
-    _, cache = tr.prefill(params, {"tokens": tokens[:, :TP_PROMPT]}, cfg)
-    cache = tr.pad_kv_caches(cache, TP_PROMPT + TP_DECODE_STEPS)
+    _, cache = tr.prefill(params, _lm_batch(tokens[:, :prompt], frames),
+                          cfg)
+    cache = tr.pad_kv_caches(cache, prompt + TP_DECODE_STEPS)
     out = []
     for t in range(TP_DECODE_STEPS):
-        pos = TP_PROMPT + t
+        pos = prompt + t
         token = tokens[:, pos:pos + 1]
         if t not in TP_FORCED_STEPS:
             tr.decode_step(params, token, cache, pos, cfg)
@@ -3170,19 +3198,25 @@ def nudged_prompt():
         tr.embed_tokens = plain
 
 
-def tp_sum_bytes(cfg, rows: int, S: int) -> list:
+def tp_sum_bytes(cfg, rows: int, S: int, S_enc: int = 0) -> list:
     """The bytes of a rank's partial in each sum over the model axis that
-    one pass of ``rows`` rows of ``S`` tokens makes, where every block's
-    heads, channels and ``d_ff`` are cut (as in the phases' models and
-    meshes): the embedding lookup's bf16 rows, then each layer's two fp32
-    partials (``common.matmul_f32``), an attention output and an MLP's,
-    an RG-LRU's ``w_out`` and its MLP's, or an SSD's gated norm's sum of
-    squares (one a token) and its ``out_proj``."""
+    one pass of ``rows`` rows of ``S`` tokens (and, with ``S_enc``, the
+    encoder over as many frames first) makes, where every block's heads,
+    channels and ``d_ff`` are cut (as in the phases' models and meshes):
+    the embedding lookup's bf16 rows, each encoder layer's two fp32
+    partials at the encoder's length, then each decoder layer's fp32
+    partials (``common.matmul_f32``): an attention output, with an
+    encoder a cross-attention output, and an MLP's; an RG-LRU's
+    ``w_out`` and its MLP's; or an SSD's gated norm's sum of squares (one
+    a token) and its ``out_proj``."""
     act = rows * S * cfg.d_model
-    each = {"attn": [4 * act, 4 * act], "rec": [4 * act, 4 * act],
+    attn = [4 * act] * (3 if cfg.encoder_layers else 2)
+    each = {"attn": attn, "rec": [4 * act, 4 * act],
             "ssd": [rows * S * 4, 4 * act]}
-    return [2 * act] + [n for kind in cfg.pattern_for_layers()
-                        for n in each[kind]]
+    encoder = [4 * rows * S_enc * cfg.d_model] * (2 * cfg.encoder_layers
+                                                  if S_enc else 0)
+    return [2 * act] + encoder + [n for kind in cfg.pattern_for_layers()
+                                  for n in each[kind]]
 
 
 def _spans(marks: dict) -> dict:
@@ -3193,12 +3227,14 @@ def _spans(marks: dict) -> dict:
 
 
 def _tp_rank(rank, world_size, cfg, params, tokens, io, forced, params32,
-             cfg32, meshes):
+             cfg32, meshes, prompt=TP_PROMPT, enc=None):
     """One rank of a ``tp_phase``: for each mesh of ``meshes``, its blocks
     cut out of the parent's memory (CUDA IPC mappings of the whole tree)
     by ``reshard``, prefill and decode through the step builders
     (``tp_serve``), then each group alone on the one-process forward's
-    input to it (``io``: every group's input and the last output), each
+    input to it (``io``: every group's input and the last output; with an
+    encoder, each encoder block alone on ``enc["io"]`` likewise, and each
+    decoder group attending to the one process's ``enc["out"]``), each
     group's decode step teacher-forced at the ``forced`` steps
     (``tp_forced_io``: the one process's inputs and its cache, cut by
     ``rank_cache``), the head on the one process's last hidden, and, on
@@ -3215,7 +3251,8 @@ def _tp_rank(rank, world_size, cfg, params, tokens, io, forced, params32,
 
     torch.cuda.set_device(0)
     kernels = ops.kernel_registry()
-    positions = torch.arange(TP_PROMPT, device="cuda")
+    positions = torch.arange(prompt, device="cuda")
+    frames = enc["frames"] if enc else None
     out = {"rank": rank, "meshes": {}}
     with torch.inference_mode():
         for name, shape in meshes:
@@ -3233,7 +3270,8 @@ def _tp_rank(rank, world_size, cfg, params, tokens, io, forced, params32,
             # the timed path
             coll.psum(torch.zeros(1, device="cuda"), "model", mesh=mesh)
             marks["warm_up"] = time.perf_counter()
-            logits, cache, r = tp_serve(mesh, cfg, own, tokens)
+            logits, cache, r = tp_serve(mesh, cfg, own, tokens,
+                                        prompt=prompt, frames=frames)
             marks["serve"] = time.perf_counter()
             d = mesh.axis_index("data")
             rows = slice(d * (TP_BATCH // shape[0]),
@@ -3244,15 +3282,29 @@ def _tp_rank(rank, world_size, cfg, params, tokens, io, forced, params32,
                      finite=bool(torch.isfinite(
                          logits[..., :cfg.vocab_size].float()).all()))
             del cache
+
+            def rel_l2(y, ref):
+                ref = ref.float()
+                return float((y.float() - ref).norm() / ref.norm())
+            r["encoder_layer_rel_l2"] = []
+            if enc:
+                pos_enc = torch.arange(enc["io"].shape[2], device="cuda")
+                for i in range(cfg.encoder_layers):
+                    y = tr.apply_attn_block_seq(
+                        _tree_map(lambda t: t[i], own["encoder"]["blocks"]),
+                        enc["io"][i, rows], cfg, ctx, positions=pos_enc,
+                        causal=False)[0]
+                    r["encoder_layer_rel_l2"].append(
+                        rel_l2(y, enc["io"][i + 1, rows]))
+                    del y
             r["layer_rel_l2"] = []
             for g in range(cfg.num_groups()):
-                y = tr.run_layer_range(own, io[g, rows], cfg, ctx,
-                                       start_group=g, stop_group=g + 1,
-                                       positions=positions, kernels=kernels)
-                ref = io[g + 1, rows].float()
-                r["layer_rel_l2"].append(float((y.float() - ref).norm()
-                                               / ref.norm()))
-                del y, ref
+                y = tr.run_layer_range(
+                    own, io[g, rows], cfg, ctx, start_group=g,
+                    stop_group=g + 1, positions=positions, kernels=kernels,
+                    enc_out=enc["out"][rows] if enc else None)
+                r["layer_rel_l2"].append(rel_l2(y, io[g + 1, rows]))
+                del y
             torch.cuda.synchronize()
             marks["layers"] = time.perf_counter()
             r["peak_memory_allocated_bytes"] = (
@@ -3271,8 +3323,7 @@ def _tp_rank(rank, world_size, cfg, params, tokens, io, forced, params32,
                     y = tr.decode_layer_range(
                         own, xs[g], cache, snap["position"], cfg, ctx,
                         start_group=g, stop_group=g + 1)
-                    ref = xs[g + 1].float()
-                    errs.append(float((y.float() - ref).norm() / ref.norm()))
+                    errs.append(rel_l2(y, xs[g + 1]))
                 r["forced_rel_l2"].append(errs)
                 r["forced_logits"].append(tp_head(own, xs[G], cfg, ctx).cpu())
                 del cache
@@ -3284,9 +3335,8 @@ def _tp_rank(rank, world_size, cfg, params, tokens, io, forced, params32,
                     mesh, shd.param_specs(params32, cfg32, mesh)),
                     device="cuda")
                 prefill32, _ = dryrun.build_prefill_step(cfg32, mesh)
-                toks = shd.local_shard(tokens, shd.P(("data",), None), mesh)
-                r["fp32_logits"] = prefill32(
-                    own32, {"tokens": toks[:, :TP_PROMPT]})[0].cpu()
+                r["fp32_logits"] = prefill32(own32, tp_batch(
+                    mesh, tokens[:, :prompt], frames))[0].cpu()
                 del own32
                 marks["fp32"] = time.perf_counter()
             r["seconds"] = _spans(marks)
@@ -3294,14 +3344,22 @@ def _tp_rank(rank, world_size, cfg, params, tokens, io, forced, params32,
     return out
 
 
-def _attention_rank_checks(gen, cfg, name, shape) -> dict:
-    """Flash and decode attention at a rank's heads of ``cfg`` on a mesh
-    of ``shape`` (the kv heads its query heads read where only those are
-    cut): ``flash_layout_check`` and ``tp_decode_check``."""
+def _rank_heads(cfg, shape) -> tuple:
+    """(rows, query heads, kv heads, head dim) of a rank of a mesh of
+    ``shape``: the kv heads its query heads read where only those are
+    cut."""
     D, M = shape
     b, hq, hd = TP_BATCH // D, cfg.num_heads // M, cfg.resolved_head_dim()
     hkv = (cfg.num_kv_heads // M if cfg.num_kv_heads % M == 0
            else max(1, hq * cfg.num_kv_heads // cfg.num_heads))
+    return b, hq, hkv, hd
+
+
+def _attention_rank_checks(gen, cfg, name, shape) -> dict:
+    """Flash and decode attention at a rank's heads of ``cfg`` on a mesh
+    of ``shape`` (``_rank_heads``): ``flash_layout_check`` and
+    ``tp_decode_check``."""
+    b, hq, hkv, hd = _rank_heads(cfg, shape)
     window = cfg.window if cfg.attention_kind == "swa" else 0
     return {"flash_attention": flash_layout_check(
                 gen, (b, TP_PROMPT, TP_PROMPT, hq, hkv, hd, True, window),
@@ -3347,20 +3405,52 @@ def phase_tp_mamba(cfg, params) -> None:
              gate_free_running=False)
 
 
+def phase_tp_seamless(cfg, params) -> None:
+    """seamless-m4t-medium under dense tensor parallelism on (1, 4)
+    (``tp_phase``): its encoder's blocks, the decoder's self- and
+    cross-attention by heads and every MLP by ``d_ff``, 2 requests of the
+    frontend's 1024 frames and an ENCDEC_PROMPT-token prompt.  First, at
+    the ranks' heads, flash over the encoder (non-causal), for
+    cross-attention (the prompt against the frames, non-causal) and for
+    the decoder's self-attention (causal), and decode attention on the
+    self-attention cache and on the rank's ``enc_kv``."""
+    S, S_enc = ENCDEC_PROMPT, cfg.frontend.num_positions
+
+    def check(gen, name, shape):
+        b, hq, hkv, hd = _rank_heads(cfg, shape)
+        flash = {layout: flash_layout_check(
+                     gen, (b, sq, skv, hq, hkv, hd, causal, 0),
+                     f"{name} rank {layout}")
+                 for layout, sq, skv, causal in (
+                     ("encoder", S_enc, S_enc, False),
+                     ("cross", S, S_enc, False), ("self", S, S, True))}
+        return {**{f"flash_attention_{k}": v for k, v in flash.items()},
+                "decode_attention_self": tp_decode_check(
+                    gen, b, hq, hkv, hd, S + TP_DECODE_STEPS),
+                "decode_attention_enc_kv": tp_decode_check(
+                    gen, b, hq, hkv, hd, S_enc)}
+    tp_phase("tp_seamless", cfg, params, TP_SEAMLESS_MESHES, check,
+             prompt=S)
+
+
 def tp_phase(phase: str, cfg, params, meshes, check_kernels,
-             gate_free_running: bool = True) -> None:
+             gate_free_running: bool = True,
+             prompt: int = TP_PROMPT) -> None:
     """``cfg``'s model under dense tensor parallelism in 4 gloo ranks on
     this card, on each (data, model) mesh of ``meshes``
     (``models/transformer.py``, each rank on its ``param_specs`` blocks;
     ``check_kernels(gen, name, shape)`` first holds the path's kernels to
     their plain versions at a mesh's rank shapes, before any count is set
-    to 0).  Each rank's logits at prefill and every decode step are
-    measured against the one-process bf16 run's (relative L2), beside the
-    distance one bf16 ulp added to the one process's prompt moves them
+    to 0), TP_BATCH rows of ``prompt`` tokens (and of frames, drawn at
+    the frontend's shape, where the model has an encoder).  Each rank's
+    logits at prefill and every decode step are measured against the
+    one-process bf16 run's (relative L2), beside the distance one bf16
+    ulp added to the one process's prompt moves them
     (``nudged_prompt``), and held to TP_REL_L2 with
-    ``gate_free_running``.  Teacher-forced, each group alone is held to
-    the one process's (fed its input) at prefill and at the
-    TP_FORCED_STEPS decode steps (fed its state too), and the head on the
+    ``gate_free_running``.  Teacher-forced, each group alone is held
+    to the one process's (fed its input, and its encoder's output) at
+    prefill and at the TP_FORCED_STEPS decode steps (fed its state too),
+    each encoder block alone at prefill likewise, and the head on the
     one process's last hidden to its logits.  Every rank's logits and
     cache are held to ``tp_as_ranks`` (one process computing as the ranks
     do) to the bit, a data shard's model ranks to each other, the fp32
@@ -3373,6 +3463,7 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer as tr
+    from repro_torch.models.common import apply_norm, pdtype
     from repro_torch.train import checkpoint
 
     mode = tool_output(["nvidia-smi", "--query-gpu=compute_mode",
@@ -3389,29 +3480,45 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
     marks["kernel_checks"] = time.perf_counter()
     kernels = ops.kernel_registry()
     tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
-        0, V, (TP_BATCH, TP_PROMPT + TP_DECODE_STEPS)).astype(
+        0, V, (TP_BATCH, prompt + TP_DECODE_STEPS)).astype(
             np.int32)).cuda()
-    positions = torch.arange(TP_PROMPT, device="cuda")
-    # the one process, bf16: each layer's input and the last output, then
-    # prefill and decode through the step builders without a mesh
-    xs = [tr.embed_tokens(params, tokens[:, :TP_PROMPT], cfg)]
+    positions = torch.arange(prompt, device="cuda")
+    # the one process, bf16: each encoder block's input and the last
+    # output, the encoder's output, each layer's input and the last
+    # output, then prefill and decode through the step builders without a
+    # mesh
+    enc, enc_out, frames = None, None, None
+    if cfg.encoder_layers:
+        f = cfg.frontend
+        frames = torch.randn((TP_BATCH, f.num_positions, f.embed_dim),
+                             generator=gen, device="cuda")
+        es = [frames.to(pdtype(cfg))]
+        pos_enc = torch.arange(frames.shape[1], device="cuda")
+        for i in range(cfg.encoder_layers):
+            es.append(tr.apply_attn_block_seq(
+                _tree_map(lambda t: t[i], params["encoder"]["blocks"]),
+                es[-1], cfg, None, positions=pos_enc, causal=False)[0])
+        enc_out = apply_norm(params["encoder"]["final_norm"], es[-1])
+        enc = {"frames": frames, "io": torch.stack(es), "out": enc_out}
+        del es
+    xs = [tr.embed_tokens(params, tokens[:, :prompt], cfg)]
     for g in range(G):
         xs.append(tr.run_layer_range(params, xs[-1], cfg, None, start_group=g,
                                      stop_group=g + 1, positions=positions,
-                                     kernels=kernels))
+                                     kernels=kernels, enc_out=enc_out))
     io = torch.stack(xs)
     del xs
-    one_logits, cache, one = tp_serve(None, cfg, params, tokens,
-                                      counted=False)
+    serve = dict(counted=False, prompt=prompt, frames=frames)
+    one_logits, cache, one = tp_serve(None, cfg, params, tokens, **serve)
     del cache
     with nudged_prompt():
-        nudged, cache, _ = tp_serve(None, cfg, params, tokens, counted=False)
+        nudged, cache, _ = tp_serve(None, cfg, params, tokens, **serve)
     del cache
     nudge = [_rel_l2(nudged[t], one_logits[t], V)
              for t in range(1 + TP_DECODE_STEPS)]
     # the same decode a group at a time, the forced steps recorded; its
     # head must give the one process's logits to the bit
-    forced = tp_forced_io(params, cfg, tokens)
+    forced = tp_forced_io(params, cfg, tokens, prompt, frames)
     forced_same = all(torch.equal(
         tp_head(params, f["inputs"][G], cfg).cpu(),
         one_logits[1 + f["step"]]) for f in forced)
@@ -3422,8 +3529,7 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
         def rank_serve(mesh):
             own = checkpoint.reshard(params, shd.named(
                 mesh, shd.param_specs(params, cfg, mesh)), device="cuda")
-            logits, cache, _ = tp_serve(mesh, cfg, own, tokens,
-                                        counted=False)
+            logits, cache, _ = tp_serve(mesh, cfg, own, tokens, **serve)
             return logits, tree_checksum(cache)
         as_ranks[name] = tp_as_ranks(rank_serve, shape)
         gc.collect()
@@ -3437,7 +3543,7 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
     params32 = _tree_map(lambda t: t.to(torch.float32, copy=True), {
         **{k: v for k, v in params.items() if k != "tail"},
         "blocks": _tree_map(lambda t: t[:n32], params["blocks"])})
-    want32 = tr.prefill(params32, {"tokens": tokens[:, :TP_PROMPT]},
+    want32 = tr.prefill(params32, _lm_batch(tokens[:, :prompt], frames),
                         cfg32)[0].cpu()
     marks["fp32"] = time.perf_counter()
     # each mesh's blocks, by arithmetic on the specs (rank 0's views)
@@ -3450,7 +3556,7 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
                 shd.param_specs(params, cfg, mesh))))
     # what the ranks map (the parameters apart, freed by main)
     sent = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
-            for t in (tokens, io, *_leaves(params32),
+            for t in (tokens, io, *_leaves(params32), *_leaves(enc or {}),
                       *(t for f in forced
                         for t in (f["inputs"], *_leaves(f["cache"]))))}
     gc.collect()
@@ -3461,10 +3567,10 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
     with tempfile.TemporaryDirectory() as workdir:
         ranks = run_world(_tp_rank, 4,
                           (cfg, params, tokens, io, forced, params32, cfg32,
-                           meshes),
+                           meshes, prompt, enc),
                           workdir=workdir, timeout=TP_TIMEOUT_S)
     marks["world"] = time.perf_counter()
-    del tokens, io, forced, params32
+    del tokens, io, forced, params32, enc, enc_out, frames, serve
     gc.collect()
     torch.cuda.ipc_collect()
     torch.cuda.synchronize()
@@ -3476,6 +3582,7 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
     kept = {ptr: n for ptr, n in sent.items() if ptr in held}
 
     failed, per_mesh = [], {}
+    S_enc = cfg.frontend.num_positions if cfg.encoder_layers else 0
     if not forced_same:
         failed.append("the group-at-a-time decode's logits are not the one "
                       "process's")
@@ -3487,7 +3594,7 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
         rs = [r["meshes"][name] for r in ranks]
         rows = TP_BATCH // D
         # each sum: the rank's partial sent to the M - 1 others
-        sums = {"prefill": tp_sum_bytes(cfg, rows, TP_PROMPT),
+        sums = {"prefill": tp_sum_bytes(cfg, rows, prompt, S_enc),
                 "decode": tp_sum_bytes(cfg, rows, 1)}
         gather_hop = rows * (Vp // M) * 2
         want_hops = {
@@ -3525,6 +3632,11 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
                 (f"a layer's rel L2 {max(r['layer_rel_l2'])} > "
                  f"{TP_LAYER_REL_L2}",
                  max(r["layer_rel_l2"]) <= TP_LAYER_REL_L2),
+                (f"an encoder layer's rel L2 "
+                 f"{max(r['encoder_layer_rel_l2'], default=0.0)} > "
+                 f"{TP_LAYER_REL_L2}",
+                 max(r["encoder_layer_rel_l2"], default=0.0)
+                 <= TP_LAYER_REL_L2),
                 (f"a teacher-forced decode group's rel L2 {forced_max} > "
                  f"{TP_LAYER_REL_L2}", forced_max <= TP_LAYER_REL_L2),
                 (f"teacher-forced logits' rel L2 "
@@ -3560,6 +3672,8 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
             "mesh": [D, M], "blocks_bytes": blocks[name],
             "rel_l2_max": max(max(r["rel_l2"]) for r in rs),
             "layer_rel_l2_max": max(max(r["layer_rel_l2"]) for r in rs),
+            "encoder_layer_rel_l2_max": max(
+                max(r["encoder_layer_rel_l2"], default=0.0) for r in rs),
             "forced_rel_l2_max": max(max(max(e) for e in r["forced_rel_l2"])
                                      for r in rs),
             "forced_logits_rel_l2_max": max(max(r["forced_logits_rel_l2"])
@@ -3574,7 +3688,8 @@ def tp_phase(phase: str, cfg, params, meshes, check_kernels,
                        if k not in ("logits", "fp32_logits", "step_seconds",
                                     "forced_logits")}
                       for r in rs]}
-    emit(phase, config=cfg.name, batch=TP_BATCH, prompt=TP_PROMPT,
+    emit(phase, config=cfg.name, batch=TP_BATCH, prompt=prompt,
+         frames=S_enc, encoder_layers=cfg.encoder_layers,
          decode_steps=TP_DECODE_STEPS, groups=G, backend="gloo",
          compute_mode=mode, kernel_checks=kernel_checks,
          one_process={"prefill_seconds": one["prefill_seconds"],
@@ -6109,9 +6224,13 @@ def main() -> int:
         torch.cuda.ipc_collect()     # once the ranks released them
         torch.cuda.empty_cache()
         encdec_entries = phase_encdec_kernels()
-        phase_encdec_decode(*phase_encdec_serve(encdec_entries),
-                            encdec_entries)
+        encdec = phase_encdec_serve(encdec_entries)
+        phase_encdec_decode(*encdec, encdec_entries)
+        torch.cuda.empty_cache()
+        phase_tp_seamless(*encdec[:2])
+        del encdec
         gc.collect()                 # seamless-m4t-medium's 1.8 GB
+        torch.cuda.ipc_collect()     # once the ranks released them
         torch.cuda.empty_cache()
         phase_frontend_serve()
         gc.collect()                 # internvl2-1b's 1.3 GB

@@ -35,14 +35,15 @@ Policy summary (the reference's):
     the first free divisible dimension.
 
 Prefill and decode compute on a tree cut wholly by these rules over a
-model axis (``models/transformer.py``: attention by heads, the dense MLP
-by ``d_ff``, the RG-LRU by channels, the SSD by ``d_inner`` in whole
-heads, the vocabulary; a MoE layer in ``models/moe.py``'s modes);
-``local_shapes`` gives a rank's leaf shapes, against which the model
-checks the tree it is handed.  Cross-attention blocks and encoders
-compute only whole (ROADMAP A10.2c-xattn).  A rank's SSD ``conv`` state
-is [its x channels | B | C], not the ``cache_specs`` block of the whole
-[x | B | C] (ROADMAP C).
+model axis (``models/transformer.py``: attention and cross-attention by
+heads, an encoder's blocks as the decoder's, the dense MLP by ``d_ff``,
+the RG-LRU by channels, the SSD by ``d_inner`` in whole heads, the
+vocabulary; a MoE layer in ``models/moe.py``'s modes); ``local_shapes``
+gives a rank's leaf shapes, against which the model checks the tree it
+is handed.  Where the kv heads do not divide the model axis, a rank's
+cache (``enc_kv`` too) holds all of them, not the ``cache_specs`` block
+of the sequence; a rank's SSD ``conv`` state is [its x channels | B |
+C], not the ``cache_specs`` block of the whole [x | B | C] (ROADMAP C).
 """
 from __future__ import annotations
 

@@ -39,9 +39,11 @@ blocks of a tree cut by ``distributed/sharding.py::param_specs``
 channels, the SSD by ``d_inner`` in whole heads, the vocabulary by rows
 and columns), sums each block's partial outputs over the axis
 (``collectives.psum``; the SSD's gated norm sums its squares so too),
-keeps its own recurrent states, and gathers the logits whole.
-Cross-attention blocks and encoders run whole only (ROADMAP
-A10.2c-xattn); training under it raises (A10.2c-train).
+keeps its own recurrent states, and gathers the logits whole.  An
+encoder's blocks are cut as the decoder's self-attention blocks, and a
+decoder block's cross-attention branch by heads as its self-attention;
+the encoder's output stays whole on every rank.  Training under it
+raises (A10.2c-train).
 
 Ported so far: attention (self- and cross-attention), RG-LRU and SSD
 (Mamba-2) blocks, dense MLPs and Mixture-of-Experts FFNs
@@ -278,12 +280,14 @@ def _psum(y, ctx, dtype=None):
         dtype or y.dtype)
 
 
-def _rank_block_shapes(kind: str, cfg, ctx) -> Dict[str, tuple]:
+def _rank_block_shapes(kind: str, cfg, ctx,
+                       encoder: bool = False) -> Dict[str, tuple]:
     """{path: shape} of one block of ``kind`` on a rank of ``ctx``'s mesh
     under ``param_specs`` (``sharding.local_shapes``, read off the first
-    stacked block of that kind; every block of a kind is cut alike)."""
-    i = cfg.block_pattern.index(kind)
-    prefix = f"['blocks']['b{i}']"
+    stacked block of that kind, or off the encoder's stack with
+    ``encoder``; every block of a stack is cut alike)."""
+    prefix = ("['encoder']['blocks']" if encoder else
+              f"['blocks']['b{cfg.block_pattern.index(kind)}']")
     return {key[len(prefix):]: shape[1:] for key, shape in
             sharding.local_shapes(cfg, ctx.mesh, ctx.model_axis).items()
             if key.startswith(prefix)}
@@ -314,17 +318,19 @@ def _cut_over_model(kind, p, cfg, ctx, lead: tuple = ()) -> bool:
     """Whether block ``p`` (or a stack of blocks, ``lead`` its leading
     dimensions) holds this rank's blocks of its weights under
     ``distributed/sharding.py::param_specs`` over ``ctx``'s model axis
-    (dense tensor parallelism), or the config's whole shapes.  Its
+    (dense tensor parallelism), or the config's whole shapes.  An
+    attention block without cross-attention leaves in a model with an
+    encoder is an encoder block, held to the encoder stack's shapes.  Its
     Mixture-of-Experts leaves are not looked at: ``moe.apply_moe`` checks
     them.  Without a model axis above 1 it is whole (prefill and decode
     hold the tree to that: ``_check_tree``).  Raises where the leaves are
     neither all whole nor all cut (a rank would compute wrong answers
-    without a word), where the rules cut an RG-LRU or SSD block so that
-    no rank can compute alone (``_no_rank_alone``), and for a
-    cross-attention block that is cut at all (ROADMAP A10.2c-xattn)."""
+    without a word), and where the rules cut an RG-LRU or SSD block so
+    that no rank can compute alone (``_no_rank_alone``)."""
     if not _tp(ctx):
         return False
     cross = "xwq" in p
+    encoder = kind == "attn" and bool(cfg.encoder_layers) and not cross
     leaves = [(keystr(path), tuple(t.shape))
               for path, t in tree_leaves_with_path(p)
               if not keystr(path).startswith("['moe']")]
@@ -335,13 +341,8 @@ def _cut_over_model(kind, p, cfg, ctx, lead: tuple = ()) -> bool:
     whole = _block_shapes(kind, cfg, cross)
     if fits(whole):
         return False
-    if cross:
-        raise NotImplementedError(
-            f"{kind} block with cross-attention cut over a model axis of "
-            f"{ctx.model_size}: dense tensor parallelism of cross-attention "
-            f"blocks is not ported (ROADMAP A10.2c-xattn); give such blocks "
-            f"whole")
-    if fits(_rank_block_shapes(kind, cfg, ctx)):
+    mine = _rank_block_shapes(kind, cfg, ctx, encoder)
+    if fits(mine):
         why = _no_rank_alone(kind, cfg, ctx.model_size)
         if why:
             raise NotImplementedError(
@@ -352,12 +353,15 @@ def _cut_over_model(kind, p, cfg, ctx, lead: tuple = ()) -> bool:
         return True
     cut = [f"{key} {shape}" for key, shape in leaves
            if shape != lead + whole.get(key, ())]
+    kept = [key for key, shape in leaves if key in whole
+            and shape == lead + whole[key] != lead + mine.get(key, ())]
     raise NotImplementedError(
-        f"{kind} block over a model axis of {ctx.model_size}: "
-        f"{', '.join(cut)} not the config's whole shapes, and the block not "
-        f"this rank's blocks either: dense tensor parallelism takes every "
-        f"leaf of a block whole or every leaf cut by distributed/"
-        f"sharding.py::param_specs (ROADMAP A10.2c)")
+        f"{'encoder ' if encoder else ''}{kind} block over a model axis of "
+        f"{ctx.model_size}: {', '.join(cut)} not the config's whole shapes"
+        f"{' while ' + ', '.join(kept) + ' are' if kept else ''}, and the "
+        f"block not this rank's blocks either: dense tensor parallelism "
+        f"takes every leaf of a block whole or every leaf cut by "
+        f"distributed/sharding.py::param_specs (ROADMAP A10.2c)")
 
 
 def _check_tree(params, cfg, ctx) -> None:
@@ -369,9 +373,9 @@ def _check_tree(params, cfg, ctx) -> None:
     Without a model axis above 1 every block, its Mixture-of-Experts
     layer included, must hold the config's whole shapes (ROADMAP C2: a
     rank's cut block would give wrong answers without a word).  Over one,
-    each decoder block is whole or this rank's ``param_specs`` blocks
-    (``_cut_over_model``); an encoder's stack is whole (ROADMAP
-    A10.2c-xattn); ``embed`` and ``lm_head`` are whole or cut by vocabulary
+    each stack of blocks, the encoder's too, is whole or this rank's
+    ``param_specs`` blocks (``_cut_over_model``), each independently of
+    the others; ``embed`` and ``lm_head`` are whole or cut by vocabulary
     rows and columns."""
     G = cfg.num_groups()
     stacks = [(kind, params["blocks"][f"b{i}"], (G,))
@@ -395,16 +399,8 @@ def _check_tree(params, cfg, ctx) -> None:
                         f"whole weights, and a block cut over one needs "
                         f"dense tensor parallelism (ROADMAP A10.2c)")
         return
-    for kind, p, lead in stacks:
+    for kind, p, lead in stacks + encoder:
         _cut_over_model(kind, p, cfg, ctx, lead)
-    for kind, p, lead in encoder:
-        want = _block_shapes(kind, cfg, False)
-        if any(tuple(t.shape) != lead + want.get(keystr(path), ())
-               for path, t in tree_leaves_with_path(p)):
-            raise NotImplementedError(
-                f"an encoder cut over a model axis of {ctx.model_size}: "
-                f"dense tensor parallelism of encoder stacks is not ported "
-                f"(ROADMAP A10.2c-xattn); give the encoder whole")
     local = sharding.local_shapes(cfg, ctx.mesh, ctx.model_axis)
     Vp, d = cfg.padded_vocab(), cfg.d_model
     for key, whole in (("embed", (Vp, d)), ("lm_head", (d, Vp))):
@@ -457,10 +453,14 @@ def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
     axis) and its ``d_ff`` columns.  Then attention and the MLP each end
     in one sum of their partial outputs over the model axis, ``x`` stays
     whole on every rank between blocks (the reference's
-    ``_hidden_replicated``), and ``kv`` holds the rank's kv heads.  Where
-    the heads do not divide the axis, attention is whole on every rank,
-    with no sum; the reference cuts its queries by sequence there
-    instead (``_attn_sharded``), for the same values (ROADMAP C)."""
+    ``_hidden_replicated``), and ``kv`` holds the rank's kv heads.  The
+    cross-attention branch is cut alike: the rank's query heads of the
+    whole ``x``, its kv heads of the whole ``enc_out`` (or the ones its
+    query heads read, ``_rank_kv``), one sum of ``xwo``'s partial.  Where
+    the heads do not divide the axis, attention and cross-attention are
+    whole on every rank, with no sum; the reference cuts its queries by
+    sequence there instead (``_attn_sharded``), for the same values
+    (ROADMAP C)."""
     _cut_over_model("attn", p, cfg, ctx)
     h = apply_norm(p["norm1"], x)
     q, k, v = _qkv(p, h, cfg, positions, ctx)
@@ -474,8 +474,9 @@ def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
         xq = torch.einsum("bsd,dhe->bshe", hx, p["xwq"])
         xk = torch.einsum("bsd,dhe->bshe", enc_out, p["xwk"])
         xv = torch.einsum("bsd,dhe->bshe", enc_out, p["xwv"])
-        xo = attn_lib.cross_attention(xq, xk, xv, q_positions=positions)
-        x = x + torch.einsum("bshe,hed->bsd", xo, p["xwo"])
+        xo = attn_lib.cross_attention(xq, *_rank_kv(p, xk, xv, cfg, ctx),
+                                      q_positions=positions)
+        x = x + _heads_out(xo, p["xwo"], cfg, ctx)
     h2 = apply_norm(p["norm2"], x)
     aux = None
     if "moe" in p:
@@ -815,14 +816,15 @@ def prefill(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *, kernels=None,
     after the blocks have done so.
 
     Over a model axis above 1, ``params`` may be this rank's blocks under
-    ``param_specs`` (self-attention, RG-LRU and SSD blocks;
-    ``_check_tree``) and ``batch`` its rows of the batch; the logits are
+    ``param_specs`` (attention with or without cross-attention, an
+    encoder, RG-LRU and SSD blocks; ``_check_tree``) and ``batch`` its
+    rows of the batch (of the tokens and of the frames); the logits are
     then gathered whole on every rank, and the cache holds the rank's kv
-    heads (all of them where they do not divide the axis: the reference
-    cuts its cache by sequence there, for the same values), its RG-LRU
-    channels and its SSD heads, an SSD's ``conv`` as [its x channels | B
-    | C] where ``cache_specs`` would cut the whole [x | B | C] into equal
-    columns (ROADMAP C)."""
+    heads, ``enc_kv``'s too (all of them where they do not divide the
+    axis: the reference cuts its cache by sequence there, for the same
+    values), its RG-LRU channels and its SSD heads, an SSD's ``conv`` as
+    [its x channels | B | C] where ``cache_specs`` would cut the whole [x
+    | B | C] into equal columns (ROADMAP C)."""
     _check_tree(params, cfg, ctx)
     hidden, _, caches = forward_hidden(
         params, batch, cfg, ctx, return_cache=True, remat=False,
@@ -865,7 +867,9 @@ def _decode_attn(p, x, cfg, ctx, cache, position: int, enc_kv=None):
     place and returned.  The reference's position masks become the rows
     [lo, lo + n) of the cache every sequence attends to.  ``enc_kv``
     ({"k", "v"}, (B, S_enc, Hkv, D) views) feeds the cross-attention
-    branch: every sequence attends to all S_enc rows."""
+    branch: every sequence attends to all S_enc rows.  Over a model axis,
+    a cut block attends with the rank's heads (``_rank_kv``'s kv heads of
+    the rank's ``enc_kv``) and sums ``wo``'s and ``xwo``'s partials."""
     h = apply_norm(p["norm1"], x)
     pos1 = torch.full((1,), position, device=x.device)
     q, k, v = _qkv(p, h, cfg, pos1)
@@ -894,8 +898,9 @@ def _decode_attn(p, x, cfg, ctx, cache, position: int, enc_kv=None):
         xq = torch.einsum("bsd,dhe->bshe", hx, p["xwq"])
         enc_len = torch.full((x.shape[0],), enc_kv["k"].shape[1],
                              dtype=torch.int32, device=x.device)
-        xo = ops.decode_attention(xq, enc_kv["k"], enc_kv["v"], enc_len)
-        x = x + torch.einsum("bshe,hed->bsd", xo, p["xwo"])
+        xo = ops.decode_attention(
+            xq, *_rank_kv(p, enc_kv["k"], enc_kv["v"], cfg, ctx), enc_len)
+        x = x + _heads_out(xo, p["xwo"], cfg, ctx)
     h2 = apply_norm(p["norm2"], x)
     if "moe" in p:
         y, _ = moe_lib.apply_moe(p["moe"], h2, cfg, ctx)
@@ -957,7 +962,8 @@ def build_enc_kv(params, enc_out, cfg):
     {"groups": {"b<i>": {"k", "v"} of (G, B, S_enc, Hkv, D)}, "tail":
     {"t<i>": {"k", "v"} of (B, S_enc, Hkv, D)}}.  Each group's K/V is a
     contiguous slice, so ``_tree_index`` hands decode views, not
-    copies."""
+    copies.  A rank's blocks cut by ``param_specs`` give its kv heads
+    (all of them where ``xwk`` is whole)."""
     def one(bp):
         return {"k": torch.einsum("bsd,dhe->bshe", enc_out, bp["xwk"]),
                 "v": torch.einsum("bsd,dhe->bshe", enc_out, bp["xwv"])}

@@ -29,7 +29,17 @@ port's init, handed over as numpy) and tokens (numpy).  The cases:
     and a tail of two RG-LRU blocks;
   * reduced Mamba-2-780M on (1, 4) and (2, 2): the SSD by ``d_inner`` in
     whole heads (2 or 4 of 8, 16 wide), B, C and dt whole, the gated
-    norm's sum of squares summed over the axis.
+    norm's sum of squares summed over the axis;
+  * reduced seamless-m4t-medium (2 encoder and 2 decoder layers over 8
+    frames, seeded numpy, cut into rows like the tokens by
+    ``batch_specs``): 4 heads on 4 on (1, 4) and (2, 2), the encoder's
+    blocks, the decoder's self- and cross-attention, ``enc_kv`` and the
+    MLPs cut; 4 on 2 on (1, 4), the query heads cut while the kv heads
+    and ``enc_kv`` stay whole on every rank; 6 on 3 on (1, 4), attention
+    and cross-attention whole on every rank, only the MLPs cut.  The
+    reference's cache is placed again on its ``cache_specs`` before each
+    step: GSPMD hands back a passed-through ``enc_kv`` in another
+    layout than the one its jitted step asks for.
 
 The gathered logits and caches are held to the reference's within rtol
 and atol 1e-4 (the sums over the model axis in another order than
@@ -79,7 +89,12 @@ CASES = (("qwen2_1x4", "qwen2-7b", None, (1, 4)),
          ("rgemma_1x4", "recurrentgemma-9b", None, (1, 4)),
          ("rgemma_2x2", "recurrentgemma-9b", None, (2, 2)),
          ("mamba_1x4", "mamba2-780m", None, (1, 4)),
-         ("mamba_2x2", "mamba2-780m", None, (2, 2)))
+         ("mamba_2x2", "mamba2-780m", None, (2, 2)),
+         ("seamless_1x4", "seamless-m4t-medium", None, (1, 4)),
+         ("seamless_2x2", "seamless-m4t-medium", None, (2, 2)),
+         ("seamless_gqa_1x4", "seamless-m4t-medium", (4, 2), (1, 4)),
+         ("seamless_whole_heads_1x4", "seamless-m4t-medium", (6, 3),
+          (1, 4)))
 B, PROMPT, STEPS = 2, 8, 3
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -131,17 +146,20 @@ for name, arch, heads, shape in cases["cases"]:
     with mesh:
         prefill, _ = build_prefill_step(cfg, mesh)
         batch = {"tokens": tokens[:, :P]}
+        if cfg.encoder_layers:
+            batch["frontend"] = jnp.asarray(data["frames"])
         logits, cache = jax.jit(prefill, in_shardings=(
             named_params, shd.named(mesh, shd.batch_specs(
                 batch, ("data",), mesh))))(params, batch)
         cache = tr.pad_kv_caches(cache, P + T)
         decode, _ = build_decode_step(cfg, mesh)
-        step = jax.jit(decode, in_shardings=(
-            named_params, None,
-            shd.named(mesh, shd.cache_specs(cache, cfg, mesh, ("data",))),
-            None))
+        cache_named = shd.named(mesh, shd.cache_specs(cache, cfg, mesh,
+                                                      ("data",)))
+        step = jax.jit(decode, in_shardings=(named_params, None, cache_named,
+                                             None))
         out_logits = [logits]
         for t in range(P, P + T):
+            cache = jax.device_put(cache, cache_named)
             logits, cache = step(params, tokens[:, t:t + 1], cache,
                                  jnp.int32(t))
             out_logits.append(logits)
@@ -175,16 +193,38 @@ def _tokens():
         (B, PROMPT + STEPS)).astype(np.int32))
 
 
+def _frames():
+    """The encoder-decoder's frames, (B, frames, width) of the reduced
+    seamless-m4t-medium's audio frontend."""
+    f = reduced_config("seamless-m4t-medium").frontend
+    return torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (B, f.num_positions, f.embed_dim)).astype(np.float32))
+
+
+def _batch(cfg, tokens, frames, mesh=None):
+    """The prompt's batch of ``cfg`` (with the frames where it has an
+    encoder), or a rank's rows of it under ``batch_specs``."""
+    batch = {"tokens": tokens[:, :PROMPT]}
+    if cfg.encoder_layers:
+        batch["frontend"] = frames
+    if mesh is None:
+        return batch
+    return shd.tree_map_with_path(
+        lambda path, t, s: shd.local_shard(t, s, mesh), batch,
+        shd.batch_specs(batch, ("data",), mesh))
+
+
 def _flat(tree):
     """{"a/b/c": leaf} of a nested dict (the path the subprocess uses)."""
     return {keystr(path).replace("']['", "/").strip("[']"): leaf
             for path, leaf in tree_leaves_with_path(tree)}
 
 
-def _tp_case(mesh, name, params, tokens):
-    """One rank of ``mesh`` on a case: its blocks and rows, prefill, then
-    the teacher-forced decode steps, through the step builders.  Returns
-    its logits at each step and its final cache, as numpy."""
+def _tp_case(mesh, name, params, tokens, frames):
+    """One rank of ``mesh`` on a case: its blocks and rows (of the tokens,
+    and of the frames where the model has an encoder), prefill, then the
+    teacher-forced decode steps, through the step builders.  Returns its
+    logits at each step and its final cache, as numpy."""
     _, arch, heads, _ = _case(name)
     cfg = _cfg(arch, heads)
     own = checkpoint.reshard(params, shd.named(
@@ -193,7 +233,9 @@ def _tp_case(mesh, name, params, tokens):
     prefill, ctx = dryrun.build_prefill_step(cfg, mesh)
     decode, _ = dryrun.build_decode_step(cfg, mesh)
     assert ctx.model_size == mesh.shape["model"]
-    logits, cache = prefill(own, {"tokens": toks[:, :PROMPT]})
+    batch = _batch(cfg, tokens, frames, mesh)
+    assert torch.equal(batch["tokens"], toks[:, :PROMPT])
+    logits, cache = prefill(own, batch)
     cache = tr.pad_kv_caches(cache, PROMPT + STEPS)
     out = [logits]
     for t in range(PROMPT, PROMPT + STEPS):
@@ -203,12 +245,12 @@ def _tp_case(mesh, name, params, tokens):
             **{"cache|" + k: v.numpy() for k, v in _flat(cache).items()}}
 
 
-def _rank_tp(rank, world_size, trees, tokens, out):
+def _rank_tp(rank, world_size, trees, tokens, frames, out):
     """One rank: every case on its mesh of the world's 4 ranks."""
     with torch.inference_mode():
         for name, _, _, shape in CASES:
             got = _tp_case(Mesh(shape, ("data", "model")), name,
-                           trees[name], tokens)
+                           trees[name], tokens, frames)
             np.savez(os.path.join(out, f"{name}|r{rank}.npz"), **got)
 
 
@@ -228,8 +270,8 @@ def results(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tensor_parallel")
     trees = {name: _params(i, arch, heads)
              for i, (name, arch, heads, _) in enumerate(CASES)}
-    tokens = _tokens()
-    data = {"tokens": tokens.numpy()}
+    tokens, frames = _tokens(), _frames()
+    data = {"tokens": tokens.numpy(), "frames": frames.numpy()}
     for name, tree in trees.items():
         data.update({f"{name}|{k}": v.numpy()
                      for k, v in _flat(tree).items()})
@@ -242,7 +284,7 @@ def results(tmp_path_factory):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         (tmp / "ranks").mkdir()
-        run_world(_rank_tp, WORLD, (trees, tokens, str(tmp)),
+        run_world(_rank_tp, WORLD, (trees, tokens, frames, str(tmp)),
                   workdir=tmp / "ranks", timeout=WORLD_TIMEOUT_S)
         # the yardstick, while the reference still compiles: one thread a
         # rank, one torch thread each, as the ranks run
@@ -250,7 +292,7 @@ def results(tmp_path_factory):
         torch.set_num_threads(1)
         try:
             as_ranks = {name: _chip_smoke().tp_as_ranks(
-                _tp_case, shape, name, trees[name], tokens)
+                _tp_case, shape, name, trees[name], tokens, frames)
                 for name, _, _, shape in CASES}
         finally:
             torch.set_num_threads(threads)
@@ -282,8 +324,9 @@ def _assert_same(parts):
 
 def _gathered_cache(results, name, shape, cfg):
     """The ranks' caches put together: rows over the data axis; over the
-    model axis, where the rules cut them, kv heads, RG-LRU channels (``h``
-    and ``conv``) and SSD heads (``ssm``), and an SSD's ``conv`` as the
+    model axis, where the rules cut them, kv heads (of the self-attention
+    cache and of ``enc_kv``, both keyed by their block), RG-LRU channels
+    (``h`` and ``conv``) and SSD heads (``ssm``), and an SSD's ``conv`` as the
     ranks' x channels in rank order with B | C appended (the same on
     every model rank, and that is asserted); a leaf not cut is the same
     on every model rank, and that is asserted."""
@@ -384,6 +427,19 @@ def _full_width_shapes(arch, M):
                 b2 + "['wq']": (12, 4096, 16 // M, 256),
                 b2 + "['wk']": (12, 4096, 1, 256),
                 "['embed']": (256000 // M, 4096)}
+    if arch == "seamless-m4t-medium":
+        enc = "['encoder']['blocks']"
+        return {enc + "['wq']": (12, 1024, 16 // M, 64),
+                enc + "['wo']": (12, 16 // M, 64, 1024),
+                enc + "['mlp']['wi']": (12, 1024, 4096 // M),
+                enc + "['norm1']['scale']": (12, 1024),
+                b0 + "['xwq']": (12, 1024, 16 // M, 64),
+                b0 + "['xwv']": (12, 1024, 16 // M, 64),
+                b0 + "['xwo']": (12, 16 // M, 64, 1024),
+                b0 + "['xnorm']['scale']": (12, 1024),
+                b0 + "['mlp']['wo']": (12, 4096 // M, 1024),
+                "['embed']": (258048 // M, 1024),
+                "['lm_head']": (1024, 258048 // M)}
     ssd = b0 + "['ssd']"
     return {ssd + "['x_proj']": (48, 1536, 3072 // M),
             ssd + "['norm_scale']": (48, 3072 // M),
@@ -400,7 +456,10 @@ def _full_width_shapes(arch, M):
     pytest.param("recurrentgemma-9b", (1, 4), id="recurrentgemma-9b-1x4"),
     pytest.param("recurrentgemma-9b", (2, 2), id="recurrentgemma-9b-2x2"),
     pytest.param("mamba2-780m", (1, 4), id="mamba2-780m-1x4"),
-    pytest.param("mamba2-780m", (2, 2), id="mamba2-780m-2x2")])
+    pytest.param("mamba2-780m", (2, 2), id="mamba2-780m-2x2"),
+    pytest.param("seamless-m4t-medium", (1, 4), id="seamless-m4t-medium-1x4"),
+    pytest.param("seamless-m4t-medium", (2, 2),
+                 id="seamless-m4t-medium-2x2")])
 def test_local_shapes_are_local_shard_s_at_full_width(arch, shape):
     """``sharding.local_shapes`` of a full-width model (on ``meta``) is the
     shape ``local_shard`` cuts for every rank.  Qwen2-7B: on (1, 4) a rank
@@ -409,7 +468,11 @@ def test_local_shapes_are_local_shard_s_at_full_width(arch, shape):
     RecurrentGemma-9B: 1024 or 2048 LRU channels in 4 or 8 gate blocks,
     3072 or 6144 of ``d_ff``, 4 or 8 query heads on the whole kv head,
     64,000 or 128,000 vocabulary rows.  Mamba-2-780M: 768 or 1536 of
-    ``d_inner`` (12 or 24 heads of 64), B, C and dt whole."""
+    ``d_inner`` (12 or 24 heads of 64), B, C and dt whole.
+    seamless-m4t-medium: 4 or 8 of 16 heads in the encoder's blocks and
+    in the decoder's self- and cross-attention, 1024 or 2048 of ``d_ff``,
+    the norms whole, 64,512 or 129,024 vocabulary rows; on (1, 4) a rank
+    holds 220,327,936 of the 880,930,816 parameters."""
     cfg = get_config(arch)
     mesh = Mesh(shape, ("data", "model"))
     params = dryrun.param_shapes(cfg)
@@ -421,6 +484,10 @@ def test_local_shapes_are_local_shard_s_at_full_width(arch, shape):
                 for path, t in tree_leaves_with_path(cut)} == local
     for key, want in _full_width_shapes(arch, shape[1]).items():
         assert local[key] == want, key
+    if arch == "seamless-m4t-medium" and shape == (1, 4):
+        assert sum(t.numel() for _, t in tree_leaves_with_path(params)) == (
+            880_930_816)
+        assert sum(int(np.prod(s)) for s in local.values()) == 220_327_936
 
 
 @pytest.mark.parametrize("q_first,n_q,group,owners,view", [
@@ -472,19 +539,18 @@ REFUSED_CUTS = {
     # 8 of d_inner a rank, half a head of 16
     "mamba2-780m": (None, 16, "not a whole number of heads of 16.*"
                               "ROADMAP A10.2c\\)"),
-    "seamless-m4t-medium": (None, 2, "dense tensor parallelism of "
-                                     "cross-attention.*A10.2c-xattn"),
     "mamba2-n_groups-2": (2, 2, "n_groups 2.*ROADMAP A10.2c\\)")}
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-780m",
-                                  "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-780m"])
 def test_recurrent_and_cross_attention_trees_cut_raise(arch):
     """A tree cut by ``param_specs`` so that no rank can compute its
     blocks alone raises before anything runs and names its reason, at
     prefill and at decode: an RG-LRU cut by channel with its gate blocks
-    whole, an SSD cut below a head, and a cross-attention block (ROADMAP
-    A10.2c-xattn); the same tree whole is not refused for it."""
+    whole, and an SSD cut below a head; the same tree whole is not
+    refused for it.  (A cross-attention block cut by ``param_specs``
+    computes: ``test_a_cut_cross_attention_or_encoder_block_sums_its_
+    partials``.)"""
     _refused_cut_raises(arch)
 
 
@@ -505,9 +571,6 @@ def _refused_cut_raises(case):
     mesh, ctx = _mesh_ctx((1, M))
     cut = _cut(params, cfg, mesh)
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    if cfg.encoder_layers:
-        batch["frontend"] = torch.zeros(
-            (1, cfg.frontend.num_positions, cfg.frontend.embed_dim))
     cache = tr.init_decode_cache(cfg, 1, 8, "cpu")
     with torch.no_grad():
         with pytest.raises(NotImplementedError, match=match):
@@ -540,15 +603,33 @@ def test_a_cache_in_the_cache_specs_layout_of_the_ssd_conv_raises():
                            ctx)
 
 
-def _cut_block_case(mesh, cfg, kind, params, x):
+def _first_block(params, cfg, kind, stack="blocks"):
+    """The first stacked ``kind`` block of ``params``' decoder, or of its
+    encoder with ``stack`` "encoder"."""
+    blocks = (params["encoder"]["blocks"] if stack == "encoder"
+              else params["blocks"][f"b{cfg.block_pattern.index(kind)}"])
+    return tree_map(lambda t: t[0], blocks)
+
+
+def _cut_block_case(mesh, cfg, kind, params, x, enc_out=None,
+                    stack="blocks"):
     """Rank ``mesh``'s blocks of the first stacked ``kind`` block of
-    ``params``, through ``apply_block_seq`` on the whole ``x``."""
-    i = cfg.block_pattern.index(kind)
+    ``params`` (``_first_block``), through ``apply_block_seq`` on the
+    whole ``x`` (and ``enc_out``; an encoder block non-causal)."""
     own = checkpoint.reshard(params, shd.named(
         mesh, shd.param_specs(params, cfg, mesh)), device="cpu")
-    return tr.apply_block_seq(
-        kind, tree_map(lambda t: t[0], own["blocks"][f"b{i}"]), x, cfg,
-        shd.make_ctx(mesh), positions=torch.arange(x.shape[1]))[0]
+    return _block(_first_block(own, cfg, kind, stack), x, cfg, kind,
+                  shd.make_ctx(mesh), enc_out, stack)
+
+
+def _block(p, x, cfg, kind, ctx, enc_out=None, stack="blocks"):
+    if stack == "encoder":
+        return tr.apply_attn_block_seq(p, x, cfg, ctx,
+                                       positions=torch.arange(x.shape[1]),
+                                       causal=False)[0]
+    return tr.apply_block_seq(kind, p, x, cfg, ctx,
+                              positions=torch.arange(x.shape[1]),
+                              enc_out=enc_out)[0]
 
 
 @pytest.mark.parametrize("kind", ["rec", "ssd"])
@@ -577,25 +658,30 @@ def test_a_cut_recurrent_block_sums_its_partials(kind):
 
 @pytest.mark.parametrize("arch,kind", [
     ("qwen2-7b", "attn"), ("recurrentgemma-9b", "rec"),
-    ("recurrentgemma-9b", "attn"), ("mamba2-780m", "ssd")])
+    ("recurrentgemma-9b", "attn"), ("mamba2-780m", "ssd"),
+    ("seamless-m4t-medium", "attn")])
 def test_a_cut_block_in_bf16_rounds_each_sum_once(arch, kind):
     """In bf16, a cut block's partial products leave the matmul in fp32
     (``common.matmul_f32``) and are rounded once after the sum, as the
     whole block rounds its products once: every rank's block output (the
     ranks as threads, (1, 4)) is the whole block's but for at most 1 % of
     its elements, each within one bf16 ulp.  Summing the partials
-    rounded to bf16 instead moves 40 % of a cut MLP's outputs."""
+    rounded to bf16 instead moves 40 % of a cut MLP's outputs.
+    seamless-m4t-medium's decoder block attends to an encoder's output
+    too: three sums, cross-attention's ``xwo`` the second."""
     cfg = reduced_config(arch)
     params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
         (2, 8, cfg.d_model)).astype(np.float32)).bfloat16()
-    i = cfg.block_pattern.index(kind)
+    enc_out = (torch.from_numpy(rng.standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32)).bfloat16()
+        if cfg.encoder_layers else None)
     with torch.no_grad():
-        want = tr.apply_block_seq(
-            kind, tree_map(lambda t: t[0], params["blocks"][f"b{i}"]), x,
-            cfg, None, positions=torch.arange(8))[0].float()
+        want = _block(_first_block(params, cfg, kind), x, cfg, kind, None,
+                      enc_out).float()
     for y in _chip_smoke().tp_as_ranks(_cut_block_case, (1, 4), cfg, kind,
-                                       params, x):
+                                       params, x, enc_out):
         assert y.dtype == torch.bfloat16
         moved = (y.float() != want)
         assert moved.float().mean() <= 0.01
@@ -616,18 +702,19 @@ def test_matmul_f32_keeps_the_products_unrounded():
     assert not torch.equal(got, (a @ w).float())
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-780m",
+                                  "seamless-m4t-medium"])
 def test_decode_layer_range_composes_to_decode_step(arch):
     """``decode_layer_range`` over [0, 1) and then [1, G) (the tail with
     the last group; reduced RecurrentGemma has one group, so [0, G)) gives
     ``decode_step``'s logits and cache to the bit, and a range outside
-    [0, G] raises."""
+    [0, G] raises; seamless-m4t-medium's groups read their ``enc_kv``."""
     cfg = _cfg(arch)
     params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     tokens = _tokens()
     G = cfg.num_groups()
     with torch.no_grad():
-        _, cache = tr.prefill(params, {"tokens": tokens[:, :PROMPT]}, cfg)
+        _, cache = tr.prefill(params, _batch(cfg, tokens, _frames()), cfg)
         cache = tr.pad_kv_caches(cache, PROMPT + 1)
         other = tree_map(torch.clone, cache)
         want, _ = tr.decode_step(params, tokens[:, PROMPT:PROMPT + 1], cache,
@@ -645,11 +732,11 @@ def test_decode_layer_range_composes_to_decode_step(arch):
         assert torch.equal(_flat(other)[key], leaf), key
 
 
-def _forced_case(mesh, arch, params, xs, cache, position):
+def _forced_case(mesh, arch, params, xs, cache, position, heads=None):
     """A rank's decode step of every group, each fed the one process's
     input ``xs[g]`` (its rows) and the one process's ``cache`` cut by
     ``chip_smoke.rank_cache``; returns each group's output."""
-    cfg = _cfg(arch)
+    cfg = _cfg(arch, heads)
     own = checkpoint.reshard(params, shd.named(
         mesh, shd.param_specs(params, cfg, mesh)), device="cpu")
     mine = _chip_smoke().rank_cache(cache, cfg, mesh)
@@ -660,21 +747,25 @@ def _forced_case(mesh, arch, params, xs, cache, position):
             for g in range(cfg.num_groups())]
 
 
-@pytest.mark.parametrize("arch,shape", [
-    ("recurrentgemma-9b", (1, 4)), ("mamba2-780m", (1, 4)),
-    ("mamba2-780m", (2, 2))])
-def test_rank_cache_feeds_a_rank_s_decode(arch, shape):
+@pytest.mark.parametrize("arch,shape,heads", [
+    ("recurrentgemma-9b", (1, 4), None), ("mamba2-780m", (1, 4), None),
+    ("mamba2-780m", (2, 2), None), ("seamless-m4t-medium", (2, 2), None),
+    ("seamless-m4t-medium", (1, 4), (4, 2))])
+def test_rank_cache_feeds_a_rank_s_decode(arch, shape, heads):
     """``chip_smoke.rank_cache`` cuts the one process's decode cache to a
-    rank's layout (kv heads, RG-LRU channels, SSD heads, an SSD's
-    ``conv`` as [its x channels | B | C]): each rank's decode step of a
-    group, fed the one process's input and that cache, is the one
-    process's step within 1e-5 in fp32 (the ranks as threads)."""
-    cfg = _cfg(arch)
+    rank's layout (kv heads, ``enc_kv``'s too, RG-LRU channels, SSD heads,
+    an SSD's ``conv`` as [its x channels | B | C]): each rank's decode
+    step of a group, fed the one process's input and that cache, is the
+    one process's step within 1e-5 in fp32 (the ranks as threads).
+    seamless-m4t-medium with 4 heads on 2 over (1, 4): the kv heads and
+    ``enc_kv`` whole on every rank, each rank's one query head reading
+    its own."""
+    cfg = _cfg(arch, heads)
     params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     tokens = _tokens()
     G = cfg.num_groups()
     with torch.no_grad():
-        _, cache = tr.prefill(params, {"tokens": tokens[:, :PROMPT]}, cfg)
+        _, cache = tr.prefill(params, _batch(cfg, tokens, _frames()), cfg)
         cache = tr.pad_kv_caches(cache, PROMPT + 1)
         start = tree_map(torch.clone, cache)
         xs = [tr.embed_tokens(params, tokens[:, PROMPT:PROMPT + 1], cfg)]
@@ -684,7 +775,7 @@ def test_rank_cache_feeds_a_rank_s_decode(arch, shape):
                                             stop_group=g + 1))
         xs = torch.stack(xs)
     got = _chip_smoke().tp_as_ranks(_forced_case, shape, arch, params, xs,
-                                    start, PROMPT)
+                                    start, PROMPT, heads)
     rows = B // shape[0]
     for rank, ys in enumerate(got):
         d = _coords(shape, rank)[0]
@@ -694,19 +785,109 @@ def test_rank_cache_feeds_a_rank_s_decode(arch, shape):
                 rtol=1e-5, atol=1e-5, err_msg=f"rank {rank}, group {g}")
 
 
-def test_a_cut_encoder_raises():
-    """An encoder-decoder tree whose decoder blocks are whole but whose
-    encoder stack is cut names A10.2c-xattn."""
+@pytest.mark.parametrize("stack,heads", [
+    ("blocks", None), ("encoder", None), ("blocks", (4, 2))])
+def test_a_cut_cross_attention_or_encoder_block_sums_its_partials(stack,
+                                                                   heads):
+    """A decoder block of reduced seamless-m4t-medium attending to an
+    encoder's output, and an encoder block (non-causal), cut over a model
+    axis of 4, each rank a thread of this process (``tp_as_ranks``):
+    every rank's block output is the whole block's within 1e-5 in fp32,
+    so the self-attention's ``wo``, cross-attention's ``xwo`` and the
+    MLP are each summed over the axis.  With 4 query heads on 2 kv heads
+    the rank's one query head reads its kv head of the whole ``enc_out``
+    (``_rank_kv``)."""
+    cfg = _cfg("seamless-m4t-medium", heads)
+    params = tr.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+    enc_out = torch.from_numpy(rng.standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        want = _block(_first_block(params, cfg, "attn", stack), x, cfg,
+                      "attn", None, enc_out, stack)
+        alone = _block(_first_block(params, cfg, "attn", stack), x, cfg,
+                       "attn", None, None, stack)
+    if stack == "blocks":       # the cross-attention branch ran
+        assert not torch.allclose(want, alone, atol=1e-3)
+    got = _chip_smoke().tp_as_ranks(_cut_block_case, (1, 4), cfg, "attn",
+                                    params, x, enc_out, stack)
+    for rank, y in enumerate(got):
+        np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"rank {rank}")
+
+
+def _part_cut_case(mesh, cfg, params, tokens, frames, part):
+    """A rank's prefill and one decode step on a tree of which only
+    ``part`` ("encoder": the encoder's stack; "decoder": everything
+    else) is cut by ``param_specs``, the rest whole."""
+    specs = shd.tree_map_with_path(
+        lambda path, s: (s if ("['encoder']" in path) == (part == "encoder")
+                         else shd.P(*[None] * len(s))),
+        shd.param_specs(params, cfg, mesh))
+    own = checkpoint.reshard(params, shd.named(mesh, specs), device="cpu")
+    ctx = shd.make_ctx(mesh)
+    logits, cache = tr.prefill(own, _batch(cfg, tokens, frames), cfg, ctx,
+                               pad_to=PROMPT + 1)
+    step, _ = tr.decode_step(own, tokens[:, PROMPT:PROMPT + 1], cache,
+                             PROMPT, cfg, ctx)
+    return torch.stack([logits, step])
+
+
+@pytest.mark.parametrize("part", ["encoder", "decoder"])
+def test_a_cut_encoder_or_decoder_alone_gives_the_whole_tree_s_logits(part):
+    """The encoder and the decoder are each whole or cut independently:
+    a cut encoder under whole decoder blocks, embedding and head, and
+    whole encoder blocks under a cut decoder, give the whole tree's
+    prefill and decode logits within 1e-5 in fp32 on every rank of (1,
+    4) (the ranks as threads); ``_check_tree`` accepts either."""
+    cfg = _cfg("seamless-m4t-medium")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    tokens, frames = _tokens(), _frames()
+    with torch.no_grad():
+        logits, cache = tr.prefill(params, _batch(cfg, tokens, frames), cfg,
+                                   pad_to=PROMPT + 1)
+        step, _ = tr.decode_step(params, tokens[:, PROMPT:PROMPT + 1], cache,
+                                 PROMPT, cfg)
+    want = torch.stack([logits, step])[..., :cfg.vocab_size]
+    for rank, got in enumerate(_chip_smoke().tp_as_ranks(
+            _part_cut_case, (1, 4), cfg, params, tokens, frames, part)):
+        np.testing.assert_allclose(got[..., :cfg.vocab_size].numpy(),
+                                   want.numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"rank {rank}")
+
+
+def test_a_cross_block_cut_in_some_leaves_only_raises():
+    """A decoder block of reduced seamless-m4t-medium with ``xwq`` cut by
+    ``param_specs`` and ``xwo`` whole, and an encoder with ``wq`` cut and
+    ``wo`` whole: prefill and decode raise before anything runs, naming
+    dense tensor parallelism and A10.2c (and the encoder for the
+    second)."""
     cfg = _cfg("seamless-m4t-medium")
     params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    mesh, ctx = _mesh_ctx((1, 2))
-    specs = shd.param_specs(params, cfg, mesh)
-    only_encoder = shd.tree_map_with_path(
-        lambda path, s: (s if "['encoder']" in path
-                         else shd.P(*[None] * len(s))), specs)
-    with pytest.raises(NotImplementedError, match="encoder.*A10.2c-xattn"):
-        tr._check_tree(_cut(params, cfg, mesh, specs=only_encoder), cfg,
-                       ctx)
+    mesh, ctx = _mesh_ctx()
+    cut = _cut(params, cfg, mesh)
+    cross = {**cut, "blocks": {"b0": {**cut["blocks"]["b0"],
+                                      "xwo": params["blocks"]["b0"]["xwo"]}}}
+    enc = {**cut, "encoder": {**cut["encoder"], "blocks": {
+        **cut["encoder"]["blocks"],
+        "wo": params["encoder"]["blocks"]["wo"]}}}
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    batch = {"tokens": tokens, "frontend": torch.zeros(
+        (1, cfg.frontend.num_positions, cfg.frontend.embed_dim))}
+    cache = tr.init_decode_cache(cfg, 1, 8, "cpu")
+    with torch.no_grad():
+        for tree, match in ((cross, "xwq.* while \\['xwo'\\] are.*dense "
+                                    "tensor parallelism.*ROADMAP A10.2c\\)"),
+                            (enc, "encoder attn block.* while \\['wo'\\] "
+                                  "are.*dense tensor parallelism.*ROADMAP "
+                                  "A10.2c\\)")):
+            with pytest.raises(NotImplementedError, match=match):
+                tr.prefill(tree, batch, cfg, ctx)
+            with pytest.raises(NotImplementedError, match=match):
+                tr.decode_step(tree, tokens[:, :1], cache, 0, cfg, ctx)
+        tr._check_tree(cut, cfg, ctx)
 
 
 def test_a_tree_cut_in_some_leaves_only_raises():
