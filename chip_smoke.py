@@ -159,7 +159,7 @@ drives the port's serving paths, each at full published width:
     training launcher ``launch/train.py`` run twice on one checkpoint
     directory (100 steps of 8 x 2048 tokens each), the second run resuming
     at step 100 from the first's checkpoint (``train_cli``); then the
-    launcher trains it 10 steps of 8 x 2048 tokens on one device and
+    launcher trains it 4 steps of 8 x 2048 tokens on one device and
     again with ``--data-parallel 2``: 2 ``gloo`` ranks on this card, each
     on 4 of the 8 rows, the gradients summed in fp32, the AdamW state cut
     by ZeRO-1, the new parameters gathered; flash first held to its
@@ -169,7 +169,19 @@ drives the port's serving paths, each at full published width:
     to each other's by checksum, each rank's optimizer state to half the
     one-device state's, each rank's flash launches counted; the sum's and
     the gather's bytes and rates printed; the ranks share the card's SMs,
-    so no speed-up is claimed (``train_dp``);
+    so no speed-up is claimed (``train_dp``); then h2o-danube-1.8b at
+    full width, its first 4 of 24 layers, under dense tensor
+    parallelism: flash held to its plain version at the ranks' shape (2 x
+    1024, 8 query heads on 2 kv heads of 80, causal, bf16), forward with
+    its lse and backward; then the launcher trains the bf16 model 3
+    steps of 2 x 1024 tokens on one device and again with
+    ``--model-parallel 4``: 4 ``gloo`` ranks on this card, each on its
+    ``param_specs`` blocks, each step's loss and gradient norm held to one
+    device's, every leaf held whole bit-equal across the ranks after each
+    step, each rank's leaves of ``sharding.local_shapes``' shapes, its
+    flash launches and its sums over the model axis counted; then in the
+    same ranks one fp32 step, its loss and gradient norm and every leaf's
+    gathered gradient held to one device's (``tp_train``);
   * calibration (phase ``calibrate``): the port's dry run
     (``launch/dryrun.py``) over every architecture and shape cell, host
     arithmetic on meta tensors, then four steps timed above -- Qwen2-7B's
@@ -204,6 +216,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -501,11 +514,14 @@ TP_TIMEOUT_S = 300
 # tp_mamba), on the weights their serve phases drew, with the same
 # tokens, steps and limits: RecurrentGemma-9B on (1, 4), 4 query heads on
 # the one kv head of 256, 1024 LRU channels in 4 gate blocks, 3072 of
-# d_ff and 64,000 vocabulary rows a rank; Mamba-2-780M on (1, 4) and
-# (2, 2), 12 or 24 SSD heads of 64 (768 or 1536 of d_inner) a rank, B, C
-# and dt whole, the gated norm's sum of squares summed over the axis
+# d_ff and 64,000 vocabulary rows a rank; Mamba-2-780M on (1, 4), 12 SSD
+# heads of 64 (768 of d_inner) a rank, B, C and dt whole, the gated
+# norm's sum of squares summed over the axis.  Mamba-2-780M's (2, 2) run
+# (24 SSD heads, 1536 of d_inner a rank) was cut to make room for
+# tp_train, when the whole script had passed 760 s; tp_qwen2 keeps the
+# (2, 2) mesh on the card
 TP_RECURRENTGEMMA_MESHES = TP_MESHES[:1]
-TP_MAMBA_MESHES = TP_MESHES
+TP_MAMBA_MESHES = TP_MESHES[:1]
 # The same for the encoder-decoder (phase tp_seamless), on the weights
 # encdec_serve drew: seamless-m4t-medium on (1, 4), 4 of 16 heads of 64 a
 # rank in the encoder's 12 blocks and in the decoder's 12 self- and
@@ -650,11 +666,35 @@ CLI_BATCH, CLI_SEQ, CLI_STEPS, CLI_RESUME_STEPS = 8, 2048, 100, 20
 # matmuls run on half the rows and their bf16 gradients are summed in
 # fp32, where one device sums all rows inside its bf16 products.  Set
 # from the first run on an H100 (step-0 loss equal to the bit, step-0
-# gradient norm 1.40e-3, step-9 loss 1.9e-6), down from 1e-3, 1e-2, 1e-2
-DP_RANKS, DP_STEPS = 2, 10
-DP_LOSS0_RTOL, DP_GNORM0_RTOL, DP_LOSS9_RTOL = 1e-5, 3e-3, 1e-4
+# gradient norm 1.40e-3, step-9 loss 1.9e-6), down from 1e-3, 1e-2, 1e-2.
+# DP_STEPS was cut from 10 to 4 to make room for tp_train, when the whole
+# script had passed 760 s: the launcher then logs step 0 only, so every
+# step's loss, gradient norm and clock are read through its on_step hook
+# (record_step), and the last step's loss is held to DP_LOSS_LAST_RTOL
+DP_RANKS, DP_STEPS = 2, 4
+DP_LOSS0_RTOL, DP_GNORM0_RTOL, DP_LOSS_LAST_RTOL = 1e-5, 3e-3, 1e-4
 # the one-device AdamW state: masters, m and v, fp32, 3 x 538,060,032 B
 DP_ONE_DEVICE_STATE_BYTES = 1_614_180_096
+
+# Training under dense tensor parallelism (phase tp_train): h2o-danube-1.8b
+# at full width (d 2560, 32 query heads on 8 kv heads of 80, d_ff 6912, a
+# vocabulary of 32000 padded to 32768, an untied head), its depth cut to
+# the first TP_TRAIN_LAYERS of its 24 layers, through launch/train.py
+# --model-parallel TP_TRAIN_RANKS: gloo ranks on this card, each on its
+# param_specs blocks (8 query heads on 2 kv heads, 1728 of d_ff, 8192
+# vocabulary rows and columns) and their AdamW state, TP_TRAIN_STEPS steps
+# of TP_TRAIN_BATCH x TP_TRAIN_SEQ tokens; the same on one device.  Limits,
+# fixed before the first run on the card: one fp32 step at the ranks'
+# layers, its loss and gradient norm against one device's within
+# TP_TRAIN_FP32_RTOL and each leaf's gradient, gathered, within
+# TP_TRAIN_FP32_GRAD_REL of one device's (relative L2 by the leaf's norm);
+# the bf16 steps' loss and gradient norm against one device's within
+# TP_TRAIN_BF16_RTOL, relative
+TP_TRAIN_LAYERS, TP_TRAIN_RANKS = 4, 4
+TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 2, 1024, 3
+TP_TRAIN_FP32_RTOL, TP_TRAIN_FP32_GRAD_REL = 1e-4, 1e-3
+TP_TRAIN_BF16_RTOL = 2e-2
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -2958,7 +2998,7 @@ def tp_serve(mesh, cfg, own, tokens, counted: bool = True,
     decode, _ = dryrun.build_decode_step(cfg, mesh)
     sums, gathers = coll.HopStats(), coll.HopStats()
     record = {}
-    with (counted_collectives(sums, gathers) if counted
+    with (coll.counting(sums, gathers) if counted
           else contextlib.nullcontext()):
         if counted:
             dist.barrier()
@@ -3391,7 +3431,7 @@ def phase_tp_recurrentgemma(cfg, params) -> None:
 
 
 def phase_tp_mamba(cfg, params) -> None:
-    """Mamba-2-780M under dense tensor parallelism on (1, 4) and (2, 2)
+    """Mamba-2-780M under dense tensor parallelism on (1, 4)
     (``tp_phase``): its SSD blocks by whole heads.  First, at the ranks'
     heads, the SSD scan at prefill and the step kernel at one token."""
     s = cfg.ssm
@@ -4059,28 +4099,6 @@ class moe_recorder:
 
 
 @contextlib.contextmanager
-def counted_collectives(sums, gathers=None):
-    """Within the block, ``collectives.psum`` (the sums over the model
-    axis of ``models/moe.py`` and ``models/transformer.py``) counts its
-    ring hops into ``sums``, and every other ``ring_all_gather`` (the
-    logits' gather over the vocabulary) into ``gathers`` (``HopStats``)."""
-    from repro_torch.distributed import collectives as coll
-    plain_sum, plain_gather = coll.psum, coll.ring_all_gather
-
-    def counted_sum(*args, **kwargs):
-        return plain_sum(*args, stats=sums, **kwargs)
-
-    def counted_gather(*args, stats=None, **kwargs):
-        return plain_gather(*args, stats=gathers if stats is None else stats,
-                            **kwargs)
-    coll.psum, coll.ring_all_gather = counted_sum, counted_gather
-    try:
-        yield
-    finally:
-        coll.psum, coll.ring_all_gather = plain_sum, plain_gather
-
-
-@contextlib.contextmanager
 def moe_as_ranks(model_size: int):
     """Within the block, ``apply_moe`` computes in this one process what
     ``model_size`` ranks of the model axis compute: each rank's partial
@@ -4182,7 +4200,7 @@ def _moe_sharded_rank(rank, world_size, cfg, params, tokens, layer_io, ids,
                 y, cold_s = timed(forward)
             flash = fa.launch_count
             stats = coll.HopStats()
-            with counted_collectives(stats):
+            with coll.counting(stats):
                 warm, warm_s = timed(forward)
             d = mesh.axis_index("data")
             io = layer_io[name][d]
@@ -5731,24 +5749,68 @@ def phase_train_cli() -> None:
         raise RuntimeError(f"train_cli: missed {misses}")
 
 
+#: each step's record in this process (``record_step``), read and cleared
+#: by the launcher's ``rank_report`` (``train_dp_report``,
+#: ``tp_train_report``)
+STEPS_SEEN = []
+
+
+def record_step(step, params, opt_state, metrics) -> None:
+    """``launch/train.py``'s ``on_step`` (called in each rank, or in this
+    process on one device, after each step): the step's loss, gradient
+    norm and learning rate (reading them waits for the step) and the
+    clock then."""
+    STEPS_SEEN.append({
+        **{k: float(metrics[k]) for k in ("loss", "grad_norm", "lr")},
+        "step": step, "clock": time.perf_counter()})
+
+
+def record_step_leaves(step, params, opt_state, metrics) -> None:
+    """``record_step``, with each parameter leaf's checksum after the
+    step (``tree_checksum``)."""
+    record_step(step, params, opt_state, metrics)
+    STEPS_SEEN[-1]["checksums"] = {path: tree_checksum({"t": t})
+                                   for path, t in _paths(params)}
+
+
+def _steps_seen() -> list:
+    seen = list(STEPS_SEEN)
+    STEPS_SEEN.clear()
+    return seen
+
+
+def _step_seconds(steps: list) -> float:
+    """Seconds a step from the recorded steps' clocks, the first step
+    (warm-up) left out."""
+    return ((steps[-1]["clock"] - steps[0]["clock"])
+            / (steps[-1]["step"] - steps[0]["step"]))
+
+
 def train_dp_report(rank, loop, params, opt_state) -> dict:
     """What ``train_dp`` reads of a rank (``launch.train.main``'s
     ``rank_report``, called in each rank after its last step, or in this
-    process on one device): the parameters' checksum, the optimizer
-    state's bytes and the leaves it holds whole (a master of the
-    parameter's shape), the kernel launches, the peak memory, and the
-    bytes and seconds of the step's hops."""
+    process on one device): each step's record (``record_step``), the
+    parameters' checksum, the optimizer state's bytes and the leaves it
+    holds whole (a master of the parameter's shape), the kernel launches,
+    the peak memory, and the bytes and seconds of the step's hops."""
     state = {k: opt_state[k] for k in ("master", "m", "v")}
     shapes = dict(_paths(params))
     whole = [path for path, t in _paths(state["master"])
              if t.shape == shapes[path].shape]
-    return {"rank": rank, "checksum": tree_checksum(params),
+    return {"rank": rank, "steps": _steps_seen(),
+            "checksum": tree_checksum(params),
             "state_bytes": _nbytes(state), "whole_leaves": whole,
             "whole_bytes": 3 * sum(4 * shapes[p].numel() for p in whole),
             "launches": launch_counts(),
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "hops": {k: dataclasses.asdict(v)
                      for k, v in loop.hop_stats.items()}}
+
+
+def _logged(steps: int) -> list:
+    """The steps the launcher logs in a run of ``steps``: its first, then
+    every 10th."""
+    return [0] + list(range(9, steps, 10))
 
 
 def phase_train_dp() -> None:
@@ -5758,13 +5820,14 @@ def phase_train_dp() -> None:
     state, the gradient summed in fp32, the parameters gathered).  First
     flash is held to its plain version at the ranks' shape, forward and
     backward.  Checks: the printed steps and summary, the 2-rank run's
-    loss and gradient norm at steps 0 and DP_STEPS - 1 against the
-    one-device run's, every rank's parameters bit-equal, each rank's
-    optimizer state at half the one-device state's plus the leaves held
-    whole, the flash launches of each rank.  Raises on any miss, after
-    printing its line.  One card time-shares its SMs between the ranks,
-    and gloo moves every hop through pinned host memory: no speed-up is
-    expected or claimed."""
+    loss and gradient norm at step 0 and its loss at step DP_STEPS - 1
+    (every step read through ``record_step``) against the one-device
+    run's, every rank's parameters bit-equal, each rank's optimizer state
+    at half the one-device state's plus the leaves held whole, the flash
+    launches of each rank.  Raises on any miss, after printing its line.
+    One card time-shares its SMs between the ranks, and gloo moves every
+    hop through pinned host memory: no speed-up is expected or
+    claimed."""
     from repro_torch.launch import train as launch
     t_phase = time.perf_counter()
     cfg, params, info = init_full_width(CLI_ARCH, CLI_PARAMETERS,
@@ -5788,17 +5851,19 @@ def phase_train_dp() -> None:
                 "--batch", str(CLI_BATCH), "--seq", str(CLI_SEQ),
                 "--device", "cuda"] + extra
         reset_launch_counts()
+        STEPS_SEEN.clear()
         torch.cuda.reset_peak_memory_stats()
         printed = io.StringIO()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
-            hist, reports = launch.main(argv, rank_report=train_dp_report)
+            _, reports = launch.main(argv, rank_report=train_dp_report,
+                                     on_step=record_step)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         lines = printed.getvalue().splitlines()
-        step_s = ((hist[-1]["wall_s"] - hist[0]["wall_s"])
-                  / (hist[-1]["step"] - hist[0]["step"]))
+        steps = reports[0]["steps"]
+        step_s = _step_seconds(steps)
         for r in reports:
             for hop in r["hops"].values():
                 seconds = hop["host_copy_seconds"] + hop["transfer_seconds"]
@@ -5812,7 +5877,7 @@ def phase_train_dp() -> None:
                               if ln.startswith("step ")],
             "summary": lines[-1],
             "history": [{k: h[k] for k in ("step", "loss", "grad_norm",
-                                          "lr")} for h in hist],
+                                          "lr")} for h in steps],
             "ranks": reports}
         gc.collect()
         torch.cuda.empty_cache()
@@ -5821,21 +5886,24 @@ def phase_train_dp() -> None:
     def rel(key, i):
         a, b = dp["history"][i][key], one["history"][i][key]
         return abs(a - b) / abs(b)
+    last = f"loss_{DP_STEPS - 1}"
     diffs = {"loss_0": rel("loss", 0), "grad_norm_0": rel("grad_norm", 0),
-             f"loss_{DP_STEPS - 1}": rel("loss", -1)}
+             last: rel("loss", -1)}
     limits = {"loss_0": DP_LOSS0_RTOL, "grad_norm_0": DP_GNORM0_RTOL,
-              f"loss_{DP_STEPS - 1}": DP_LOSS9_RTOL}
+              last: DP_LOSS_LAST_RTOL}
     one_state = one["ranks"][0]["state_bytes"]
     expected = {k: DP_STEPS * v for k, v in per_step.items()}
-    logged = [0, DP_STEPS - 1]
     emit("train_dp", **info, ranks=DP_RANKS, batch=CLI_BATCH, seq=CLI_SEQ,
          steps=DP_STEPS, flash=flash, launches_per_step=per_step,
          runs=runs, rel_diffs=diffs, limits=limits,
          one_device_state_bytes=one_state,
          seconds=time.perf_counter() - t_phase)
     misses = [what for what, ok in (
-        ("printed steps", one["printed_steps"] == logged
-         and dp["printed_steps"] == logged),
+        ("printed steps", one["printed_steps"] == _logged(DP_STEPS)
+         and dp["printed_steps"] == _logged(DP_STEPS)),
+        ("recorded steps", all(
+            [h["step"] for h in run["history"]] == list(range(DP_STEPS))
+            for run in runs.values())),
         ("summaries", one["summary"].endswith(
             "on mesh {'data': 1, 'model': 1}") and dp["summary"].endswith(
             f"on mesh {{'data': {DP_RANKS}, 'model': 1}}")),
@@ -5857,6 +5925,325 @@ def phase_train_dp() -> None:
                              for r in dp["ranks"]))) if not ok]
     if misses:
         raise RuntimeError(f"train_dp: missed {misses}")
+
+
+def _keystr(path: str) -> str:
+    """A ``_paths`` path (``blocks/b0/wq``) as ``keystr`` writes it."""
+    return "".join(f"[{k!r}]" for k in path.split("/"))
+
+
+def tp_train_sums(cfg, B: int, S: int, M: int, chunk: int = 512) -> list:
+    """The bytes of a rank's tensor in each sum over the model axis that
+    one train step of ``B`` x ``S`` tokens makes under dense tensor
+    parallelism over ``M`` ranks, where the heads, ``d_ff`` and the
+    vocabulary are cut (``models/transformer.py``, ``lm_loss``): the
+    forward's embedding rows (the parameters' dtype), each layer's fp32
+    attention and MLP partials, and for each chunk of the loss its row
+    maxima (gathered) and its stacked sums of exponentials and target
+    logits (fp32); the backward recomputes each layer (its attention sum
+    again: the recompute stops before the MLP's, the last saved tensor
+    coming before it) and each chunk of the loss (both again), and sums
+    the gradients of the attention's and the MLP's normed inputs and of
+    each chunk's hidden state (the parameters' dtype), and of ``wk``,
+    ``wv`` (and their biases) where the kv heads stay whole; then the
+    global norm's sums of squares of the cut leaves (fp32)."""
+    isz = 2 if cfg.param_dtype == "bfloat16" else 4
+    act, L, d = B * S * cfg.d_model, cfg.num_layers, cfg.d_model
+    chunks = [min(chunk, S)] * (S // min(chunk, S))
+    chunks += [S % min(chunk, S)] if S % min(chunk, S) else []
+    loss = [n for c in chunks for n in (4 * B * c, 8 * B * c)]
+    hd = cfg.resolved_head_dim()
+    kv = []
+    if cfg.num_kv_heads % M and cfg.num_heads % M == 0:
+        kv = [d * cfg.num_kv_heads * hd * isz] * 2
+        kv += [cfg.num_kv_heads * hd * 4] * 2 if cfg.qkv_bias else []
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train import train_loop
+    ctx = shd.make_ctx(Mesh((1, M), ("data", "model")))
+    n_cut = sum(train_loop.cut_over_model(train_loop.model_specs(cfg, ctx),
+                                          ctx))
+    forward = [isz * act] + [4 * act, 4 * act] * L + loss
+    recompute = [4 * act] * L + loss
+    backward = ([isz * act, isz * act] * L + kv * L
+                + [isz * B * c * d for c in chunks])
+    return forward + recompute + backward + [4 * n_cut]
+
+
+def tp_train_report(rank, loop, params, opt_state) -> dict:
+    """What ``tp_train`` reads of a rank (``launch.train.main``'s
+    ``rank_report``; in this process on one device): each step's record
+    with the checksums of the leaves the rank holds whole
+    (``record_step_leaves``), each leaf's shape and bytes beside
+    ``sharding.local_shapes``', the state's bytes, the kernel launches,
+    the peak memory and the hops of the sums over the model axis."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tr
+    cfg, mesh = loop.model_cfg, loop.ctx.mesh
+    whole = {_keystr(p): tuple(t.shape) for p, t in _paths(
+        tr.init_params(cfg, torch.Generator(), "meta"))}
+    local = shd.local_shapes(cfg, mesh) if mesh is not None else whole
+    steps = _steps_seen()
+    leaves = {}
+    for path, t in _paths(params):
+        key = _keystr(path)
+        leaves[key] = {"shape": list(t.shape),
+                       "bytes": t.numel() * t.element_size(),
+                       "local_shape": list(local[key]),
+                       "whole": local[key] == whole[key]}
+    for s in steps:
+        s["checksums"] = {k: v for k, v in s["checksums"].items()
+                          if leaves[_keystr(k)]["whole"]}
+    return {"rank": rank, "steps": steps, "leaves": leaves,
+            "state_bytes": _nbytes({k: opt_state[k]
+                                    for k in ("master", "m", "v")}),
+            "launches": launch_counts(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "model_sum": dataclasses.asdict(loop.hop_stats["model_sum"])}
+
+
+def tp_train_fp32(loop, dev) -> dict:
+    """``tp_train``'s fp32 step, in a rank of the launcher's world after
+    its bf16 steps: the one-device tree of the same layers in fp32, drawn
+    from SEED as the one-device loop draws it, and its gradients on one
+    device; then this rank's ``param_specs`` blocks of it, the gradients
+    of the loss on them under dense tensor parallelism, the whole norm
+    (``optimizer.global_norm`` over the model axis, as the step takes
+    it), and each leaf's gradient against its block of the one-device
+    gradient: the squared error and the block's squared norm, summed over
+    the model axis for a cut leaf (the gathered leaf's relative L2,
+    without gathering it).  Returns host values."""
+    from repro_torch.convert import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, batch_for_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import checkpoint, optimizer, train_loop
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    marks = {"start": time.perf_counter()}
+    ctx, mesh = loop.ctx, loop.ctx.mesh
+    cfg = dataclasses.replace(loop.model_cfg, param_dtype="float32")
+    params = tr.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_for_config(
+        cfg, DataConfig(cfg.vocab_size, TP_TRAIN_SEQ, TP_TRAIN_BATCH),
+        0).items()}
+    (loss1, _), grads = train_loop.value_and_grad(cfg, params, batch)
+    one = {"loss": float(loss1),
+           "grad_norm": float(optimizer.global_norm(grads))}
+    specs = train_loop.model_specs(cfg, ctx)
+    own = checkpoint.reshard(params, shd.named(mesh, specs), dev)
+    del params
+    sync()
+    marks["one_device"] = time.perf_counter()
+    stats = coll.HopStats()
+    with coll.counting(stats, stats):
+        (loss, _), got = train_loop.value_and_grad(cfg, own, batch, ctx)
+        norm = optimizer.global_norm(
+            got, cut=train_loop.cut_over_model(specs, ctx),
+            model_sum=lambda t: coll.psum(t, ctx.model_axis, mesh=mesh))
+    sync()
+    marks["step"] = time.perf_counter()
+
+    def pair(path, g, w, spec):
+        return (path, g, shd.local_shard(w, spec, mesh),
+                any("model" in (e if isinstance(e, tuple) else (e,))
+                    for e in spec))
+    pairs = tree_leaves(shd.tree_map_with_path(pair, got, grads, specs),
+                        lambda x: isinstance(x, tuple))
+    sq = torch.stack([torch.stack([(g.float() - w.float()).square().sum(),
+                                   w.float().square().sum()])
+                      for _, g, w, _ in pairs])
+    summed = coll.psum(sq, "model", mesh=mesh)
+    rel = {}
+    for (path, _, _, c), mine, total in zip(pairs, sq, summed):
+        e, r = (total if c else mine).tolist()
+        rel[path] = math.sqrt(e / max(r, 1e-30))
+    whole = {path: tree_checksum({"t": g})
+             for path, g, _, c in pairs if not c}
+    marks["checks"] = time.perf_counter()
+    return {"one_device": one, "loss": float(loss), "grad_norm": float(norm),
+            "rel_l2": rel, "whole_grad_checksums": whole,
+            "blocks_bytes": _nbytes(own),
+            "model_sum": dataclasses.asdict(stats),
+            "seconds": _spans(marks)}
+
+
+def tp_train_rank_report(rank, loop, params, opt_state) -> dict:
+    """``tp_train_report`` of a rank of ``--model-parallel``, then its
+    fp32 step (``tp_train_fp32``), in the world that trained it."""
+    report = tp_train_report(rank, loop, params, opt_state)
+    report["fp32"] = tp_train_fp32(loop, _leaves(params)[0].device)
+    return report
+
+
+def phase_tp_train() -> None:
+    """h2o-danube-1.8b at full width, its first TP_TRAIN_LAYERS layers,
+    trained under dense tensor parallelism over a (1, TP_TRAIN_RANKS)
+    mesh of gloo ranks on this card.  First flash is held to its plain
+    version at the ranks' shape, forward with its lse and backward.  Then
+    ``launch/train.py`` (its ``--full`` config cut to those layers)
+    trains the bf16 model TP_TRAIN_STEPS steps on one device and with
+    ``--model-parallel`` (every step recorded through
+    ``record_step_leaves``): each step's loss and gradient norm against
+    one device's within TP_TRAIN_BF16_RTOL, and bit-equal across the
+    ranks with every leaf held whole; the printed lines; each rank's
+    leaves of ``sharding.local_shapes``' shapes; the flash launches; the
+    sums over the model axis against ``tp_train_sums``.  Then, in the
+    same world, one fp32 step (``tp_train_fp32``): the ranks' loss and
+    gradient norm against one device's within TP_TRAIN_FP32_RTOL, each
+    leaf's gradient within TP_TRAIN_FP32_GRAD_REL, the whole leaves'
+    gradients bit-equal across the ranks.  Raises on any miss, after
+    printing its line.  One card time-shares its SMs between the ranks,
+    and gloo moves every hop through pinned host memory: no speed-up is
+    expected or claimed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+
+    mode = tool_output(["nvidia-smi", "--query-gpu=compute_mode",
+                        "--format=csv,noheader"]).splitlines()[0].strip()
+    if mode != "Default":
+        raise RuntimeError(f"compute mode {mode!r}: {TP_TRAIN_RANKS} ranks "
+                           f"cannot share the card (needs 'Default')")
+    marks = {"start": time.perf_counter()}
+    M, B, S = TP_TRAIN_RANKS, TP_TRAIN_BATCH, TP_TRAIN_SEQ
+    full = get_config(DANUBE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TP_TRAIN_LAYERS)
+    hd = cfg.resolved_head_dim()
+    shape = (B, S, S, cfg.num_heads // M, cfg.num_kv_heads // M, hd, True,
+             cfg.window)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flash = {"forward": flash_layout_check(gen, shape, "danube_tp_rank",
+                                           lse=True),
+             "backward": flash_backward_entry(gen, shape, "danube_tp_rank")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["flash"] = time.perf_counter()
+
+    # the bf16 steps through the launcher (its --full config cut to the
+    # first layers), one device then the ranks, each rank then taking
+    # the fp32 step
+    argv = ["--arch", DANUBE_ARCH, "--full", "--batch", str(B), "--seq",
+            str(S), "--steps", str(TP_TRAIN_STEPS), "--device", "cuda"]
+    per_step = _train_launches(cfg)
+    runs = {}
+    for name, extra, report in (
+            ("one_device", [], tp_train_report),
+            ("model_parallel", ["--model-parallel", str(M)],
+             tp_train_rank_report)):
+        reset_launch_counts()
+        STEPS_SEEN.clear()
+        torch.cuda.reset_peak_memory_stats()
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (contextlib.redirect_stdout(printed),
+              mock.patch.object(launch, "get_config", lambda arch: cfg)):
+            _, reports = launch.main(argv + extra, rank_report=report,
+                                     on_step=record_step_leaves)
+        torch.cuda.synchronize()
+        lines = printed.getvalue().splitlines()
+        runs[name] = {
+            "seconds": time.perf_counter() - t0,
+            "step_seconds": [_step_seconds(r["steps"]) for r in reports],
+            "printed_steps": [int(ln.split()[1]) for ln in lines
+                              if ln.startswith("step ")],
+            "summary": lines[-1], "ranks": reports}
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks[name] = time.perf_counter()
+    one, tp = runs["one_device"], runs["model_parallel"]
+    one_steps = one["ranks"][0]["steps"]
+    bf16 = [{key: abs(mine[key] - base[key]) / abs(base[key])
+             for key in ("loss", "grad_norm")}
+            for mine, base in zip(tp["ranks"][0]["steps"], one_steps)]
+    ranks32 = [r["fp32"] for r in tp["ranks"]]
+    fp32 = {"rel": [{key: abs(r[key] - r["one_device"][key])
+                     / abs(r["one_device"][key])
+                     for key in ("loss", "grad_norm")} for r in ranks32],
+            "worst_leaf": [max(r["rel_l2"].items(), key=lambda kv: kv[1])
+                           for r in ranks32],
+            "ranks": [{k: v for k, v in r.items() if k != "rel_l2"}
+                      for r in ranks32]}
+    sums = tp_train_sums(cfg, B, S, M)
+    want_hops = {"hops": TP_TRAIN_STEPS * len(sums) * (M - 1),
+                 "bytes": TP_TRAIN_STEPS * sum(sums) * (M - 1)}
+    expected = {k: TP_TRAIN_STEPS * v for k, v in per_step.items()}
+    first = tp["ranks"][0]
+    for r in tp["ranks"]:
+        hop = r["model_sum"]
+        seconds = hop["host_copy_seconds"] + hop["transfer_seconds"]
+        hop["gb_per_s"] = _gb_per_s(hop["bytes"], seconds) if seconds else None
+    leaf_bytes = {k: [v["bytes"], v["local_shape"]]
+                  for k, v in first["leaves"].items()}
+    emit("tp_train", config=cfg.name,
+         layers=f"the first {TP_TRAIN_LAYERS} of {full.num_layers}",
+         ranks=M, mesh=[1, M], batch=B, seq=S, steps=TP_TRAIN_STEPS,
+         backend="gloo", compute_mode=mode, flash=flash,
+         launches_per_step=per_step, fp32_step=fp32,
+         bf16_rel_diffs=bf16,
+         bf16_history={name: [{k: s[k] for k in ("step", "loss",
+                                                 "grad_norm", "lr")}
+                              for s in run["ranks"][0]["steps"]]
+                       for name, run in runs.items()},
+         limits={"fp32_rtol": TP_TRAIN_FP32_RTOL,
+                 "fp32_grad_rel_l2": TP_TRAIN_FP32_GRAD_REL,
+                 "bf16_rtol": TP_TRAIN_BF16_RTOL},
+         leaf_bytes_a_rank=leaf_bytes,
+         blocks_bytes=[sum(v["bytes"] for v in r["leaves"].values())
+                       for r in tp["ranks"]],
+         one_device_bytes=sum(v["bytes"]
+                              for v in one["ranks"][0]["leaves"].values()),
+         state_bytes=[r["state_bytes"] for r in tp["ranks"]],
+         max_memory_allocated=[r["max_memory_allocated"]
+                               for r in tp["ranks"]],
+         model_sum=[r["model_sum"] for r in tp["ranks"]],
+         expected_model_sum=want_hops,
+         runs={name: {k: v for k, v in run.items() if k != "ranks"}
+               for name, run in runs.items()},
+         spans=_spans(marks), seconds=time.perf_counter() - marks["start"])
+    steps = list(range(TP_TRAIN_STEPS))
+    misses = [what for what, ok in (
+        ("printed steps", one["printed_steps"] == _logged(TP_TRAIN_STEPS)
+         and tp["printed_steps"] == _logged(TP_TRAIN_STEPS)),
+        ("summaries", one["summary"].endswith(
+            "on mesh {'data': 1, 'model': 1}") and tp["summary"].endswith(
+            f"on mesh {{'data': 1, 'model': {M}}}")),
+        ("ranks", [r["rank"] for r in tp["ranks"]] == list(range(M))),
+        ("recorded steps", all([s["step"] for s in r["steps"]] == steps
+                               for run in runs.values()
+                               for r in run["ranks"])),
+        ("fp32 loss and gradient norm", all(
+            v <= TP_TRAIN_FP32_RTOL for d in fp32["rel"] for v in d.values())),
+        ("fp32 gradients", all(v <= TP_TRAIN_FP32_GRAD_REL
+                               for r in ranks32 for v in r["rel_l2"].values())),
+        ("fp32 whole gradients bit-equal", all(
+            r["whole_grad_checksums"] == ranks32[0]["whole_grad_checksums"]
+            for r in ranks32) and ranks32[0]["whole_grad_checksums"]),
+        ("bf16 loss and gradient norm", all(
+            v <= TP_TRAIN_BF16_RTOL for d in bf16 for v in d.values())),
+        ("finite", all(math.isfinite(s[k]) for run in runs.values()
+                       for r in run["ranks"] for s in r["steps"]
+                       for k in ("loss", "grad_norm"))),
+        ("ranks bit-equal after each step", all(
+            [{k: s[k] for k in ("loss", "grad_norm", "checksums")}
+             for s in r["steps"]]
+            == [{k: s[k] for k in ("loss", "grad_norm", "checksums")}
+                for s in first["steps"]] for r in tp["ranks"])
+         and first["steps"][0]["checksums"]),
+        ("local shapes", all(v["shape"] == v["local_shape"]
+                             for r in tp["ranks"]
+                             for v in r["leaves"].values())),
+        ("launches", one["ranks"][0]["launches"] == expected and all(
+            r["launches"] == expected for r in tp["ranks"])),
+        ("sums over the model axis", all(
+            {k: r["model_sum"][k] for k in want_hops} == want_hops
+            for r in tp["ranks"]))) if not ok]
+    if misses:
+        raise RuntimeError(f"tp_train: missed {misses}")
 
 
 def phase_replay(params, cfg) -> None:
@@ -6250,6 +6637,7 @@ def main() -> int:
         "ssd_scan")
     phase_train_cli()
     phase_train_dp()
+    phase_tp_train()
     phase_calibrate(measured, smi)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels_line(

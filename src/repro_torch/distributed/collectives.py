@@ -19,6 +19,9 @@ lookup, the Mixture-of-Experts layer): the partials gathered around the
 ring, summed in fp32 in group-rank order and rounded once to their
 dtype (``sum_in_order``), so every rank holds the same bits, and one
 process that adds the ranks' partials in that order holds them too.
+Under autograd its backward is the identity, and ``replicated`` is its
+dual (the identity forward, ``psum`` of the gradient backward): the two
+ends of a cut product in training.
 
 The reference resolves an axis name inside ``shard_map``; here a function
 takes the mesh (``launch.mesh.Mesh``) and the axis name, or a process
@@ -29,10 +32,12 @@ CUDA tensor goes as it is.  With ``gloo``, which moves host memory only, a
 CUDA tensor is copied into pinned host memory, sent, and the result
 copied back onto the tensor's device; a CPU tensor goes as it is.  No
 tensor changes device.  ``HopStats`` counts what the hops moved and
-splits their time between the host copies and the transfers.
+splits their time between the host copies and the transfers; a call
+counts into its ``stats``, or, given none, into those of ``counting``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -51,6 +56,26 @@ class HopStats:
     bytes: int = 0
     host_copy_seconds: float = 0.0
     transfer_seconds: float = 0.0
+
+
+#: where a call given no ``stats`` counts its hops (``counting``).  Held
+#: by the process, not the thread: autograd may run a backward on a
+#: thread of its own.
+_COUNTING = {"sums": None, "gathers": None}
+
+
+@contextlib.contextmanager
+def counting(sums: HopStats, gathers: HopStats = None):
+    """Within the block, the hops of every ``psum`` and ``replicated``
+    (the sums over a model axis, their backward passes included) given no
+    ``stats`` count into ``sums``, and those of every other
+    ``ring_all_gather`` given none into ``gathers``."""
+    before = dict(_COUNTING)
+    _COUNTING.update(sums=sums, gathers=gathers)
+    try:
+        yield
+    finally:
+        _COUNTING.update(before)
 
 
 class Wire:
@@ -161,7 +186,7 @@ def ring_all_gather(x: torch.Tensor, axis_name: str = None, *, mesh=None,
     n, idx = dist.get_world_size(group), dist.get_rank(group)
     dst = global_rank(group, (idx + 1) % n)
     src = global_rank(group, (idx - 1) % n)
-    wire = Wire(group, x, stats)
+    wire = Wire(group, x, _COUNTING["gathers"] if stats is None else stats)
     cur = wire.out(x)
     pieces = [cur]
     for _ in range(n - 1):
@@ -225,6 +250,46 @@ def sum_in_order(parts, dtype: torch.dtype) -> torch.Tensor:
     return total.to(dtype)
 
 
+def _sum_partials(x: torch.Tensor, axis_name, mesh, group,
+                  stats: HopStats) -> torch.Tensor:
+    parts = ring_all_gather(x[None], axis_name, mesh=mesh, group=group,
+                            stats=stats)
+    return sum_in_order(parts.unbind(0), x.dtype)
+
+
+class _Sum(torch.autograd.Function):
+    """``psum`` under autograd: every rank's output is the same sum, so
+    the gradient of each rank's partial is the output's gradient, which
+    is the same on every rank (the identity)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh, group, stats):
+        return _sum_partials(x, axis_name, mesh, group, stats)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None, None, None
+
+
+class _Replicated(torch.autograd.Function):
+    """``replicated`` under autograd: the identity forward, the sum of the
+    ranks' gradients backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh, group, stats):
+        ctx.where = (axis_name, mesh, group, stats)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_sum_partials(grad.contiguous(), *ctx.where),
+                None, None, None, None)
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def psum(x: torch.Tensor, axis_name: str = None, *, mesh=None, group=None,
          stats: HopStats = None) -> torch.Tensor:
     """The sum of every rank's partial ``x`` over the group, as the
@@ -238,17 +303,31 @@ def psum(x: torch.Tensor, axis_name: str = None, *, mesh=None, group=None,
     ``ring_all_gather`` (each rank sends its partial N - 1 times: for
     bf16 partials on 4 ranks, the bytes of a ring all-reduce in fp32),
     and each rank adds them in fp32 in group-rank order
-    (``sum_in_order``).  There is no backward: autograd
-    through the sum raises (tensor-parallel training is ROADMAP
-    A10.2c-train)."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError(
-            "no backward through the sum over the model axis: training "
-            "under dense tensor parallelism is ROADMAP A10.2c-train; run "
-            "it under torch.no_grad() or torch.inference_mode()")
-    parts = ring_all_gather(x[None], axis_name, mesh=mesh, group=group,
-                            stats=stats)
-    return sum_in_order(parts.unbind(0), x.dtype)
+    (``sum_in_order``).
+
+    Under autograd the gradient of ``x`` is the output's gradient, with
+    no hop: the output is the same on every rank, and so is what follows
+    it, so each rank already holds the gradient of the sum.  The dual,
+    ``replicated``, marks where a tensor held alike on every rank enters
+    a rank's part of a cut product."""
+    stats = _COUNTING["sums"] if stats is None else stats
+    if _needs_grad(x):
+        return _Sum.apply(x, axis_name, mesh, group, stats)
+    return _sum_partials(x, axis_name, mesh, group, stats)
+
+
+def replicated(x: torch.Tensor, axis_name: str = None, *, mesh=None,
+               group=None, stats: HopStats = None) -> torch.Tensor:
+    """``x``, held alike on every rank of the group, as it enters this
+    rank's part of a product cut over the group: the identity forward;
+    under autograd the gradient of ``x`` is the sum over the group of the
+    ranks' gradients (``psum``'s hops, counted in ``stats``), since each
+    rank's part gives only its share of it.  Megatron's ``f`` to
+    ``psum``'s ``g``."""
+    if not _needs_grad(x):
+        return x
+    stats = _COUNTING["sums"] if stats is None else stats
+    return _Replicated.apply(x, axis_name, mesh, group, stats)
 
 
 def broadcast(x: torch.Tensor, axis_name: str = None, *, mesh=None,

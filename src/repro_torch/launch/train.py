@@ -7,18 +7,24 @@ a checkpoint every 100 steps and a second run resumes from the newest.
 It runs on the GPU unless `--device cpu` is given; without a GPU it
 stops with an error.
 
-`--data-parallel N` trains on a mesh of N data ranks: the launcher starts
-the N processes itself (`distributed/world.py::run_world`, `gloo`, a
-rendezvous directory under a fresh temporary directory that it removes,
-a time limit of WORLD_TIMEOUT_S), each builds `make_host_mesh(N, 1)` and
-its ctx and runs `TrainLoop` on `--device` (with `cuda`, every rank on
-the one visible card).  Each rank takes its rows of the global batch,
-the gradients are summed over the ranks in fp32, and the optimizer state
-is cut by ZeRO-1 (`train/train_loop.py`).  The lines printed are rank
-0's history, the summary ending `on mesh {'data': N, 'model': 1}`.
-`--model-parallel` above 1 (tensor-parallel training, ROADMAP A10.2c-train)
-and a Mixture-of-Experts model over a data mesh (ROADMAP A10.2b-moe)
-raise before any rank starts.
+`--data-parallel N` or `--model-parallel M` trains on a mesh of N data
+ranks or of M model ranks: the launcher starts the processes itself
+(`distributed/world.py::run_world`, `gloo`, a rendezvous directory under
+a fresh temporary directory that it removes, a time limit of
+WORLD_TIMEOUT_S), each builds `make_host_mesh(N, M)` and its ctx and runs
+`TrainLoop` on `--device` (with `cuda`, every rank on the one visible
+card, the kernels' library built once before the ranks start).  Over
+data ranks each rank takes its rows of the global batch, the gradients
+are summed over the ranks in fp32, and the optimizer state is cut by
+ZeRO-1; over model ranks each rank holds its `param_specs` blocks of the
+parameters and their state and runs the whole batch under dense tensor
+parallelism (`train/train_loop.py`).  The lines printed are rank 0's
+history, the summary ending `on mesh {'data': N, 'model': M}`.
+
+These raise before any rank starts, each naming its ROADMAP item: both
+axes above 1 (A10.2c-train-2d); a Mixture-of-Experts model over either
+(A10.2b-moe); over a model axis, an RG-LRU, SSD or encoder-decoder model
+(A10.2c-train-rec) and `--ckpt-dir` (A10.2c-train-ckpt).
 """
 import argparse
 import tempfile
@@ -39,24 +45,51 @@ WORLD_TIMEOUT_S = 24 * 3600
 
 
 def _train_rank(rank: int, world_size: int, cfg, dc, tc, mesh_shape,
-                device: str, steps: int, rank_report: Optional[Callable]):
-    """One rank of a data mesh: (its history, ``rank_report``'s)."""
+                device: str, steps: int, rank_report: Optional[Callable],
+                on_step: Optional[Callable]):
+    """One rank of a mesh: (its history, ``rank_report``'s)."""
     ctx = sharding.make_ctx(make_host_mesh(*mesh_shape))
     loop = TrainLoop(cfg, dc, tc, ctx=ctx, device=device)
-    params, opt_state, hist = loop.run(steps)
+    params, opt_state, hist = loop.run(steps, on_step=on_step)
     report = (None if rank_report is None
               else rank_report(rank, loop, params, opt_state))
     return hist, report
 
 
+def _refuse(cfg, mesh: dict, ckpt_dir) -> None:
+    """The meshes and models the ranks cannot train, before any starts."""
+    D, M = mesh["data"], mesh["model"]
+    if D > 1 and M > 1:
+        raise NotImplementedError(
+            f"mesh {mesh}: a data axis and a model axis both above 1 is "
+            "ROADMAP A10.2c-train-2d")
+    if D * M > 1 and cfg.moe is not None:
+        raise NotImplementedError(
+            f"mesh {mesh}: Mixture-of-Experts training over a mesh is "
+            "ROADMAP A10.2b-moe")
+    if M > 1 and (set(cfg.pattern_for_layers()) != {"attn"}
+                  or cfg.encoder_layers):
+        raise NotImplementedError(
+            f"mesh {mesh}: training {cfg.name}'s RG-LRU, SSD or "
+            "encoder-decoder blocks over a model axis is ROADMAP "
+            "A10.2c-train-rec")
+    if M > 1 and ckpt_dir:
+        raise NotImplementedError(
+            f"mesh {mesh}: a checkpoint over a model axis is ROADMAP "
+            "A10.2c-train-ckpt")
+
+
 def main(argv: Optional[Sequence[str]] = None, *,
-         rank_report: Optional[Callable] = None):
+         rank_report: Optional[Callable] = None,
+         on_step: Optional[Callable] = None):
     """Parses ``argv`` (default: the command line), trains, prints, and
     returns the loop's history (the logged steps' metric dicts; rank 0's
     on a mesh).  With ``rank_report``, a module-level function
     ``rank_report(rank, loop, params, opt_state)`` called in each rank
     (in this process on one device) after the last step, it returns
-    (history, [each rank's report])."""
+    (history, [each rank's report]).  ``on_step``, a module-level
+    function, is ``TrainLoop.run``'s hook, called in each rank after each
+    step."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--steps", type=int, default=100)
@@ -72,16 +105,8 @@ def main(argv: Optional[Sequence[str]] = None, *,
     args = ap.parse_args(argv)
 
     mesh = {"data": args.data_parallel, "model": args.model_parallel}
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"mesh {mesh}: training over a model axis above 1 needs the "
-            "backward of dense tensor parallelism, which is not ported "
-            "(ROADMAP A10.2c-train)")
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
-    if args.data_parallel > 1 and cfg.moe is not None:
-        raise NotImplementedError(
-            f"mesh {mesh}: Mixture-of-Experts training over a data mesh is "
-            "ROADMAP A10.2b-moe")
+    _refuse(cfg, mesh, args.ckpt_dir)
     dev = resolve_device(args.device)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     global_batch=args.batch)
@@ -89,9 +114,10 @@ def main(argv: Optional[Sequence[str]] = None, *,
         optimizer=AdamWConfig(peak_lr=args.lr, warmup_steps=20,
                               total_steps=args.steps),
         checkpoint_dir=args.ckpt_dir, checkpoint_every=100, log_every=10)
-    if args.data_parallel == 1:
+    ranks = args.data_parallel * args.model_parallel
+    if ranks == 1:
         loop = TrainLoop(cfg, dc, tc, device=dev)
-        params, opt_state, hist = loop.run(args.steps)
+        params, opt_state, hist = loop.run(args.steps, on_step=on_step)
         reports = (None if rank_report is None
                    else [rank_report(0, loop, params, opt_state)])
     else:
@@ -100,9 +126,10 @@ def main(argv: Optional[Sequence[str]] = None, *,
             _build.build_library()     # once, before the ranks load it
         with tempfile.TemporaryDirectory(prefix="train_world_") as workdir:
             results = run_world(
-                _train_rank, args.data_parallel,
-                (cfg, dc, tc, (args.data_parallel, 1), str(dev), args.steps,
-                 rank_report), workdir=workdir, timeout=WORLD_TIMEOUT_S)
+                _train_rank, ranks,
+                (cfg, dc, tc, (args.data_parallel, args.model_parallel),
+                 str(dev), args.steps, rank_report, on_step),
+                workdir=workdir, timeout=WORLD_TIMEOUT_S)
         hist = results[0][0]
         reports = [r for _, r in results]
     for h in hist:

@@ -24,6 +24,31 @@ def pdtype(cfg) -> torch.dtype:
     return DTYPES[cfg.param_dtype]
 
 
+def _mm_f32(a2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if a2.is_cuda:
+        return torch.mm(a2, w, out_dtype=torch.float32)
+    return a2.float() @ w.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``_mm_f32`` under autograd (``torch.mm``'s ``out_dtype`` form has
+    no derivative).  The output's gradient comes back from a sum rounded
+    to the operands' dtype, so it holds values of that dtype: cast to it,
+    the gradients are the products one device takes of its own
+    product."""
+
+    @staticmethod
+    def forward(ctx, a2, w):
+        ctx.save_for_backward(a2, w)
+        return _mm_f32(a2, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a2, w = ctx.saved_tensors
+        g = grad.to(a2.dtype)
+        return g @ w.T, a2.T @ g
+
+
 def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a`` (..., k) @ ``w`` (k, n) in fp32: bf16 operands' products,
     exact in fp32, are accumulated and returned in fp32 with no rounding
@@ -31,14 +56,15 @@ def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     upcast on a CPU tensor, the same products).  A rank's partial of a
     product whose contraction is cut over a model axis is made so, and
     rounded once after the sum over the axis, as one device's product
-    is rounded once."""
+    is rounded once.  Under autograd the gradients come in the operands'
+    dtypes (``_MatmulF32``)."""
     a2 = a.reshape(-1, a.shape[-1])
     if a.dtype == torch.float32 and w.dtype == torch.float32:
         y = a2 @ w
-    elif a.is_cuda:
-        y = torch.mm(a2, w, out_dtype=torch.float32)
+    elif torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+        y = _MatmulF32.apply(a2, w)
     else:
-        y = a2.float() @ w.float()
+        y = _mm_f32(a2, w)
     return y.reshape(a.shape[:-1] + (w.shape[-1],))
 
 

@@ -42,8 +42,15 @@ and columns), sums each block's partial outputs over the axis
 keeps its own recurrent states, and gathers the logits whole.  An
 encoder's blocks are cut as the decoder's self-attention blocks, and a
 decoder block's cross-attention branch by heads as its self-attention;
-the encoder's output stays whole on every rank.  Training under it
-raises (A10.2c-train).
+the encoder's output stays whole on every rank.
+
+Training under it (``train_forward`` over a model axis above 1) runs for
+self-attention blocks, the dense MLP and the vocabulary: the sums'
+backward is the identity, each whole tensor that enters a rank's part
+of a cut product passes ``_replicated`` (its gradient summed over the
+axis), and ``lm_loss`` takes the log-sum-exp over the ranks' vocabulary
+columns.  Cut RG-LRU, SSD and encoder-decoder blocks and MoE layers
+raise under autograd (``_refuse_autograd``).
 
 Ported so far: attention (self- and cross-attention), RG-LRU and SSD
 (Mamba-2) blocks, dense MLPs and Mixture-of-Experts FFNs
@@ -274,10 +281,48 @@ def _psum(y, ctx, dtype=None):
     (``collectives.psum``: fp32 in rank order), rounded once to ``dtype``
     (``y``'s by default).  A cut product's partial comes in fp32
     (``common.matmul_f32``), so that the sum rounds it once, as one
-    device rounds its product."""
+    device rounds its product.  Under autograd its backward is the
+    identity."""
     _need_model_axis(ctx)
     return collectives.psum(y, ctx.model_axis, mesh=ctx.mesh).to(
         dtype or y.dtype)
+
+
+def _replicated(x, ctx):
+    """``x``, whole on every rank, where it enters this rank's part of a
+    cut product (``collectives.replicated``): under autograd its gradient
+    is summed over the model axis, since the rank's part gives only its
+    share."""
+    _need_model_axis(ctx)
+    return collectives.replicated(x, ctx.model_axis, mesh=ctx.mesh)
+
+
+def _block_needs_grad(p, x) -> bool:
+    """Whether autograd records a block's computation on ``x``."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in [x, *(leaf for _, leaf in
+                                       tree_leaves_with_path(p))])
+
+
+def _refuse_autograd(kind, p, x, cfg, ctx) -> None:
+    """Under autograd over a model axis above 1, refuse the blocks whose
+    backward is not ported, before any collective: RG-LRU and SSD blocks
+    and an encoder-decoder's blocks (cross-attention and the encoder)
+    cut by ``param_specs`` (ROADMAP A10.2c-train-rec), and a Mixture-of-
+    Experts layer (ROADMAP A10.2b-moe)."""
+    if not (_tp(ctx) and _block_needs_grad(p, x)):
+        return
+    if kind == "attn" and "moe" in p:
+        raise NotImplementedError(
+            "training a Mixture-of-Experts layer over a model axis of "
+            f"{ctx.model_size} is ROADMAP A10.2b-moe")
+    if (kind != "attn" or cfg.encoder_layers) and _cut_over_model(
+            kind, p, cfg, ctx):
+        what = ("an encoder-decoder's attention block" if kind == "attn"
+                else f"a {kind} block")
+        raise NotImplementedError(
+            f"training {what} cut over a model axis of {ctx.model_size} "
+            f"(the backward of its sums) is ROADMAP A10.2c-train-rec")
 
 
 def _rank_block_shapes(kind: str, cfg, ctx,
@@ -435,10 +480,28 @@ def _heads_out(o, wo, cfg, ctx):
 
 def _mlp(p, x, cfg, ctx):
     """The dense MLP: when it is cut, an fp32 partial over this rank's
-    ``d_ff`` columns, summed over the model axis."""
+    ``d_ff`` columns of ``x`` (``_replicated``), summed over the model
+    axis."""
     if p["wo"].shape[0] == cfg.d_ff:
         return apply_mlp(p, x, cfg)
-    return _psum(apply_mlp(p, x, cfg, out_f32=True), ctx, x.dtype)
+    return _psum(apply_mlp(p, _replicated(x, ctx), cfg, out_f32=True), ctx,
+                 x.dtype)
+
+
+def _cut_attention_inputs(p, h, cfg, ctx):
+    """The block ``p`` and the normed input ``h`` as a cut self-attention
+    block's products take them: ``h`` through ``_replicated`` where the
+    query heads are cut, and with them, where the kv heads are not (every
+    rank holds all of them and reads only the ones its query heads pair
+    with, ``_rank_kv``), ``wk``, ``wv`` and their biases: each rank's
+    gradient of those whole leaves is its heads' share, summed over the
+    model axis so that every rank holds the whole leaf's gradient."""
+    if p["wq"].shape[-2] == cfg.num_heads:
+        return p, h
+    if p["wk"].shape[-2] == cfg.num_kv_heads:
+        p = {**p, **{k: _replicated(p[k], ctx)
+                     for k in ("wk", "wv", "bk", "bv") if k in p}}
+    return p, _replicated(h, ctx)
 
 
 def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
@@ -460,9 +523,17 @@ def apply_attn_block_seq(p, x, cfg, ctx, *, positions, causal=True,
     the heads do not divide the axis, attention and cross-attention are
     whole on every rank, with no sum; the reference cuts its queries by
     sequence there instead (``_attn_sharded``), for the same values
-    (ROADMAP C)."""
+    (ROADMAP C).
+
+    Under autograd a cut block's backward sums over the model axis the
+    gradients of what enters its cut products whole
+    (``_cut_attention_inputs``, the MLP's input in ``_mlp``); a cut
+    cross-attention block or encoder block, and a Mixture-of-Experts
+    layer over a model axis, raise first (``_refuse_autograd``)."""
     _cut_over_model("attn", p, cfg, ctx)
+    _refuse_autograd("attn", p, x, cfg, ctx)
     h = apply_norm(p["norm1"], x)
+    p, h = _cut_attention_inputs(p, h, cfg, ctx)
     q, k, v = _qkv(p, h, cfg, positions, ctx)
     window = cfg.window if cfg.attention_kind == "swa" else 0
     # positions here are always arange(S)
@@ -532,6 +603,7 @@ def apply_block_seq(kind, p, x, cfg, ctx, *, positions, state=None,
     if kind not in ("rec", "ssd"):
         raise ValueError(kind)
     _cut_over_model(kind, p, cfg, ctx)
+    _refuse_autograd(kind, p, x, cfg, ctx)
     x, new_state = _recurrent_block(
         kind, p, x, cfg, ctx, state,
         kernels.get("rglru" if kind == "rec" else "ssd"))
@@ -707,32 +779,65 @@ def forward_hidden(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *,
 # ==========================================================================
 # Loss: sequence-chunked cross entropy
 # ==========================================================================
-def lm_loss(params, hidden, targets, mask, cfg, *, chunk: int = 512,
-            z_weight: float = 1e-4):
+def _lse_and_target(logits, t_c, first: int, ctx):
+    """The log-sum-exp of each row of the whole vocabulary and the
+    target's logit, from this rank's columns ``[first, first + cols)``
+    of it: the row max taken over the model axis (detached: the lse does
+    not depend on it), then one sum over the axis of each rank's sum of
+    exponentials and of its target logit (the rank whose columns hold
+    the target gives it, the others zero).  A rank whose columns are all
+    padding has a row max of -1e30 and adds zeros."""
+    cols = logits.shape[-1]
+    local_max = logits.detach().amax(dim=-1)
+    top = collectives.ring_all_gather(
+        local_max[None].contiguous(), ctx.model_axis,
+        mesh=ctx.mesh).amax(dim=0)
+    local = t_c.long() - first
+    mine = (local >= 0) & (local < cols)
+    tgt = logits.gather(-1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    sums = _psum(torch.stack([
+        torch.exp(logits - top[..., None]).sum(dim=-1),
+        torch.where(mine, tgt, torch.zeros((), device=tgt.device))]), ctx)
+    return top + torch.log(sums[0]), sums[1]
+
+
+def lm_loss(params, hidden, targets, mask, cfg, *, ctx: ShardCtx = LOCAL_CTX,
+            chunk: int = 512, z_weight: float = 1e-4):
     """hidden (B,S,d) -> scalar mean NLL (+ z-loss).  Never builds (B,S,V):
     the logits of one chunk of ``chunk`` positions at a time, recomputed
     in the backward pass; the padded vocabulary is masked out of the
-    log-sum-exp."""
+    log-sum-exp.
+
+    With ``lm_head`` (or the tied ``embed``) cut by vocabulary columns
+    over ``ctx``'s model axis, each rank computes its own columns' logits
+    of the whole ``hidden`` (``_replicated``), masks the padded ones by
+    their global index, and the log-sum-exp and the target's logit come
+    from sums over the axis (``_lse_and_target``): every rank holds the
+    same loss.  A cut vocabulary without a model axis in ``ctx`` raises
+    ``ValueError``."""
     B, S, _ = hidden.shape
     chunk = min(chunk, S)
     n = S // chunk
     Sc = n * chunk
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    Vp = cfg.padded_vocab()
-    if w.shape[1] != Vp:
-        raise NotImplementedError(
-            f"the loss over a vocabulary cut to {w.shape[1]} of {Vp} "
-            f"columns needs the vocab-sharded loss of tensor-parallel "
-            f"training (ROADMAP A10.2c-train)")
+    Vp, cols = cfg.padded_vocab(), w.shape[1]
+    cut = cols != Vp
+    first = _model_rank(ctx) * cols if cut else 0
 
     def chunk_loss(h_c, t_c, m_c):
+        if cut:
+            h_c = _replicated(h_c, ctx)
         logits = torch.einsum("bsd,dv->bsv", h_c, w).float()
         if Vp != cfg.vocab_size:   # mask padded vocab columns out of the lse
-            keep = torch.arange(Vp, device=logits.device) < cfg.vocab_size
+            keep = (torch.arange(first, first + cols, device=logits.device)
+                    < cfg.vocab_size)
             logits = torch.where(keep, logits,
                                  torch.full((), -1e30, device=logits.device))
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, t_c.long()[..., None])[..., 0]
+        if cut:
+            lse, tgt = _lse_and_target(logits, t_c, first, ctx)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, t_c.long()[..., None])[..., 0]
         nll = (lse - tgt) * m_c
         zl = lse.square() * m_c
         return nll.sum() + z_weight * zl.sum()
@@ -760,7 +865,8 @@ def train_forward(params, batch, cfg, ctx: ShardCtx = LOCAL_CTX, *,
     Returns (loss, metrics dict of 0-d tensors); a Mixture-of-Experts
     model's loss carries its router's load-balance and z terms."""
     hidden, aux, _ = forward_hidden(params, batch, cfg, ctx, kernels=kernels)
-    loss = lm_loss(params, hidden, batch["labels"], batch["mask"], cfg)
+    loss = lm_loss(params, hidden, batch["labels"], batch["mask"], cfg,
+                   ctx=ctx)
     metrics = {"nll": loss}
     if cfg.moe is not None:
         lb, rz = aux[0], aux[1]

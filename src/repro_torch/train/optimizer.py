@@ -18,12 +18,19 @@ calls ``apply_updates`` on the blocks of the summed gradients, with the
 norm of the whole summed tree passed in as ``grad_norm``.  The update is
 elementwise, so a rank's blocks come out as the blocks of the whole
 tree's update, to the bit.
+
+Dense tensor parallelism (``train/train_loop.py`` over a (1, M) mesh):
+each rank holds its ``param_specs`` blocks of the parameters and their
+state and calls ``apply_updates`` on them, with the norm of the whole
+gradient (``global_norm`` with ``cut`` and ``model_sum``) as
+``grad_norm``: every rank clips alike, and a leaf held whole is updated
+alike on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,8 +78,20 @@ def init_opt_state(params) -> Dict[str, Any]:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, cut: Optional[Sequence[bool]] = None,
+                model_sum: Optional[Callable] = None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree`` together, the leaves' sums
+    of squares added in the tree's order.  Where each rank of a model
+    axis holds its blocks of some leaves (``cut``, a flag a leaf in that
+    order), those leaves' sums of squares are summed over the axis by
+    ``model_sum`` (one call, all of them stacked), and the leaves held
+    whole are counted once: every rank gets the whole tree's norm."""
     leaves = [x.float().square().sum() for x in tree_leaves(tree)]
+    if cut is not None and any(cut):
+        mine = [i for i, c in enumerate(cut) if c]
+        summed = model_sum(torch.stack([leaves[i] for i in mine]))
+        for i, total in zip(mine, summed.unbind()):
+            leaves[i] = total
     return torch.sqrt(torch.stack(leaves).sum())
 
 

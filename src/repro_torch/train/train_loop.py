@@ -36,9 +36,37 @@ the mesh, as GSPMD runs the reference's over its devices:
 A checkpoint under a mesh is the whole tree in the one-device format:
 the ranks gather the state and rank 0 writes it; on resume every rank
 reads the whole tree and takes its blocks (``checkpoint.reshard``).  So
-a checkpoint moves between one device and any data mesh.  A model axis
-above 1 raises (training under dense tensor parallelism, ROADMAP
-A10.2c-train).
+a checkpoint moves between one device and any data mesh.
+
+Dense tensor parallelism.  Under a ``ctx`` whose mesh is (1, M), M > 1
+(a data axis of 1 and a model axis of M), the step runs in each rank of
+the model axis on the whole batch:
+
+  * the loop draws the whole tree as one device does and each rank keeps
+    its ``sharding.param_specs`` blocks (attention by heads, the dense
+    MLP by ``d_ff``, the vocabulary by rows and columns; ``reshard``), so
+    the ranks start from the one-device weights; the AdamW state is the
+    blocks' own;
+  * the forward sums each cut product over the model axis and the
+    backward sums the gradient of each whole input to one
+    (``models/transformer.py``): each rank's gradients are its blocks of
+    the one-device gradients, and the leaves it holds whole get the whole
+    gradient, the same on every rank;
+  * the global norm sums the cut leaves' squares over the model axis and
+    counts the whole leaves once (``optimizer.global_norm``), so every
+    rank clips alike, updates its own blocks, and updates a whole leaf
+    as every other rank does; the metrics are the same on every rank.
+
+The hops over the model axis (the sums and the loss's gather of row
+maxima) are counted in ``stats["model_sum"]`` (``collectives.counting``).
+Each of these raises, naming its ROADMAP item:
+a mesh with a data axis and a model axis both above 1 (A10.2c-train-2d);
+a checkpoint directory or ``compress_grads="int8"`` over a model axis
+above 1 (A10.2c-train-ckpt: the checkpoint is the whole tree, and the
+int8 row scales are the whole leaf's, so both need the blocks gathered
+over the model axis); the RG-LRU, SSD, cross-attention and encoder blocks
+(A10.2c-train-rec) and Mixture-of-Experts layers (A10.2b-moe) under
+autograd over a model axis (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -92,15 +120,57 @@ def value_and_grad(model_cfg, params, batch, ctx: ShardCtx = LOCAL_CTX,
 # --------------------------------------------------------------------------
 def data_parallel(ctx: Optional[ShardCtx]) -> bool:
     """Whether ``ctx`` spreads the batch over ranks: a mesh whose data
-    axes' product is above 1.  Raises for a model axis above 1."""
+    axes' product is above 1.  Raises where the model axis is above 1
+    too (ROADMAP A10.2c-train-2d)."""
     if ctx is None or ctx.mesh is None:
         return False
-    if ctx.model_size > 1:
+    n = math.prod(ctx.mesh.shape[a] for a in ctx.data_axes)
+    if n > 1 and ctx.model_size > 1:
         raise NotImplementedError(
-            f"training over a model axis of {ctx.model_size} needs the "
-            f"backward of dense tensor parallelism, which is not ported "
-            f"(ROADMAP A10.2c-train)")
-    return math.prod(ctx.mesh.shape[a] for a in ctx.data_axes) > 1
+            f"training over a mesh {dict(ctx.mesh.shape)}: a data axis and "
+            f"a model axis both above 1 (ZeRO-1 over the data axes of each "
+            f"rank's param_specs blocks) is ROADMAP A10.2c-train-2d")
+    return n > 1
+
+
+def model_parallel(ctx: Optional[ShardCtx]) -> bool:
+    """Whether ``ctx`` cuts the model over a model axis above 1 (with a
+    data axis of 1: ``data_parallel`` raises for both)."""
+    if ctx is None or ctx.mesh is None or ctx.model_size == 1:
+        return False
+    data_parallel(ctx)
+    return True
+
+
+def model_specs(model_cfg, ctx: ShardCtx):
+    """``sharding.param_specs`` of ``model_cfg``'s tree over ``ctx``'s
+    model axis (drawn on the ``meta`` device)."""
+    return sharding.param_specs(
+        tr.init_params(model_cfg, torch.Generator(), "meta"), model_cfg,
+        ctx.mesh, ctx.model_axis)
+
+
+def cut_over_model(specs, ctx: ShardCtx) -> list:
+    """For each leaf of ``specs`` (``tree_leaves`` order), whether it cuts
+    a dimension over ``ctx``'s model axis."""
+    def cuts(spec):
+        return any(ctx.model_axis in (e if isinstance(e, tuple) else (e,))
+                   for e in spec)
+    return [cuts(s) for s in tree_leaves(
+        specs, lambda x: isinstance(x, sharding.P))]
+
+
+def _refuse_model_state(train_cfg: TrainConfig, ctx: ShardCtx) -> None:
+    """What over a model axis above 1 needs the blocks gathered over it
+    (ROADMAP A10.2c-train-ckpt)."""
+    for what, on in (("a checkpoint directory", train_cfg.checkpoint_dir),
+                     ('compress_grads="int8"', train_cfg.compress_grads)):
+        if on:
+            raise NotImplementedError(
+                f"{what} over a model axis of {ctx.model_size}: the whole "
+                f"leaves from the ranks' blocks (a checkpoint's tree, the "
+                f"int8 row scales of a whole leaf) are ROADMAP "
+                f"A10.2c-train-ckpt")
 
 
 def zero1_specs(params, model_cfg, ctx: ShardCtx):
@@ -199,15 +269,32 @@ def make_train_step(model_cfg, train_cfg: TrainConfig,
     a data mesh (``data_parallel(ctx)``) it takes the global batch and
     this rank's ZeRO-1 blocks of the state (``zero1_specs``), and counts
     its hops in ``stats["grad_sum"]`` and ``stats["param_gather"]`` when
-    ``stats`` is given."""
+    ``stats`` is given.  Over a model axis (``model_parallel(ctx)``) it
+    takes the whole batch, this rank's ``param_specs`` blocks of the
+    parameters and their state, and counts the sums over the model axis
+    in ``stats["model_sum"]``.  Building it makes no collective."""
     opt_cfg = train_cfg.optimizer
     dp = data_parallel(ctx)
+    tp = model_parallel(ctx)
     stats = stats or {}
     if dp:
         specs = zero1_specs(tr.init_params(model_cfg, torch.Generator(),
                                            "meta"), model_cfg, ctx)["master"]
+    if tp:
+        _refuse_model_state(train_cfg, ctx)
+        cut = cut_over_model(model_specs(model_cfg, ctx), ctx)
+        sums = stats.get("model_sum")
+
+        def model_sum(t):
+            return collectives.psum(t, ctx.model_axis, mesh=ctx.mesh)
 
     def step_fn(params, opt_state, batch):
+        if tp:
+            with collectives.counting(sums, sums):
+                return step(params, opt_state, batch)
+        return step(params, opt_state, batch)
+
+    def step(params, opt_state, batch):
         if dp:
             batch, share = _rows(batch, ctx)
         (_, metrics), grads = value_and_grad(model_cfg, params, batch, ctx,
@@ -226,6 +313,10 @@ def make_train_step(model_cfg, train_cfg: TrainConfig,
                 grad_norm=global_norm(grads))
             params = gather_blocks(blocks, specs, ctx,
                                    stats.get("param_gather"))
+        elif tp:
+            params, opt_state, opt_metrics = apply_updates(
+                opt_cfg, params, grads, opt_state, grad_norm=global_norm(
+                    grads, cut=cut, model_sum=model_sum))
         else:
             params, opt_state, opt_metrics = apply_updates(
                 opt_cfg, params, grads, opt_state)
@@ -243,18 +334,29 @@ class TrainLoop:
     ctx: ShardCtx = LOCAL_CTX
     kernels: Optional[Dict] = None
     device: DeviceLike = None          # None = the GPU
-    #: what the data-parallel step's hops moved (``make_train_step``)
+    #: what the distributed step's hops moved (``make_train_step``)
     hop_stats: Dict[str, collectives.HopStats] = dataclasses.field(
         default_factory=lambda: {"grad_sum": collectives.HopStats(),
-                                 "param_gather": collectives.HopStats()})
+                                 "param_gather": collectives.HopStats(),
+                                 "model_sum": collectives.HopStats()})
 
     def init_or_resume(self, seed: int = 0):
         """(params, opt_state, start step): drawn from ``seed``, or the
         newest checkpoint's.  Under a data mesh every rank draws (or
-        reads) the whole tree and keeps its ZeRO-1 blocks of the state."""
+        reads) the whole tree and keeps its ZeRO-1 blocks of the state;
+        over a model axis every rank draws the whole tree and keeps its
+        ``param_specs`` blocks of the parameters, whose state it
+        starts."""
         dev = resolve_device(self.device)
+        tp = model_parallel(self.ctx)
+        if tp:
+            _refuse_model_state(self.train_cfg, self.ctx)
         gen = torch.Generator(dev).manual_seed(seed)
         params = tr.init_params(self.model_cfg, gen, dev)
+        if tp:
+            params = ckpt_lib.reshard(params, sharding.named(
+                self.ctx.mesh, model_specs(self.model_cfg, self.ctx)), dev)
+            return params, init_opt_state(params), 0
         opt_state = init_opt_state(params)
         start_step = 0
         if self.train_cfg.checkpoint_dir:

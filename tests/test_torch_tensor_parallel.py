@@ -910,24 +910,43 @@ def test_a_tree_cut_in_some_leaves_only_raises():
             tr.prefill(odd, batch, cfg, ctx)
 
 
-def test_autograd_through_a_dense_sum_raises():
-    """Training under dense tensor parallelism is A10.2c-train: the sum
-    refuses a tensor that requires grad (here from a cut attention block
-    of reduced OLMoE, whose heads and kv heads are cut, before any
-    collective), and the loss refuses a vocabulary cut by columns."""
-    with pytest.raises(RuntimeError, match="A10.2c-train"):
-        coll.psum(torch.zeros(2, requires_grad=True), "model",
-                  mesh=Mesh((1, 4), ("data", "model")))
-    cfg = _cfg("olmoe-1b-7b")
-    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+def test_autograd_through_a_dense_sum_raises(monkeypatch):
+    """Training under dense tensor parallelism is ported for
+    self-attention blocks, the dense MLP and the vocabulary
+    (A10.2c-train; ``tests/test_torch_train_tensor_parallel.py``).  A cut
+    RG-LRU block (reduced RecurrentGemma-9B), a cut SSD block (reduced
+    Mamba-2-780M) and a cut cross-attention block (reduced
+    seamless-m4t-medium) under autograd raise naming A10.2c-train-rec,
+    and a cut attention block with a Mixture-of-Experts layer (reduced
+    OLMoE) naming A10.2b-moe, each before any collective (here, with no
+    process group, one would raise otherwise; every collective is made
+    to fail loudly); the loss over a vocabulary cut by columns raises
+    without a model axis in its ctx."""
+    def no_collective(*args, **kwargs):
+        raise AssertionError("a collective was reached")
+    for name in ("psum", "replicated", "ring_all_gather"):
+        monkeypatch.setattr(coll, name, no_collective)
     mesh, ctx = _mesh_ctx()
-    cut = _cut(params, cfg, mesh)
-    block = tree_map(lambda t: t[0].requires_grad_(False).clone()
-                     .requires_grad_(True), cut["blocks"]["b0"])
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(RuntimeError, match="A10.2c-train"):
-        tr.apply_attn_block_seq(block, x, cfg, ctx,
-                                positions=torch.arange(4))
-    with pytest.raises(NotImplementedError, match="A10.2c-train"):
-        tr.lm_loss(cut, x, torch.zeros((1, 4), dtype=torch.int32),
+    for arch, kind, match in (
+            ("recurrentgemma-9b", "rec", "rec block.*A10.2c-train-rec"),
+            ("mamba2-780m", "ssd", "ssd block.*A10.2c-train-rec"),
+            ("seamless-m4t-medium", "attn",
+             "encoder-decoder.*A10.2c-train-rec"),
+            ("olmoe-1b-7b", "attn", "Mixture-of-Experts.*A10.2b-moe")):
+        cfg = _cfg(arch)
+        params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        block = tree_map(lambda t: t.clone().requires_grad_(True),
+                         _first_block(_cut(params, cfg, mesh), cfg, kind))
+        x = torch.zeros((1, 4, cfg.d_model))
+        enc_out = (torch.zeros((1, 8, cfg.d_model))
+                   if cfg.encoder_layers else None)
+        with pytest.raises(NotImplementedError, match=match):
+            tr.apply_block_seq(kind, block, x, cfg, ctx,
+                               positions=torch.arange(4), enc_out=enc_out)
+    cfg = _cfg("olmoe-1b-7b")
+    cut = _cut(tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+               cfg, mesh)
+    with pytest.raises(ValueError, match="model axis"):
+        tr.lm_loss(cut, torch.zeros((1, 4, cfg.d_model)),
+                   torch.zeros((1, 4), dtype=torch.int32),
                    torch.ones((1, 4)), cfg)

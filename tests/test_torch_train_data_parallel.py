@@ -434,10 +434,20 @@ def test_gather_puts_the_blocks_back_in_local_shard_s_layout(run):
 
 
 def test_a_model_axis_above_one_raises():
-    ctx = sharding.make_ctx(Mesh((1, 2), ("data", "model")))
+    """A data axis and a model axis both above 1 raise (ROADMAP
+    A10.2c-train-2d); a model axis alone builds a step (dense tensor
+    parallelism, ``tests/test_torch_train_tensor_parallel.py``) without
+    a collective."""
     cfg = _cfg(CKPT_ARCH)
-    with pytest.raises(NotImplementedError, match="A10.2c"):
+    ctx = sharding.make_ctx(Mesh((2, 2), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="A10.2c-train-2d"):
         train_loop.make_train_step(cfg, _tc(), ctx)
+    with pytest.raises(NotImplementedError, match="A10.2c-train-2d"):
+        train_loop.data_parallel(ctx)
+    ctx = sharding.make_ctx(Mesh((1, 2), ("data", "model")))
+    assert callable(train_loop.make_train_step(cfg, _tc(), ctx))
+    assert not train_loop.data_parallel(ctx)
+    assert train_loop.model_parallel(ctx)
     assert not train_loop.data_parallel(
         sharding.make_ctx(Mesh((1, 1), ("data", "model"))))
     assert train_loop.data_parallel(
