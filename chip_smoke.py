@@ -63,7 +63,7 @@ drives the port's serving paths, each at full published width:
     attention held to their plain versions at the ranks' shapes, then
     the whole tree cut by ``param_specs`` over the model axis of (1, 4)
     and (2, 2) (attention by heads, the MLP by ``d_ff``, the vocabulary),
-    2 x 2048 tokens prefilled and 16 steps decoded through
+    2 x 2048 tokens prefilled and 8 steps decoded through
     ``launch/dryrun.py``'s step builders; every rank's logits and cache
     held to the bit to one process computing as the ranks do
     (``tp_as_ranks``), the logits and each layer to the one-process bf16
@@ -171,17 +171,20 @@ drives the port's serving paths, each at full published width:
     the gather's bytes and rates printed; the ranks share the card's SMs,
     so no speed-up is claimed (``train_dp``); then h2o-danube-1.8b at
     full width, its first 4 of 24 layers, under dense tensor
-    parallelism: flash held to its plain version at the ranks' shape (2 x
-    1024, 8 query heads on 2 kv heads of 80, causal, bf16), forward with
-    its lse and backward; then the launcher trains the bf16 model 3
-    steps of 2 x 1024 tokens on one device and again with
-    ``--model-parallel 4``: 4 ``gloo`` ranks on this card, each on its
-    ``param_specs`` blocks, each step's loss and gradient norm held to one
-    device's, every leaf held whole bit-equal across the ranks after each
-    step, each rank's leaves of ``sharding.local_shapes``' shapes, its
-    flash launches and its sums over the model axis counted; then in the
-    same ranks one fp32 step, its loss and gradient norm and every leaf's
-    gathered gradient held to one device's (``tp_train``);
+    parallelism over (1, 4) and over (2, 2): flash held to its plain
+    version at each mesh's rank shape (2 x 1024, 8 query heads on 2 kv
+    heads of 80; 1 x 1024, 16 on 4; causal, bf16), forward with its lse
+    and backward; then the launcher trains the bf16 model 3 steps of 2 x
+    1024 tokens on one device and again with ``--data-parallel D
+    --model-parallel M``: 4 ``gloo`` ranks on this card, each on its rows
+    and its ``param_specs`` blocks, on (2, 2) the gradients summed over
+    the data axis and the AdamW state cut by ZeRO-1; each step's loss and
+    gradient norm held to one device's, every leaf held whole bit-equal
+    across the ranks and every leaf across the ranks of a model index
+    after each step, each rank's leaves and state of their expected
+    shapes, its flash launches and its hops over both axes counted; then
+    in the same ranks one fp32 step, its loss and gradient norm and every
+    leaf's gathered gradient held to one device's (``tp_train``);
   * calibration (phase ``calibrate``): the port's dry run
     (``launch/dryrun.py``) over every architecture and shape cell, host
     arithmetic on meta tensors, then four steps timed above -- Qwen2-7B's
@@ -483,10 +486,12 @@ MOE_SHARDED_TIMEOUT_S = 300
 # by train/checkpoint.py::reshard: (1, 4), 7 query heads on 1 kv head of
 # 128, 4736 of d_ff and 38,400 vocabulary rows a rank; (2, 2), 14 on 2,
 # 9472 and 76,800, one row of the batch a rank.  2 x 2048 tokens
-# prefilled through launch/dryrun.py::build_prefill_step, then 16
-# teacher-forced steps through build_decode_step
+# prefilled through launch/dryrun.py::build_prefill_step, then
+# TP_DECODE_STEPS teacher-forced steps through build_decode_step (cut from
+# 16 to 8 to make room for tp_train's (2, 2) run, the whole script near
+# its 760 s budget)
 TP_MESHES = (("tp_1x4", (1, 4)), ("tp_2x2", (2, 2)))
-TP_BATCH, TP_PROMPT, TP_DECODE_STEPS = 2, 2048, 16
+TP_BATCH, TP_PROMPT, TP_DECODE_STEPS = 2, 2048, 8
 # the limits of moe_sharded, fixed here before any reading: the last-token
 # logits at prefill and at each step against the one-process bf16 run,
 # each layer alone on the one process's input to it against its output
@@ -680,10 +685,12 @@ DP_ONE_DEVICE_STATE_BYTES = 1_614_180_096
 # at full width (d 2560, 32 query heads on 8 kv heads of 80, d_ff 6912, a
 # vocabulary of 32000 padded to 32768, an untied head), its depth cut to
 # the first TP_TRAIN_LAYERS of its 24 layers, through launch/train.py
-# --model-parallel TP_TRAIN_RANKS: gloo ranks on this card, each on its
-# param_specs blocks (8 query heads on 2 kv heads, 1728 of d_ff, 8192
-# vocabulary rows and columns) and their AdamW state, TP_TRAIN_STEPS steps
-# of TP_TRAIN_BATCH x TP_TRAIN_SEQ tokens; the same on one device.  Limits,
+# --data-parallel D --model-parallel M for each (D, M) of TP_TRAIN_MESHES:
+# TP_TRAIN_RANKS gloo ranks on this card, each on its rows and its
+# param_specs blocks (on (1, 4) 8 query heads on 2 kv heads, 1728 of d_ff,
+# 8192 vocabulary rows and columns; on (2, 2) 16 on 4, 3456, 16384) and
+# its ZeRO-1 blocks of their AdamW state, TP_TRAIN_STEPS steps of
+# TP_TRAIN_BATCH x TP_TRAIN_SEQ tokens; the same on one device.  Limits,
 # fixed before the first run on the card: one fp32 step at the ranks'
 # layers, its loss and gradient norm against one device's within
 # TP_TRAIN_FP32_RTOL and each leaf's gradient, gathered, within
@@ -691,6 +698,7 @@ DP_ONE_DEVICE_STATE_BYTES = 1_614_180_096
 # the bf16 steps' loss and gradient norm against one device's within
 # TP_TRAIN_BF16_RTOL, relative
 TP_TRAIN_LAYERS, TP_TRAIN_RANKS = 4, 4
+TP_TRAIN_MESHES = ((1, 4), (2, 2))
 TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 2, 1024, 3
 TP_TRAIN_FP32_RTOL, TP_TRAIN_FP32_GRAD_REL = 1e-4, 1e-3
 TP_TRAIN_BF16_RTOL = 2e-2
@@ -5767,9 +5775,9 @@ def record_step(step, params, opt_state, metrics) -> None:
 
 def record_step_leaves(step, params, opt_state, metrics) -> None:
     """``record_step``, with each parameter leaf's checksum after the
-    step (``tree_checksum``)."""
+    step (``tree_checksum``), by its ``keystr`` path."""
     record_step(step, params, opt_state, metrics)
-    STEPS_SEEN[-1]["checksums"] = {path: tree_checksum({"t": t})
+    STEPS_SEEN[-1]["checksums"] = {_keystr(path): tree_checksum({"t": t})
                                    for path, t in _paths(params)}
 
 
@@ -5970,20 +5978,45 @@ def tp_train_sums(cfg, B: int, S: int, M: int, chunk: int = 512) -> list:
     return forward + recompute + backward + [4 * n_cut]
 
 
+def tp_train_gathers(cfg, D: int, M: int) -> list:
+    """The bytes of a rank's block in each ring hop of the parameter
+    gather over the data axis that one train step over a (``D``, ``M``)
+    mesh makes (``train_loop.gather_blocks``): one entry a leaf that
+    ZeRO-1's spec cuts over the data axis, its block under the whole
+    spec (``zero1_specs``, both axes) in the parameter's dtype; each is
+    sent ``D`` - 1 times."""
+    from repro_torch.convert import tree_leaves
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import train_loop
+    ctx = shd.make_ctx(Mesh((D, M), ("data", "model")))
+    whole = tr.init_params(cfg, torch.Generator(), "meta")
+    specs = train_loop.zero1_specs(whole, cfg, ctx)["master"]
+
+    def one(path, t, spec):
+        if train_loop._data_dim(spec, ctx.data_axes) is None:
+            return 0
+        return (math.prod(shd.local_shape(tuple(t.shape), spec, ctx.mesh))
+                * t.element_size())
+    return [n for n in tree_leaves(shd.tree_map_with_path(one, whole, specs))
+            if n]
+
+
 def tp_train_report(rank, loop, params, opt_state) -> dict:
     """What ``tp_train`` reads of a rank (``launch.train.main``'s
     ``rank_report``; in this process on one device): each step's record
-    with the checksums of the leaves the rank holds whole
-    (``record_step_leaves``), each leaf's shape and bytes beside
-    ``sharding.local_shapes``', the state's bytes, the kernel launches,
-    the peak memory and the hops of the sums over the model axis."""
+    with the checksums of its leaves (``record_step_leaves``), each
+    leaf's shape and bytes beside ``sharding.local_shapes``', the state's
+    bytes and each master's shape, the kernel launches, the peak memory
+    and the hops of the sums over the model axis and of the data axis's
+    sum and gather."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import transformer as tr
     cfg, mesh = loop.model_cfg, loop.ctx.mesh
     whole = {_keystr(p): tuple(t.shape) for p, t in _paths(
         tr.init_params(cfg, torch.Generator(), "meta"))}
     local = shd.local_shapes(cfg, mesh) if mesh is not None else whole
-    steps = _steps_seen()
     leaves = {}
     for path, t in _paths(params):
         key = _keystr(path)
@@ -5991,15 +6024,31 @@ def tp_train_report(rank, loop, params, opt_state) -> dict:
                        "bytes": t.numel() * t.element_size(),
                        "local_shape": list(local[key]),
                        "whole": local[key] == whole[key]}
-    for s in steps:
-        s["checksums"] = {k: v for k, v in s["checksums"].items()
-                          if leaves[_keystr(k)]["whole"]}
-    return {"rank": rank, "steps": steps, "leaves": leaves,
+    return {"rank": rank, "steps": _steps_seen(), "leaves": leaves,
             "state_bytes": _nbytes({k: opt_state[k]
                                     for k in ("master", "m", "v")}),
+            "state_shapes": {_keystr(p): list(t.shape)
+                             for p, t in _paths(opt_state["master"])},
             "launches": launch_counts(),
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "model_sum": dataclasses.asdict(loop.hop_stats["model_sum"])}
+            **{k: dataclasses.asdict(v) for k, v in loop.hop_stats.items()}}
+
+
+def tp_train_state_shapes(cfg, D: int, M: int) -> dict:
+    """{``keystr`` path: shape} of a rank's master (and m, v) on a (``D``,
+    ``M``) mesh: ``local_shape`` of each whole leaf under ZeRO-1's whole
+    spec (``zero1_specs``, the model axis and the data axes)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import train_loop
+    ctx = shd.make_ctx(Mesh((D, M), ("data", "model")))
+    whole = tr.init_params(cfg, torch.Generator(), "meta")
+    specs = train_loop.zero1_specs(whole, cfg, ctx)["master"]
+    shapes = shd.tree_map_with_path(
+        lambda path, t, spec: shd.local_shape(tuple(t.shape), spec,
+                                              ctx.mesh), whole, specs)
+    return {_keystr(p): list(t) for p, t in _paths(shapes)}
 
 
 def tp_train_fp32(loop, dev) -> dict:
@@ -6012,7 +6061,11 @@ def tp_train_fp32(loop, dev) -> dict:
     it), and each leaf's gradient against its block of the one-device
     gradient: the squared error and the block's squared norm, summed over
     the model axis for a cut leaf (the gathered leaf's relative L2,
-    without gathering it).  Returns host values."""
+    without gathering it).  Over a data axis too, the rank takes its rows
+    of the batch and its gradients and metrics are summed over the data
+    axis with its share (``sum_over_data``, as the step does) before the
+    norm: every data rank then holds the same summed blocks.  Returns
+    host values."""
     from repro_torch.convert import tree_leaves
     from repro_torch.data.pipeline import DataConfig, batch_for_config
     from repro_torch.distributed import collectives as coll
@@ -6041,7 +6094,14 @@ def tp_train_fp32(loop, dev) -> dict:
     marks["one_device"] = time.perf_counter()
     stats = coll.HopStats()
     with coll.counting(stats, stats):
-        (loss, _), got = train_loop.value_and_grad(cfg, own, batch, ctx)
+        if train_loop.data_parallel(ctx):
+            rows, share = train_loop._rows(batch, ctx)
+            (_, metrics), got = train_loop.value_and_grad(cfg, own, rows,
+                                                          ctx)
+            got, metrics = train_loop.sum_over_data(got, metrics, share, ctx)
+            loss = metrics["loss"]
+        else:
+            (loss, _), got = train_loop.value_and_grad(cfg, own, batch, ctx)
         norm = optimizer.global_norm(
             got, cut=train_loop.cut_over_model(specs, ctx),
             model_sum=lambda t: coll.psum(t, ctx.model_axis, mesh=mesh))
@@ -6073,8 +6133,9 @@ def tp_train_fp32(loop, dev) -> dict:
 
 
 def tp_train_rank_report(rank, loop, params, opt_state) -> dict:
-    """``tp_train_report`` of a rank of ``--model-parallel``, then its
-    fp32 step (``tp_train_fp32``), in the world that trained it."""
+    """``tp_train_report`` of a rank of ``--model-parallel`` (with
+    ``--data-parallel``, if given), then its fp32 step
+    (``tp_train_fp32``), in the world that trained it."""
     report = tp_train_report(rank, loop, params, opt_state)
     report["fp32"] = tp_train_fp32(loop, _leaves(params)[0].device)
     return report
@@ -6082,24 +6143,29 @@ def tp_train_rank_report(rank, loop, params, opt_state) -> dict:
 
 def phase_tp_train() -> None:
     """h2o-danube-1.8b at full width, its first TP_TRAIN_LAYERS layers,
-    trained under dense tensor parallelism over a (1, TP_TRAIN_RANKS)
-    mesh of gloo ranks on this card.  First flash is held to its plain
-    version at the ranks' shape, forward with its lse and backward.  Then
+    trained over each (D, M) mesh of TP_TRAIN_MESHES of gloo ranks on
+    this card: dense tensor parallelism over the model axis, and over a
+    data axis too each rank's rows, the gradients summed over it and the
+    AdamW state cut by ZeRO-1.  First flash is held to its plain version
+    at each mesh's rank shape, forward with its lse and backward.  Then
     ``launch/train.py`` (its ``--full`` config cut to those layers)
     trains the bf16 model TP_TRAIN_STEPS steps on one device and with
-    ``--model-parallel`` (every step recorded through
-    ``record_step_leaves``): each step's loss and gradient norm against
-    one device's within TP_TRAIN_BF16_RTOL, and bit-equal across the
-    ranks with every leaf held whole; the printed lines; each rank's
-    leaves of ``sharding.local_shapes``' shapes; the flash launches; the
-    sums over the model axis against ``tp_train_sums``.  Then, in the
-    same world, one fp32 step (``tp_train_fp32``): the ranks' loss and
-    gradient norm against one device's within TP_TRAIN_FP32_RTOL, each
-    leaf's gradient within TP_TRAIN_FP32_GRAD_REL, the whole leaves'
-    gradients bit-equal across the ranks.  Raises on any miss, after
-    printing its line.  One card time-shares its SMs between the ranks,
-    and gloo moves every hop through pinned host memory: no speed-up is
-    expected or claimed."""
+    ``--data-parallel D --model-parallel M`` (every step recorded
+    through ``record_step_leaves``): each step's loss and gradient norm
+    against one device's within TP_TRAIN_BF16_RTOL, and bit-equal across
+    the ranks with every leaf held whole; the ranks that share a model
+    index bit-equal on every leaf; the printed lines; each rank's leaves
+    of ``sharding.local_shapes``' shapes and its state of
+    ``tp_train_state_shapes``'; the flash launches; the sums over the
+    model axis against ``tp_train_sums`` at a rank's rows, the data
+    axis's sums one a step and its gathers against ``tp_train_gathers``.
+    Then, in the same world, one fp32 step (``tp_train_fp32``): the
+    ranks' loss and gradient norm against one device's within
+    TP_TRAIN_FP32_RTOL, each leaf's gradient within
+    TP_TRAIN_FP32_GRAD_REL, the whole leaves' gradients bit-equal across
+    the ranks.  Raises on any miss, after printing its line.  One card
+    time-shares its SMs between the ranks, and gloo moves every hop
+    through pinned host memory: no speed-up is expected or claimed."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch
 
@@ -6109,31 +6175,52 @@ def phase_tp_train() -> None:
         raise RuntimeError(f"compute mode {mode!r}: {TP_TRAIN_RANKS} ranks "
                            f"cannot share the card (needs 'Default')")
     marks = {"start": time.perf_counter()}
-    M, B, S = TP_TRAIN_RANKS, TP_TRAIN_BATCH, TP_TRAIN_SEQ
+    B, S = TP_TRAIN_BATCH, TP_TRAIN_SEQ
     full = get_config(DANUBE_ARCH)
     cfg = dataclasses.replace(full, num_layers=TP_TRAIN_LAYERS)
     hd = cfg.resolved_head_dim()
-    shape = (B, S, S, cfg.num_heads // M, cfg.num_kv_heads // M, hd, True,
-             cfg.window)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    flash = {"forward": flash_layout_check(gen, shape, "danube_tp_rank",
-                                           lse=True),
-             "backward": flash_backward_entry(gen, shape, "danube_tp_rank")}
-    gc.collect()
-    torch.cuda.empty_cache()
+    flash = {}
+    for D, M in TP_TRAIN_MESHES:
+        shape = (B // D, S, S, cfg.num_heads // M, cfg.num_kv_heads // M, hd,
+                 True, cfg.window)
+        layout = "danube_tp_rank" if D == 1 else f"danube_{D}x{M}_rank"
+        flash[f"{D}x{M}"] = {
+            "forward": flash_layout_check(gen, shape, layout, lse=True),
+            "backward": flash_backward_entry(gen, shape, layout)}
+        gc.collect()
+        torch.cuda.empty_cache()
     marks["flash"] = time.perf_counter()
 
+    # what each mesh's ranks must hold and move, from the code, before
+    # the runs
+    per_step = _train_launches(cfg)
+    expected = {k: TP_TRAIN_STEPS * v for k, v in per_step.items()}
+    want = {}
+    for D, M in TP_TRAIN_MESHES:
+        sums = tp_train_sums(cfg, B // D, S, M)
+        gathers = tp_train_gathers(cfg, D, M)
+        state = tp_train_state_shapes(cfg, D, M)
+        want[f"{D}x{M}"] = {
+            "model_sum": {"hops": TP_TRAIN_STEPS * len(sums) * (M - 1),
+                          "bytes": TP_TRAIN_STEPS * sum(sums) * (M - 1)},
+            "grad_sum_hops": TP_TRAIN_STEPS if D > 1 else 0,
+            "param_gather": {
+                "hops": TP_TRAIN_STEPS * len(gathers) * (D - 1),
+                "bytes": TP_TRAIN_STEPS * sum(gathers) * (D - 1)},
+            "state_shapes": state,
+            "state_bytes": 3 * 4 * sum(math.prod(v) for v in state.values())}
+
     # the bf16 steps through the launcher (its --full config cut to the
-    # first layers), one device then the ranks, each rank then taking
-    # the fp32 step
+    # first layers), one device then each mesh's ranks, each rank then
+    # taking the fp32 step
     argv = ["--arch", DANUBE_ARCH, "--full", "--batch", str(B), "--seq",
             str(S), "--steps", str(TP_TRAIN_STEPS), "--device", "cuda"]
-    per_step = _train_launches(cfg)
     runs = {}
-    for name, extra, report in (
-            ("one_device", [], tp_train_report),
-            ("model_parallel", ["--model-parallel", str(M)],
-             tp_train_rank_report)):
+    for name, extra, report in [("one_device", [], tp_train_report)] + [
+            (f"{D}x{M}", ["--data-parallel", str(D), "--model-parallel",
+                          str(M)], tp_train_rank_report)
+            for D, M in TP_TRAIN_MESHES]:
         reset_launch_counts()
         STEPS_SEEN.clear()
         torch.cuda.reset_peak_memory_stats()
@@ -6146,6 +6233,12 @@ def phase_tp_train() -> None:
                                      on_step=record_step_leaves)
         torch.cuda.synchronize()
         lines = printed.getvalue().splitlines()
+        for r in reports:
+            for key in ("model_sum", "grad_sum", "param_gather"):
+                hop = r[key]
+                seconds = hop["host_copy_seconds"] + hop["transfer_seconds"]
+                hop["gb_per_s"] = (_gb_per_s(hop["bytes"], seconds)
+                                   if seconds else None)
         runs[name] = {
             "seconds": time.perf_counter() - t0,
             "step_seconds": [_step_seconds(r["steps"]) for r in reports],
@@ -6155,93 +6248,115 @@ def phase_tp_train() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         marks[name] = time.perf_counter()
-    one, tp = runs["one_device"], runs["model_parallel"]
+    one = runs["one_device"]
     one_steps = one["ranks"][0]["steps"]
-    bf16 = [{key: abs(mine[key] - base[key]) / abs(base[key])
-             for key in ("loss", "grad_norm")}
-            for mine, base in zip(tp["ranks"][0]["steps"], one_steps)]
-    ranks32 = [r["fp32"] for r in tp["ranks"]]
-    fp32 = {"rel": [{key: abs(r[key] - r["one_device"][key])
-                     / abs(r["one_device"][key])
-                     for key in ("loss", "grad_norm")} for r in ranks32],
-            "worst_leaf": [max(r["rel_l2"].items(), key=lambda kv: kv[1])
-                           for r in ranks32],
-            "ranks": [{k: v for k, v in r.items() if k != "rel_l2"}
-                      for r in ranks32]}
-    sums = tp_train_sums(cfg, B, S, M)
-    want_hops = {"hops": TP_TRAIN_STEPS * len(sums) * (M - 1),
-                 "bytes": TP_TRAIN_STEPS * sum(sums) * (M - 1)}
-    expected = {k: TP_TRAIN_STEPS * v for k, v in per_step.items()}
-    first = tp["ranks"][0]
-    for r in tp["ranks"]:
-        hop = r["model_sum"]
-        seconds = hop["host_copy_seconds"] + hop["transfer_seconds"]
-        hop["gb_per_s"] = _gb_per_s(hop["bytes"], seconds) if seconds else None
-    leaf_bytes = {k: [v["bytes"], v["local_shape"]]
-                  for k, v in first["leaves"].items()}
+    steps = list(range(TP_TRAIN_STEPS))
+    fields = {}
+    misses = [what for what, ok in (
+        ("one device's printed steps",
+         one["printed_steps"] == _logged(TP_TRAIN_STEPS)),
+        ("one device's summary",
+         one["summary"].endswith("on mesh {'data': 1, 'model': 1}")),
+        ("one device's launches", one["ranks"][0]["launches"] == expected),
+        ("one device's recorded steps",
+         [s["step"] for s in one_steps] == steps)) if not ok]
+    for D, M in TP_TRAIN_MESHES:
+        name = f"{D}x{M}"
+        tp, w = runs[name], want[name]
+        first = tp["ranks"][0]
+        whole = [k for k, v in first["leaves"].items() if v["whole"]]
+        bf16 = [{key: abs(mine[key] - base[key]) / abs(base[key])
+                 for key in ("loss", "grad_norm")}
+                for mine, base in zip(first["steps"], one_steps)]
+        ranks32 = [r["fp32"] for r in tp["ranks"]]
+        fp32 = {"rel": [{key: abs(r[key] - r["one_device"][key])
+                         / abs(r["one_device"][key])
+                         for key in ("loss", "grad_norm")} for r in ranks32],
+                "worst_leaf": [max(r["rel_l2"].items(), key=lambda kv: kv[1])
+                               for r in ranks32],
+                "ranks": [{k: v for k, v in r.items() if k != "rel_l2"}
+                          for r in ranks32]}
+
+        def seen(r, keys):
+            return [{"loss": s["loss"], "grad_norm": s["grad_norm"],
+                     "checksums": {k: s["checksums"][k] for k in keys}}
+                    for s in r["steps"]]
+        fields[name] = {
+            "mesh": [D, M], "flash": flash[name], "fp32_step": fp32,
+            "bf16_rel_diffs": bf16,
+            "bf16_history": [{k: s[k] for k in ("step", "loss", "grad_norm",
+                                                "lr")} for s in first["steps"]],
+            "leaf_bytes_a_rank": {k: [v["bytes"], v["local_shape"]]
+                                  for k, v in first["leaves"].items()},
+            "blocks_bytes": [sum(v["bytes"] for v in r["leaves"].values())
+                             for r in tp["ranks"]],
+            "state_bytes": [r["state_bytes"] for r in tp["ranks"]],
+            "expected_state_bytes": w["state_bytes"],
+            "max_memory_allocated": [r["max_memory_allocated"]
+                                     for r in tp["ranks"]],
+            "hops": [{k: r[k] for k in ("model_sum", "grad_sum",
+                                        "param_gather")}
+                     for r in tp["ranks"]],
+            "expected_hops": {k: w[k] for k in ("model_sum", "grad_sum_hops",
+                                                "param_gather")},
+            "run": {k: v for k, v in tp.items() if k != "ranks"}}
+        misses += [f"{name}: {what}" for what, ok in (
+            ("printed steps", tp["printed_steps"] == _logged(TP_TRAIN_STEPS)),
+            ("summary", tp["summary"].endswith(
+                f"on mesh {{'data': {D}, 'model': {M}}}")),
+            ("ranks", [r["rank"] for r in tp["ranks"]] == list(range(D * M))),
+            ("recorded steps", all([s["step"] for s in r["steps"]] == steps
+                                   for r in tp["ranks"])),
+            ("fp32 loss and gradient norm", all(
+                v <= TP_TRAIN_FP32_RTOL for d in fp32["rel"]
+                for v in d.values())),
+            ("fp32 gradients", all(v <= TP_TRAIN_FP32_GRAD_REL
+                                   for r in ranks32
+                                   for v in r["rel_l2"].values())),
+            ("fp32 whole gradients bit-equal", all(
+                r["whole_grad_checksums"] == ranks32[0]["whole_grad_checksums"]
+                for r in ranks32) and ranks32[0]["whole_grad_checksums"]),
+            ("bf16 loss and gradient norm", all(
+                v <= TP_TRAIN_BF16_RTOL for d in bf16 for v in d.values())),
+            ("finite", all(math.isfinite(s[k]) for r in tp["ranks"]
+                           for s in r["steps"] for k in ("loss", "grad_norm"))),
+            ("whole leaves bit-equal on every rank after each step", whole and
+             all(seen(r, whole) == seen(first, whole) for r in tp["ranks"])),
+            ("ranks of a model index bit-equal after each step", all(
+                seen(r, r["leaves"]) == seen(tp["ranks"][i % M], r["leaves"])
+                for i, r in enumerate(tp["ranks"]))),
+            ("local shapes", all(v["shape"] == v["local_shape"]
+                                 for r in tp["ranks"]
+                                 for v in r["leaves"].values())),
+            ("ZeRO-1 state", all(
+                r["state_shapes"] == w["state_shapes"]
+                and r["state_bytes"] == w["state_bytes"]
+                for r in tp["ranks"])),
+            ("launches", all(r["launches"] == expected for r in tp["ranks"])),
+            ("sums over the model axis", all(
+                {k: r["model_sum"][k] for k in ("hops", "bytes")}
+                == w["model_sum"] for r in tp["ranks"])),
+            ("sums over the data axis", all(
+                r["grad_sum"]["hops"] == w["grad_sum_hops"]
+                for r in tp["ranks"])),
+            ("gathers over the data axis", all(
+                {k: r["param_gather"][k] for k in ("hops", "bytes")}
+                == w["param_gather"] for r in tp["ranks"]))) if not ok]
     emit("tp_train", config=cfg.name,
          layers=f"the first {TP_TRAIN_LAYERS} of {full.num_layers}",
-         ranks=M, mesh=[1, M], batch=B, seq=S, steps=TP_TRAIN_STEPS,
-         backend="gloo", compute_mode=mode, flash=flash,
-         launches_per_step=per_step, fp32_step=fp32,
-         bf16_rel_diffs=bf16,
-         bf16_history={name: [{k: s[k] for k in ("step", "loss",
-                                                 "grad_norm", "lr")}
-                              for s in run["ranks"][0]["steps"]]
-                       for name, run in runs.items()},
+         ranks=TP_TRAIN_RANKS, batch=B, seq=S, steps=TP_TRAIN_STEPS,
+         backend="gloo", compute_mode=mode, launches_per_step=per_step,
          limits={"fp32_rtol": TP_TRAIN_FP32_RTOL,
                  "fp32_grad_rel_l2": TP_TRAIN_FP32_GRAD_REL,
                  "bf16_rtol": TP_TRAIN_BF16_RTOL},
-         leaf_bytes_a_rank=leaf_bytes,
-         blocks_bytes=[sum(v["bytes"] for v in r["leaves"].values())
-                       for r in tp["ranks"]],
-         one_device_bytes=sum(v["bytes"]
-                              for v in one["ranks"][0]["leaves"].values()),
-         state_bytes=[r["state_bytes"] for r in tp["ranks"]],
-         max_memory_allocated=[r["max_memory_allocated"]
-                               for r in tp["ranks"]],
-         model_sum=[r["model_sum"] for r in tp["ranks"]],
-         expected_model_sum=want_hops,
-         runs={name: {k: v for k, v in run.items() if k != "ranks"}
-               for name, run in runs.items()},
+         one_device={
+             "bytes": sum(v["bytes"]
+                          for v in one["ranks"][0]["leaves"].values()),
+             "history": [{k: s[k] for k in ("step", "loss", "grad_norm",
+                                            "lr")} for s in one_steps],
+             **{k: v for k, v in one.items() if k != "ranks"}},
+         meshes=fields, misses=misses,
          spans=_spans(marks), seconds=time.perf_counter() - marks["start"])
-    steps = list(range(TP_TRAIN_STEPS))
-    misses = [what for what, ok in (
-        ("printed steps", one["printed_steps"] == _logged(TP_TRAIN_STEPS)
-         and tp["printed_steps"] == _logged(TP_TRAIN_STEPS)),
-        ("summaries", one["summary"].endswith(
-            "on mesh {'data': 1, 'model': 1}") and tp["summary"].endswith(
-            f"on mesh {{'data': 1, 'model': {M}}}")),
-        ("ranks", [r["rank"] for r in tp["ranks"]] == list(range(M))),
-        ("recorded steps", all([s["step"] for s in r["steps"]] == steps
-                               for run in runs.values()
-                               for r in run["ranks"])),
-        ("fp32 loss and gradient norm", all(
-            v <= TP_TRAIN_FP32_RTOL for d in fp32["rel"] for v in d.values())),
-        ("fp32 gradients", all(v <= TP_TRAIN_FP32_GRAD_REL
-                               for r in ranks32 for v in r["rel_l2"].values())),
-        ("fp32 whole gradients bit-equal", all(
-            r["whole_grad_checksums"] == ranks32[0]["whole_grad_checksums"]
-            for r in ranks32) and ranks32[0]["whole_grad_checksums"]),
-        ("bf16 loss and gradient norm", all(
-            v <= TP_TRAIN_BF16_RTOL for d in bf16 for v in d.values())),
-        ("finite", all(math.isfinite(s[k]) for run in runs.values()
-                       for r in run["ranks"] for s in r["steps"]
-                       for k in ("loss", "grad_norm"))),
-        ("ranks bit-equal after each step", all(
-            [{k: s[k] for k in ("loss", "grad_norm", "checksums")}
-             for s in r["steps"]]
-            == [{k: s[k] for k in ("loss", "grad_norm", "checksums")}
-                for s in first["steps"]] for r in tp["ranks"])
-         and first["steps"][0]["checksums"]),
-        ("local shapes", all(v["shape"] == v["local_shape"]
-                             for r in tp["ranks"]
-                             for v in r["leaves"].values())),
-        ("launches", one["ranks"][0]["launches"] == expected and all(
-            r["launches"] == expected for r in tp["ranks"])),
-        ("sums over the model axis", all(
-            {k: r["model_sum"][k] for k in want_hops} == want_hops
-            for r in tp["ranks"]))) if not ok]
     if misses:
         raise RuntimeError(f"tp_train: missed {misses}")
 

@@ -7,8 +7,8 @@ a checkpoint every 100 steps and a second run resumes from the newest.
 It runs on the GPU unless `--device cpu` is given; without a GPU it
 stops with an error.
 
-`--data-parallel N` or `--model-parallel M` trains on a mesh of N data
-ranks or of M model ranks: the launcher starts the processes itself
+`--data-parallel N` and `--model-parallel M` train on a mesh of N data
+ranks by M model ranks: the launcher starts the N x M processes itself
 (`distributed/world.py::run_world`, `gloo`, a rendezvous directory under
 a fresh temporary directory that it removes, a time limit of
 WORLD_TIMEOUT_S), each builds `make_host_mesh(N, M)` and its ctx and runs
@@ -17,13 +17,16 @@ card, the kernels' library built once before the ranks start).  Over
 data ranks each rank takes its rows of the global batch, the gradients
 are summed over the ranks in fp32, and the optimizer state is cut by
 ZeRO-1; over model ranks each rank holds its `param_specs` blocks of the
-parameters and their state and runs the whole batch under dense tensor
-parallelism (`train/train_loop.py`).  The lines printed are rank 0's
-history, the summary ending `on mesh {'data': N, 'model': M}`.
+parameters and runs under dense tensor parallelism; over both, each rank
+takes its rows and its model blocks, the gradients of the blocks are
+summed over the data ranks that share its model index, and ZeRO-1 cuts
+the blocks' state over them (`train/train_loop.py`).  The lines printed
+are rank 0's history, the summary ending `on mesh {'data': N, 'model':
+M}`.
 
-These raise before any rank starts, each naming its ROADMAP item: both
-axes above 1 (A10.2c-train-2d); a Mixture-of-Experts model over either
-(A10.2b-moe); over a model axis, an RG-LRU, SSD or encoder-decoder model
+These raise before any rank starts, each naming its ROADMAP item: a
+Mixture-of-Experts model over any mesh (A10.2b-moe); over a model axis
+above 1, whatever the data axis, an RG-LRU, SSD or encoder-decoder model
 (A10.2c-train-rec) and `--ckpt-dir` (A10.2c-train-ckpt).
 """
 import argparse
@@ -59,10 +62,6 @@ def _train_rank(rank: int, world_size: int, cfg, dc, tc, mesh_shape,
 def _refuse(cfg, mesh: dict, ckpt_dir) -> None:
     """The meshes and models the ranks cannot train, before any starts."""
     D, M = mesh["data"], mesh["model"]
-    if D > 1 and M > 1:
-        raise NotImplementedError(
-            f"mesh {mesh}: a data axis and a model axis both above 1 is "
-            "ROADMAP A10.2c-train-2d")
     if D * M > 1 and cfg.moe is not None:
         raise NotImplementedError(
             f"mesh {mesh}: Mixture-of-Experts training over a mesh is "

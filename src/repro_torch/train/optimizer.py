@@ -19,12 +19,14 @@ norm of the whole summed tree passed in as ``grad_norm``.  The update is
 elementwise, so a rank's blocks come out as the blocks of the whole
 tree's update, to the bit.
 
-Dense tensor parallelism (``train/train_loop.py`` over a (1, M) mesh):
+Dense tensor parallelism (``train/train_loop.py`` over a model axis):
 each rank holds its ``param_specs`` blocks of the parameters and their
 state and calls ``apply_updates`` on them, with the norm of the whole
 gradient (``global_norm`` with ``cut`` and ``model_sum``) as
 ``grad_norm``: every rank clips alike, and a leaf held whole is updated
-alike on every rank.
+alike on every rank.  Over a data axis too, the state is the ZeRO-1
+blocks of the rank's model blocks, and the norm is that of the summed
+model blocks.
 """
 from __future__ import annotations
 

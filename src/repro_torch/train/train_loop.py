@@ -16,8 +16,8 @@ weights are drawn from ``torch.Generator(device)`` seeded with ``seed``
 (the reference draws from ``jax.random.PRNGKey(seed)``).
 
 Data parallelism with ZeRO-1.  Under a ``ctx`` whose mesh has data axes
-of product n > 1 (and a model axis of 1), the step runs in each rank of
-the mesh, as GSPMD runs the reference's over its devices:
+of product n > 1, the step runs in each rank of the mesh, as GSPMD runs
+the reference's over its devices:
 
   * the loop draws the **global** batch; each rank takes its rows
     (``sharding.batch_specs`` and ``local_shard``);
@@ -38,15 +38,13 @@ the ranks gather the state and rank 0 writes it; on resume every rank
 reads the whole tree and takes its blocks (``checkpoint.reshard``).  So
 a checkpoint moves between one device and any data mesh.
 
-Dense tensor parallelism.  Under a ``ctx`` whose mesh is (1, M), M > 1
-(a data axis of 1 and a model axis of M), the step runs in each rank of
-the model axis on the whole batch:
+Dense tensor parallelism.  Under a ``ctx`` whose model axis is M > 1,
+the step runs in each rank of the model axis:
 
   * the loop draws the whole tree as one device does and each rank keeps
     its ``sharding.param_specs`` blocks (attention by heads, the dense
     MLP by ``d_ff``, the vocabulary by rows and columns; ``reshard``), so
-    the ranks start from the one-device weights; the AdamW state is the
-    blocks' own;
+    the ranks start from the one-device weights;
   * the forward sums each cut product over the model axis and the
     backward sums the gradient of each whole input to one
     (``models/transformer.py``): each rank's gradients are its blocks of
@@ -57,16 +55,29 @@ the model axis on the whole batch:
     rank clips alike, updates its own blocks, and updates a whole leaf
     as every other rank does; the metrics are the same on every rank.
 
+Both at once.  Over a (D, M) mesh with D > 1 and M > 1 the two combine,
+each rank on its rows and on its model blocks: the gradients of the
+blocks are summed over the data axes' sub-groups (the ranks that share
+its model index), the norm is the model axis's over the summed blocks,
+and ZeRO-1 cuts each rank's model blocks over the data axes
+(``zero1_specs``: the model axis on a leaf's cut dimension and the data
+axes on the first free dimension they divide).  A rank holds its data
+block of its model block of the masters, m and v, and the data ranks
+gather the updated blocks back into the model block.  Over a data axis
+alone the model blocks are the whole leaves; over a model axis alone the
+state is the blocks' own.
+
 The hops over the model axis (the sums and the loss's gather of row
-maxima) are counted in ``stats["model_sum"]`` (``collectives.counting``).
-Each of these raises, naming its ROADMAP item:
-a mesh with a data axis and a model axis both above 1 (A10.2c-train-2d);
-a checkpoint directory or ``compress_grads="int8"`` over a model axis
-above 1 (A10.2c-train-ckpt: the checkpoint is the whole tree, and the
-int8 row scales are the whole leaf's, so both need the blocks gathered
-over the model axis); the RG-LRU, SSD, cross-attention and encoder blocks
-(A10.2c-train-rec) and Mixture-of-Experts layers (A10.2b-moe) under
-autograd over a model axis (``models/transformer.py``).
+maxima) are counted in ``stats["model_sum"]`` (``collectives.counting``),
+those over the data axes in ``stats["grad_sum"]`` and
+``stats["param_gather"]``.  Each of these raises, naming its ROADMAP
+item: a checkpoint directory or ``compress_grads="int8"`` over a model
+axis above 1 (A10.2c-train-ckpt: the checkpoint is the whole tree, and
+the int8 row scales are the whole leaf's, so both need the blocks
+gathered over the model axis); the RG-LRU, SSD, cross-attention and
+encoder blocks (A10.2c-train-rec) and Mixture-of-Experts layers
+(A10.2b-moe) under autograd over a model axis
+(``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -120,26 +131,16 @@ def value_and_grad(model_cfg, params, batch, ctx: ShardCtx = LOCAL_CTX,
 # --------------------------------------------------------------------------
 def data_parallel(ctx: Optional[ShardCtx]) -> bool:
     """Whether ``ctx`` spreads the batch over ranks: a mesh whose data
-    axes' product is above 1.  Raises where the model axis is above 1
-    too (ROADMAP A10.2c-train-2d)."""
+    axes' product is above 1 (whatever its model axis)."""
     if ctx is None or ctx.mesh is None:
         return False
-    n = math.prod(ctx.mesh.shape[a] for a in ctx.data_axes)
-    if n > 1 and ctx.model_size > 1:
-        raise NotImplementedError(
-            f"training over a mesh {dict(ctx.mesh.shape)}: a data axis and "
-            f"a model axis both above 1 (ZeRO-1 over the data axes of each "
-            f"rank's param_specs blocks) is ROADMAP A10.2c-train-2d")
-    return n > 1
+    return math.prod(ctx.mesh.shape[a] for a in ctx.data_axes) > 1
 
 
 def model_parallel(ctx: Optional[ShardCtx]) -> bool:
-    """Whether ``ctx`` cuts the model over a model axis above 1 (with a
-    data axis of 1: ``data_parallel`` raises for both)."""
-    if ctx is None or ctx.mesh is None or ctx.model_size == 1:
-        return False
-    data_parallel(ctx)
-    return True
+    """Whether ``ctx`` cuts the model over a model axis above 1 (whatever
+    its data axes)."""
+    return ctx is not None and ctx.mesh is not None and ctx.model_size > 1
 
 
 def model_specs(model_cfg, ctx: ShardCtx):
@@ -176,12 +177,28 @@ def _refuse_model_state(train_cfg: TrainConfig, ctx: ShardCtx) -> None:
 def zero1_specs(params, model_cfg, ctx: ShardCtx):
     """The optimizer state's specs under ``ctx``'s mesh:
     ``sharding.opt_state_specs`` over the reference's ``param_specs``
-    ({"step", "master", "m", "v"})."""
+    ({"step", "master", "m", "v"}): each leaf's model axis on its cut
+    dimension, the data axes on the first free dimension they divide.
+    ``params`` is the whole tree (or its ``meta`` shapes)."""
     pspecs = sharding.param_specs(params, model_cfg, ctx.mesh,
                                   ctx.model_axis)
     return sharding.opt_state_specs(
         {"master": params, "m": params, "v": params}, pspecs, ctx.mesh,
         ctx.data_axes)
+
+
+def state_specs(model_cfg, ctx: ShardCtx):
+    """ZeRO-1's specs of a rank's optimizer state on its model blocks:
+    ``zero1_specs`` of the whole tree (drawn on the ``meta`` device) with
+    every entry that names the model axis set to ``None``, so only the
+    data axes cut (``local_shard`` with the whole spec on a model block
+    would cut the model dimension a second time)."""
+    def data_only(path, spec):
+        return sharding.P(*(None if ctx.model_axis in (
+            e if isinstance(e, tuple) else (e,)) else e for e in spec))
+    return sharding.tree_map_with_path(data_only, zero1_specs(
+        tr.init_params(model_cfg, torch.Generator(), "meta"), model_cfg,
+        ctx))
 
 
 def _rows(batch, ctx: ShardCtx):
@@ -236,11 +253,13 @@ def _data_dim(spec, data_axes) -> Optional[int]:
 
 def gather_blocks(blocks, specs, ctx: ShardCtx,
                   stats: collectives.HopStats = None):
-    """The whole leaves of a tree of which every rank holds its blocks
-    under ``specs`` (ZeRO-1's: only data axes cut): each cut dimension is
-    moved to the front, gathered over its axes (the innermost first, so
-    the blocks fall in ``local_shard``'s order) and moved back.  A leaf
-    that is not cut is already whole and comes back as it is."""
+    """Each rank's model blocks (the whole leaves where the model axis is
+    1) from the data blocks it and the ranks of its data axes hold under
+    ``specs`` (ZeRO-1's): each dimension cut over data axes is moved to
+    the front, gathered over its axes (the innermost first, so the
+    blocks fall in ``local_shard``'s order) and moved back.  Only data
+    axes are gathered, whatever the model entries of ``specs``.  A leaf
+    that is not cut over them comes back as it is."""
     def one(path, block, spec):
         dim = _data_dim(spec, ctx.data_axes)
         if dim is None:
@@ -255,8 +274,9 @@ def gather_blocks(blocks, specs, ctx: ShardCtx,
 
 
 def local_blocks(tree, specs, ctx: ShardCtx):
-    """This rank's blocks of the whole ``tree`` under ``specs``, as
-    views."""
+    """This rank's blocks of ``tree`` under ``specs``, as views: of the
+    whole tree under whole specs, or of the rank's model blocks under
+    ``state_specs`` (its data blocks of them, ZeRO-1's)."""
     return sharding.tree_map_with_path(
         lambda path, t, s: sharding.local_shard(t, s, ctx.mesh), tree, specs)
 
@@ -265,21 +285,36 @@ def make_train_step(model_cfg, train_cfg: TrainConfig,
                     ctx: ShardCtx = LOCAL_CTX, kernels=None,
                     stats: Optional[Dict[str, collectives.HopStats]] = None
                     ) -> Callable:
-    """The step function; the optimizer state is updated in place.  Under
-    a data mesh (``data_parallel(ctx)``) it takes the global batch and
-    this rank's ZeRO-1 blocks of the state (``zero1_specs``), and counts
-    its hops in ``stats["grad_sum"]`` and ``stats["param_gather"]`` when
-    ``stats`` is given.  Over a model axis (``model_parallel(ctx)``) it
-    takes the whole batch, this rank's ``param_specs`` blocks of the
-    parameters and their state, and counts the sums over the model axis
-    in ``stats["model_sum"]``.  Building it makes no collective."""
+    """The step function; the optimizer state is updated in place.
+
+    Under a data mesh (``data_parallel(ctx)``) it takes the global batch
+    and this rank's ZeRO-1 blocks of the state (``state_specs``); over a
+    model axis (``model_parallel(ctx)``) this rank's ``param_specs``
+    blocks of the parameters.  Over both, a step: this rank's rows
+    (``_rows``); the gradients of its model blocks under ``ctx`` (the
+    sums over the model axis forward and backward; every rank of a model
+    group computes the same loss and metrics); ``sum_over_data`` of the
+    gradients and metrics scaled by the rank's share of the ``mask`` sum;
+    the global norm of the summed blocks over the model axis
+    (``global_norm`` with ``cut``: after the data sum every data rank
+    holds the same blocks, so no sum of squares over the data axes is
+    needed); AdamW on the rank's data block of its model block; the
+    blocks gathered over the data axes, back into the model block.
+
+    With ``stats``, the hops over the data axes count in
+    ``stats["grad_sum"]`` and ``stats["param_gather"]``, those over the
+    model axis in ``stats["model_sum"]``.  Building it makes no
+    collective."""
     opt_cfg = train_cfg.optimizer
     dp = data_parallel(ctx)
     tp = model_parallel(ctx)
     stats = stats or {}
+    cut = model_sum = None
     if dp:
-        specs = zero1_specs(tr.init_params(model_cfg, torch.Generator(),
-                                           "meta"), model_cfg, ctx)["master"]
+        specs = state_specs(model_cfg, ctx)["master"]
+        # the gather counts in stats of its own: a ring_all_gather given
+        # none would count in ``counting``'s, the model axis's
+        param_gather = stats.get("param_gather") or collectives.HopStats()
     if tp:
         _refuse_model_state(train_cfg, ctx)
         cut = cut_over_model(model_specs(model_cfg, ctx), ctx)
@@ -306,20 +341,15 @@ def make_train_step(model_cfg, train_cfg: TrainConfig,
             from repro_torch.distributed.compression import compress_tree_int8
             grads, comp_err = compress_tree_int8(grads)
             metrics = dict(metrics, compression_err=comp_err)
+        norm = global_norm(grads, cut=cut, model_sum=model_sum)
         if dp:
             blocks, opt_state, opt_metrics = apply_updates(
                 opt_cfg, local_blocks(params, specs, ctx),
-                local_blocks(grads, specs, ctx), opt_state,
-                grad_norm=global_norm(grads))
-            params = gather_blocks(blocks, specs, ctx,
-                                   stats.get("param_gather"))
-        elif tp:
-            params, opt_state, opt_metrics = apply_updates(
-                opt_cfg, params, grads, opt_state, grad_norm=global_norm(
-                    grads, cut=cut, model_sum=model_sum))
+                local_blocks(grads, specs, ctx), opt_state, grad_norm=norm)
+            params = gather_blocks(blocks, specs, ctx, param_gather)
         else:
             params, opt_state, opt_metrics = apply_updates(
-                opt_cfg, params, grads, opt_state)
+                opt_cfg, params, grads, opt_state, grad_norm=norm)
         metrics = dict(metrics, **opt_metrics)
         return params, opt_state, metrics
 
@@ -342,11 +372,11 @@ class TrainLoop:
 
     def init_or_resume(self, seed: int = 0):
         """(params, opt_state, start step): drawn from ``seed``, or the
-        newest checkpoint's.  Under a data mesh every rank draws (or
-        reads) the whole tree and keeps its ZeRO-1 blocks of the state;
-        over a model axis every rank draws the whole tree and keeps its
-        ``param_specs`` blocks of the parameters, whose state it
-        starts."""
+        newest checkpoint's.  Every rank draws (or reads) the whole tree;
+        over a model axis it keeps its ``param_specs`` blocks (``reshard``)
+        and starts their state; under a data mesh it keeps its ZeRO-1
+        blocks of that state (``state_specs``: over both axes, its data
+        blocks of its model blocks')."""
         dev = resolve_device(self.device)
         tp = model_parallel(self.ctx)
         if tp:
@@ -356,10 +386,9 @@ class TrainLoop:
         if tp:
             params = ckpt_lib.reshard(params, sharding.named(
                 self.ctx.mesh, model_specs(self.model_cfg, self.ctx)), dev)
-            return params, init_opt_state(params), 0
         opt_state = init_opt_state(params)
         start_step = 0
-        if self.train_cfg.checkpoint_dir:
+        if self.train_cfg.checkpoint_dir:      # never over a model axis
             try:
                 step, tree, _ = ckpt_lib.restore(
                     self.train_cfg.checkpoint_dir,
@@ -370,9 +399,8 @@ class TrainLoop:
             except FileNotFoundError:
                 pass
         if data_parallel(self.ctx):
-            specs = zero1_specs(params, self.model_cfg, self.ctx)
-            opt_state = ckpt_lib.reshard(
-                opt_state, sharding.named(self.ctx.mesh, specs), dev)
+            opt_state = ckpt_lib.reshard(opt_state, sharding.named(
+                self.ctx.mesh, state_specs(self.model_cfg, self.ctx)), dev)
         return params, opt_state, start_step
 
     def _save(self, step: int, params, opt_state) -> None:
@@ -380,7 +408,7 @@ class TrainLoop:
         gather the state's blocks and rank 0 writes."""
         tree = {"params": params, "opt": opt_state}
         if data_parallel(self.ctx):
-            specs = zero1_specs(params, self.model_cfg, self.ctx)
+            specs = state_specs(self.model_cfg, self.ctx)
             tree["opt"] = dict(opt_state, **{
                 k: gather_blocks(opt_state[k], specs[k], self.ctx)
                 for k in ("master", "m", "v")})

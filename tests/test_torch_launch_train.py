@@ -121,39 +121,38 @@ def test_main_prints_the_reference_history(fp32_from_the_reference,
 @pytest.mark.parametrize("flag", [
     pytest.param("--data-parallel", marks=pytest.mark.multidevice),
     pytest.param("--model-parallel", marks=pytest.mark.multidevice),
-    "both"])
+    pytest.param("both", marks=pytest.mark.multidevice)])
 def test_a_mesh_above_one_device_raises(flag, monkeypatch):
     """The reference clamps the mesh to the devices it finds; the port
-    never trains on fewer than were asked for.  A data axis of 2, or a
-    model axis of 2, trains in 2 ``gloo`` ranks that the launcher starts
-    itself, on the port's own init (reduced smollm-135m in fp32): the
-    reference's lines with ``{'data': 2, 'model': 1}`` or ``{'data': 1,
-    'model': 2}``, and a history within rtol 1e-4 of the one-device
-    ``main``'s (the same global batch and tokens; over data ranks the
-    gradient summed over the ranks in fp32, over model ranks each rank
-    on its blocks, the sums over the model axis in fp32).  Both axes at 2
-    raise (ROADMAP A10.2c-train-2d) before any rank starts."""
+    never trains on fewer than were asked for (the name is from when a
+    mesh above one device raised: each case now trains on the whole mesh
+    it asks for).  A data axis of 2, a model axis of 2, or both trains in
+    the 2 or 4 ``gloo`` ranks that the launcher starts itself, on the
+    port's own init (reduced smollm-135m in fp32): the reference's lines
+    with ``{'data': 2, 'model': 1}``, ``{'data': 1, 'model': 2}`` or
+    ``{'data': 2, 'model': 2}``, and a history within rtol 1e-4 of the
+    one-device ``main``'s (the same global batch and tokens; over data
+    ranks the gradient summed over the ranks in fp32, over model ranks
+    each rank on its blocks, the sums over the model axis in fp32; over
+    both, each rank on its rows and its blocks)."""
     argv = ARGS + ["--steps", "10", "--device", "cpu"]
-    if flag == "both":
-        monkeypatch.setattr(launch, "run_world", _no_world)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A10.2c-train-2d"):
-            launch.main(argv + ["--data-parallel", "2",
-                                "--model-parallel", "2"])
-        return
+    flags = {"--data-parallel": ["--data-parallel", "2"],
+             "--model-parallel": ["--model-parallel", "2"],
+             "both": ["--data-parallel", "2", "--model-parallel", "2"]}
+    mesh = {"--data-parallel": (2, 1), "--model-parallel": (1, 2),
+            "both": (2, 2)}[flag]
     monkeypatch.setattr(launch, "reduced_config", _fp32(reduced_config))
     one, _ = _run(launch.main, argv)
-    hist, lines = _run(launch.main, argv + [flag, "2"])
+    hist, lines = _run(launch.main, argv + flags[flag])
     assert [h["step"] for h in hist] == [h["step"] for h in one] == [0, 9]
     for key, rtol in (("loss", 1e-4), ("grad_norm", 1e-4), ("lr", 1e-6)):
         np.testing.assert_allclose([h[key] for h in hist],
                                    [h[key] for h in one], rtol=rtol)
     assert [r[0] for r in _steps(lines)] == [0, 9]
-    mesh = ("\\{'data': 2, 'model': 1\\}" if flag == "--data-parallel"
-            else "\\{'data': 1, 'model': 2\\}")
     assert re.fullmatch(
         rf"{reduced_config(ARCH).name}: loss \d+\.\d{{3}} -> \d+\.\d{{3}} "
-        rf"over 10 steps on mesh {mesh}", lines[-1])
+        rf"over 10 steps on mesh \{{'data': {mesh[0]}, 'model': {mesh[1]}\}}",
+        lines[-1])
 
 
 def _no_world(*args, **kwargs):
@@ -177,12 +176,15 @@ def test_a_moe_model_over_a_data_mesh_raises_before_any_rank_starts(
     ("mamba2-780m", [], "A10.2c-train-rec"),
     ("seamless-m4t-medium", [], "A10.2c-train-rec"),
     ("olmoe-1b-7b", [], "A10.2b-moe"),
-    (ARCH, ["--ckpt-dir", "unused"], "A10.2c-train-ckpt")])
+    (ARCH, ["--ckpt-dir", "unused"], "A10.2c-train-ckpt"),
+    (ARCH, ["--data-parallel", "2", "--ckpt-dir", "unused"],
+     "A10.2c-train-ckpt")])
 def test_what_a_model_axis_cannot_train_raises_before_any_rank_starts(
         arch, extra, item, monkeypatch):
-    """Over a model axis of 2: RG-LRU, SSD and encoder-decoder models
-    (their blocks' backward over the axis), a Mixture-of-Experts model,
-    and a checkpoint directory each raise naming their ROADMAP item."""
+    """Over a model axis of 2 (with a data axis of 1, or of 2): RG-LRU,
+    SSD and encoder-decoder models (their blocks' backward over the
+    axis), a Mixture-of-Experts model, and a checkpoint directory each
+    raise naming their ROADMAP item."""
     monkeypatch.setattr(launch, "run_world", _no_world)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         launch.main(["--arch", arch, "--batch", "2", "--seq", "16",

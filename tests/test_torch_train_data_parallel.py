@@ -434,21 +434,31 @@ def test_gather_puts_the_blocks_back_in_local_shard_s_layout(run):
 
 
 def test_a_model_axis_above_one_raises():
-    """A data axis and a model axis both above 1 raise (ROADMAP
-    A10.2c-train-2d); a model axis alone builds a step (dense tensor
-    parallelism, ``tests/test_torch_train_tensor_parallel.py``) without
-    a collective."""
+    """A data axis and a model axis both at 2 build a step without a
+    collective, ``data_parallel`` and ``model_parallel`` both true (the
+    name is from when that mesh raised; what still raises over a model
+    axis above 1, with a data axis of 2 too, is a checkpoint directory
+    or ``compress_grads="int8"``, ROADMAP A10.2c-train-ckpt).  A model
+    axis alone builds a step (dense tensor parallelism,
+    ``tests/test_torch_train_tensor_parallel.py``), as a data axis
+    alone does."""
     cfg = _cfg(CKPT_ARCH)
     ctx = sharding.make_ctx(Mesh((2, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="A10.2c-train-2d"):
-        train_loop.make_train_step(cfg, _tc(), ctx)
-    with pytest.raises(NotImplementedError, match="A10.2c-train-2d"):
-        train_loop.data_parallel(ctx)
+    assert callable(train_loop.make_train_step(cfg, _tc(), ctx))
+    assert train_loop.data_parallel(ctx)
+    assert train_loop.model_parallel(ctx)
+    for tc in (_tc(compress="int8"), _tc(ckpt_dir="unused")):
+        with pytest.raises(NotImplementedError, match="A10.2c-train-ckpt"):
+            train_loop.make_train_step(cfg, tc, ctx)
+        with pytest.raises(NotImplementedError, match="A10.2c-train-ckpt"):
+            train_loop.TrainLoop(cfg, _dc(cfg), tc, ctx=ctx,
+                                 device="cpu").init_or_resume()
     ctx = sharding.make_ctx(Mesh((1, 2), ("data", "model")))
     assert callable(train_loop.make_train_step(cfg, _tc(), ctx))
     assert not train_loop.data_parallel(ctx)
     assert train_loop.model_parallel(ctx)
     assert not train_loop.data_parallel(
         sharding.make_ctx(Mesh((1, 1), ("data", "model"))))
-    assert train_loop.data_parallel(
-        sharding.make_ctx(Mesh((2, 1), ("data", "model"))))
+    ctx = sharding.make_ctx(Mesh((2, 1), ("data", "model")))
+    assert train_loop.data_parallel(ctx)
+    assert not train_loop.model_parallel(ctx)
